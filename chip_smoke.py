@@ -1,0 +1,437 @@
+"""Chip smoke test of the PyTorch/CUDA port (egopose_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure exits non-zero:
+
+  device       card name (torch) and name + power limit (nvidia-smi)
+  build        nvcc build of the control-step kernel from csrc/
+  k1_vs_plain  the kernel against the plain split path on the card, one
+               control step (15 substeps) at R=3 (B=1024, B=4) and R=2
+               (remainder group), on contact-rich states drawn from a numpy
+               seed: f64 max-abs <= 1e-9, f32 RMS qpos <= 1e-6 and qvel
+               <= 1e-4 with finite outputs
+  k1_time      kernel and plain version timed with CUDA events (median of
+               >= 20 launches after warm-up) at B=1024 and B=4, f32, with
+               the bound of the same work on this card
+  eval         the port's main path: ego_mimic_eval --cfg subject_03
+               --synthetic --iter 3000 in f32 on the card (4 takes x 380
+               steps), then eval_pose's compute_stats; asserts one kernel
+               launch per step, num_reset <= 3, every take's average
+               reward >= 0.80, pose_dist <= 0.50, all finite; times the
+               steady-state steps WINDOW
+  eval_profile the same eval again under torch.profiler, recording only
+               the steps WINDOW: device time by kernel, kernels launched
+               per step, device busy share of the window's wall time
+  kernels      every kernel of the port with its TPU counterpart, launches
+               on the main path, error against the plain version and times
+
+The last two lines are the card's name and power limit and then
+{"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints no
+result.  Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
+N_FRAMES = 15                 # substeps per 30 Hz control step
+
+
+def emit(phase, **kw):
+    print(json.dumps(dict(phase=phase, **kw)), flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError("nvidia-smi failed: " + out.stderr)
+    return out.stdout.strip().splitlines()[0]
+
+
+def load_world(dtype, device):
+    import torch
+    import yaml
+    from egopose_tpu_torch.physics import model as pmodel
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    spec = parse_mjcf(os.path.join(REPO, "assets", "mujoco_models",
+                                   "humanoid_1205_v1.xml"))
+    m = pmodel.build_model(spec, dtype=dtype, device=device)
+    cfg = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
+                                           "subject_03.yml")))
+    jp = list(zip(*cfg["joint_params"]))
+    mult = cfg["jkp_multiplier"]
+    gains = [torch.tensor(np.array(jp[i], float) * s, dtype=dtype,
+                          device=device)
+             for i, s in ((1, mult), (2, mult), (5, 1.0))]
+    return spec, m, gains
+
+
+def contact_states(spec, m, bsz, seed, dtype, device):
+    """Standing and crouched poses with random tilt, velocities and
+    flailing arms, lowered so the lowest floor candidate of each lane
+    penetrates by 3-10 mm: floor rows active, pair rows active where limbs
+    cross, and depths continuous (no top-K ties)."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    from egopose_tpu_torch.ops import quat as Q
+    rng = np.random.RandomState(seed)
+    names = spec.jnt_names
+    q = np.zeros((bsz, spec.nq))
+    tilt = rng.normal(0.0, 0.03, (bsz, 3))
+    q[:, 3:7] = np.c_[np.ones(bsz), 0.5 * tilt]
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    q[:, 7:] = rng.uniform(-0.15, 0.15, (bsz, spec.nq - 7))
+    crouch = np.arange(bsz) % 2 == 1
+    for side in ("Right", "Left"):
+        q[crouch, 7 + names.index(side + "UpLeg_x")] -= rng.uniform(
+            0.6, 1.0, crouch.sum())
+        q[crouch, 7 + names.index(side + "Leg_x")] += rng.uniform(
+            0.9, 1.5, crouch.sum())
+        for ax in "xyz":
+            q[:, 7 + names.index(f"{side}Arm_{ax}")] += rng.uniform(
+                -1.2, 1.2, bsz)
+        q[:, 7 + names.index(side + "ForeArm_z")] += rng.uniform(
+            -1.5, 1.5, bsz)
+    qt = torch.tensor(q, dtype=torch.float64, device=device)
+    m64 = m if m.dtype == torch.float64 else None
+    if m64 is None:
+        from egopose_tpu_torch.physics import model as pmodel
+        m64 = pmodel.build_model(spec, dtype=torch.float64, device=device)
+    kin = engine.fk(m64, qt)
+    pts = kin.xpos[:, m64.cpoint_body] + Q.quat_rotate(
+        kin.xquat[:, m64.cpoint_body], m64.cpoint_local)
+    lowest = torch.amin(pts[..., 2] - m64.cpoint_radius, 1).cpu().numpy()
+    q[:, 2] -= lowest + rng.uniform(0.003, 0.010, bsz)
+    v = np.zeros((bsz, spec.ndof))
+    v[:, :3] = rng.normal(0, 0.2, (bsz, 3))
+    v[:, 3:6] = rng.normal(0, 0.3, (bsz, 3))
+    v[:, 6:] = rng.normal(0, 0.8, (bsz, spec.ndof - 6))
+    ctrl = q[:, 7:] + rng.normal(0, 0.1, (bsz, spec.nu))
+    t = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    return t(q), t(v), t(ctrl)
+
+
+def active_rows(m, qpos, params):
+    """Mean active floor and pair contact rows per lane at the state."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    jf, _, _ = engine.contact_blocks(m, engine.fk(m, qpos), params)
+    k = min(params.max_contacts, m.ncpoint)
+    act = torch.any(jf != 0, dim=2).to(torch.float64)
+    return (float(act[:, 2 * k:3 * k].sum(1).mean()),
+            float(act[:, 3 * k:].sum(1).mean()))
+
+
+def run_pair(m, gains, q, v, ctrl, params):
+    """(kernel, plain) outputs of one control step on the same inputs."""
+    from egopose_tpu_torch.physics import engine, substep
+    jkp, jkd, tl = gains
+    bsz = q.shape[0]
+    lane = lambda x: x.expand(bsz, -1).contiguous()
+    out_k = substep.pd_control_step_cuda(m, q, v, ctrl, lane(jkp), lane(jkd),
+                                         lane(tl), N_FRAMES, params)
+    out_p = engine.pd_control_step_split(m, q, v, ctrl, jkp, jkd, tl,
+                                         N_FRAMES, params)
+    return out_k, out_p
+
+
+def phase_k1_vs_plain(device):
+    import torch
+    from egopose_tpu_torch.physics import engine
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        spec, m, gains = load_world(dtype, device)
+        for bsz, r, seed in ((1024, 3, 0), (4, 3, 1), (64, 2, 2)):
+            params = engine.DEFAULT_CONTACT._replace(prep_refresh=r)
+            q, v, ctrl = contact_states(spec, m, bsz, seed, dtype, device)
+            floor_rows, pair_rows = active_rows(m, q, params)
+            (qk, vk), (qp, vp) = run_pair(m, gains, q, v, ctrl, params)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(qk).all() and torch.isfinite(vk).all())
+            dq, dv = (qk - qp).double(), (vk - vp).double()
+            rec = dict(dtype=str(dtype).split(".")[1], B=bsz, R=r,
+                       finite=finite,
+                       active_floor_normals=floor_rows,
+                       active_pair_rows=pair_rows,
+                       max_abs_qpos=float(dq.abs().max()),
+                       max_abs_qvel=float(dv.abs().max()),
+                       rms_qpos=float(dq.pow(2).mean().sqrt()),
+                       rms_qvel=float(dv.pow(2).mean().sqrt()))
+            if dtype == torch.float64:
+                ok = finite and rec["max_abs_qpos"] <= 1e-9 \
+                    and rec["max_abs_qvel"] <= 1e-9
+            else:
+                ok = finite and rec["rms_qpos"] <= 1e-6 \
+                    and rec["rms_qvel"] <= 1e-4
+            emit("k1_vs_plain", ok=ok, **rec)
+            if not ok:
+                raise AssertionError(f"kernel disagrees with plain: {rec}")
+            key = rec["dtype"]
+            worst[key] = max(worst.get(key, 0.0), rec["max_abs_qpos"],
+                             rec["max_abs_qvel"])
+    return worst
+
+
+def k1_work(m, dims_nnz, table_bytes, bsz, itemsize, n_frames, r, floor_rows,
+            pair_rows):
+    """(bytes, flops) the control step must move / do for ``bsz`` lanes:
+    state, controls and gains in, state out, model tables read once;
+    operations from the model's tree tables, the prep once per group of R
+    substeps, and only the contact rows active in the inputs."""
+    nd, nb, nq, nu = m.ndof, m.nbody, m.nq, m.nu
+    nbytes = bsz * (nq + nd + 4 * nu) * itemsize \
+        + bsz * (nq + nd) * itemsize + table_bytes
+    c = 3 * floor_rows + pair_rows            # active contact rows
+    groups = -(-n_frames // r)
+    prep = (150 * (nd - 6) + 190 * nb                 # FK, inertias
+            + 12 * dims_nnz + 60 * nd                  # CRBA rows, diag
+            + 200 * nb + 60 * nd                       # RNEA
+            + 30 * m.ncpoint + 120 * m.npair + 400 * m.nbpair
+            + 12 * c * nd                              # Jacobian rows
+            + 2 * (2 * dims_nnz * 10)                  # two tree factors
+            + 2 * c * dims_nnz + c * c * nd)           # Y, Delassus
+    sub = (20 * nd + 3 * 4 * dims_nnz                  # rhs, three solves
+           + 4 * c * nd + 10 * 2 * c * c + 20 * nd)    # sweep, v, integrate
+    return nbytes, bsz * (groups * prep + n_frames * sub)
+
+
+def time_ms(fn, n=25, warm=5):
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def phase_k1_time(device):
+    import torch
+    from egopose_tpu_torch.physics import engine, substep
+    spec, m, gains = load_world(torch.float32, device)
+    jkp, jkd, tl = gains
+    params = engine.DEFAULT_CONTACT
+    dims, itab, ftab = substep.build_tables(m, params)
+    table_bytes = itab.size * 4 + ftab.size * 4
+    out = {}
+    for bsz in (1024, 4):
+        q, v, ctrl = contact_states(spec, m, bsz, 10 + bsz,
+                                    torch.float32, device)
+        lane = lambda x: x.expand(bsz, -1).contiguous()
+        gk = (lane(jkp), lane(jkd), lane(tl))
+        kern = lambda: substep.pd_control_step_cuda(m, q, v, ctrl, *gk,
+                                                    N_FRAMES, params)
+        plain = lambda: engine.pd_control_step_split(
+            m, q, v, ctrl, jkp, jkd, tl, N_FRAMES, params)
+        floor_rows, pair_rows = active_rows(m, q, params)
+        nbytes, flops = k1_work(m, dims["nnz"], table_bytes, bsz, 4, N_FRAMES,
+                                params.prep_refresh, floor_rows, pair_rows)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        rec = dict(B=bsz, dtype="float32", R=params.prep_refresh,
+                   ms=time_ms(kern), plain_ms=time_ms(plain, n=20, warm=2),
+                   bytes=nbytes, flops=flops,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes > t_ops else "operations",
+                   library_ms=None)
+        rec["env_steps_per_s"] = bsz / rec["ms"] * 1e3
+        emit("k1_time", **rec)
+        out[bsz] = rec
+    return out
+
+
+@contextlib.contextmanager
+def eval_workdir(env=None):
+    """A scratch working directory for the eval CLI, which reads config/
+    and results/<...>/models relative to it and writes results/ and logs
+    there; ``env`` variables are set for the duration."""
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.symlink(os.path.join(REPO, "config"), os.path.join(tmp, "config"))
+        models = os.path.join(tmp, "results", "egomimic", "subject_03")
+        os.makedirs(models)
+        os.symlink(os.path.join(REPO, "results", "egomimic", "subject_03",
+                                "models"), os.path.join(models, "models"))
+        os.environ.update(env or {})
+        os.chdir(tmp)
+        try:
+            yield
+        finally:
+            os.chdir(cwd)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+
+EVAL_ARGS = ["--cfg", "subject_03", "--synthetic", "--iter", "3000"]
+# Steady-state steps [lo, hi) of the 380-step eval that are timed (phase
+# eval) and profiled (phase eval_profile): past the first steps' warm-up
+# and between the expert syncs at t % 100 == 0.
+WINDOW = (110, 160)
+
+
+def window_hook(marks, after=None):
+    """An eval step hook: at the window's edges (after steps lo-1 and
+    hi-1) it waits for the card and stamps the host clock into ``marks``;
+    then it calls ``after`` (the profiler's step)."""
+    import torch
+    lo, hi = WINDOW
+
+    def hook(t):
+        if t in (lo - 1, hi - 1):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        if after is not None:
+            after()
+    return hook
+
+
+def phase_eval(device):
+    import torch
+    from egopose_tpu_torch.cli import ego_mimic_eval
+    from egopose_tpu_torch.cli.eval_pose import compute_stats
+    from egopose_tpu_torch.physics import substep
+    marks = []
+    with eval_workdir():
+        substep.reset_launches()
+        t0 = time.time()
+        results, meta = ego_mimic_eval.main(
+            EVAL_ARGS + ["--device", str(device)],
+            step_hook=window_hook(marks))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = substep.launches
+        stats = compute_stats(results)
+    steps = meta["steps"]
+    rewards = meta["avg_reward"]
+    finite = bool(all(np.isfinite(np.asarray(a)).all()
+                      for key in ("traj_pred", "vel_pred")
+                      for a in results[key].values())
+                  and np.isfinite(stats["pose_dist"]))
+    rec = dict(frames_per_sec=meta["frames_per_sec"], wall_s=wall,
+               window=list(WINDOW),
+               window_step_ms=(marks[1] - marks[0]) * 1e3
+               / (WINDOW[1] - WINDOW[0]),
+               steps=steps, launches=launches, num_reset=meta["num_reset"],
+               avg_reward=rewards, pose_dist=stats["pose_dist"],
+               vel_dist=stats["vel_dist"], accel=stats["accel"],
+               finite=finite)
+    ok = bool(launches == steps and meta["num_reset"] <= 3
+              and min(rewards.values()) >= 0.80
+              and stats["pose_dist"] <= 0.50 and finite)
+    emit("eval", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"eval out of bounds: {rec}")
+    return rec
+
+
+def phase_eval_profile(device, step_ms=None):
+    """torch.profiler over the steady-state window of the full eval (4
+    takes x 380 steps; only steps WINDOW recorded, no setup): device time
+    by kernel, CUDA kernels launched per step, and the device's busy share
+    of the window's wall time, profiled and (from phase eval's
+    ``window_step_ms``) unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from egopose_tpu_torch.cli import ego_mimic_eval
+    lo, hi = WINDOW
+    saved, marks = [], []
+    with eval_workdir():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=lo - 5, warmup=5,
+                                       active=hi - lo, repeat=1),
+                     on_trace_ready=lambda p: saved.append(
+                         p.key_averages())) as prof:
+            ego_mimic_eval.main(EVAL_ARGS + ["--device", str(device)],
+                                step_hook=window_hook(marks, prof.step))
+    # device activity only: kernels and copies, not the profiler's own
+    # per-step range (reported on the device too)
+    dev = [e for e in saved[0]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    dtime = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+    n = hi - lo
+    dev_ms = sum(dtime(e) for e in dev) / 1e3 / n
+    wall_ms = (marks[1] - marks[0]) * 1e3 / n
+    top = sorted(dev, key=dtime, reverse=True)[:6]
+    emit("eval_profile", window=[lo, hi],
+         device_ms_per_step=dev_ms, profiled_step_ms=wall_ms,
+         device_busy_share_profiled=dev_ms / wall_ms,
+         unprofiled_step_ms=step_ms,
+         device_busy_share=dev_ms / step_ms if step_ms else None,
+         kernels_per_step=sum(e.count for e in dev) / n,
+         control_step_kernels=sum(e.count for e in dev
+                                  if "substep_kernel" in e.key),
+         top=[dict(name=e.key[:60], ms_per_step=dtime(e) / 1e3 / n,
+                   per_step=e.count / n) for e in top])
+
+
+def main():
+    only = sys.argv[sys.argv.index("--only") + 1].split(",") \
+        if "--only" in sys.argv else None
+    want = lambda p: only is None or p in only
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    import egopose_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from egopose_tpu_torch.physics import substep
+    device = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    t0 = time.time()
+    lib = substep.build(verbose=True)
+    emit("build", seconds=time.time() - t0, library=os.path.relpath(lib, REPO))
+    errs = phase_k1_vs_plain(device) if want("k1_vs_plain") else {}
+    times = phase_k1_time(device) if want("k1_time") else {}
+    ev = phase_eval(device) if want("eval") else None
+    if want("eval_profile"):
+        phase_eval_profile(device, ev["window_step_ms"] if ev else None)
+    if only is None:
+        t4 = times[4]
+        print(json.dumps({"kernels": [dict(
+            name="substep_control_step", route="cuda",
+            source="egopose_tpu_torch/csrc/substep.cu",
+            replaces="egopose_tpu/physics/substep_pallas.py:694",
+            launches=ev["launches"], max_abs_err=errs["float32"],
+            ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"],
+            bound_by=t4["bound_by"], library_ms=None)]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,272 @@
+"""Ego-mimic evaluation: the product inference path (counterpart of
+egopose_tpu/cli/ego_mimic_eval.py).
+
+Rolls the trained policy (mean actions) through every test take at once --
+the takes are the batch -- with the value-based fail-safe re-anchoring a
+take to the state prediction when the critic signals failure.  Each step
+runs all takes through ``envs.step``, whose physics is one launch of the
+CUDA control-step kernel on the card.
+
+    python -m egopose_tpu_torch.cli.ego_mimic_eval --cfg subject_03 \\
+        --synthetic --iter 3000 [--device cuda|cpu] [--f64]
+
+Writes results/egomimic/<cfg>/results/iter_%04d_<data>[_tags].p as
+(results, meta) with results {traj_pred, traj_orig, vel_pred[,
+traj_orig_synced]} keyed by take, the JAX package's layout.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+
+def kinematic_state_pred(expert, take_idx):
+    """State prediction when no trained state net exists: the ground-truth
+    kinematic state in the statereg layout (de-headed qpos[2:] ++
+    heading-frame finite-difference qvel), (T, nq-2+nv)."""
+    from ..ops import math_utils as M
+    qpos = expert.qpos[take_idx]
+    qvel_fd = M.get_qvel_fd(qpos[:-1], qpos[1:], 1 / 30.0, "heading")
+    qvel_fd = torch.cat([qvel_fd, qvel_fd[-1:]], 0)
+    pos = torch.cat([qpos[:, 2:3], M.de_heading(qpos[:, 3:7]), qpos[:, 7:]],
+                    1)
+    return torch.cat([pos, qvel_fd], 1)
+
+
+def _select(mask, a, b):
+    """Per-lane choice between two EnvStates (or tensors)."""
+    if isinstance(a, tuple):
+        return type(a)(*[_select(mask, x, y) for x, y in zip(a, b)])
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def main(argv=None, step_hook=None):
+    """``step_hook(t)``, if given, is called after each step t of the timed
+    rollout loop (to time or profile a window of steady-state steps)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cfg", default=None)
+    parser.add_argument("--render", action="store_true", default=False)
+    parser.add_argument("--iter", type=int, default=0)
+    parser.add_argument("--expert-ind", type=int, default=-1)
+    parser.add_argument("--sync", action="store_true", default=False)
+    parser.add_argument("--causal", action="store_true", default=False)
+    parser.add_argument("--data", default="test")
+    parser.add_argument("--show-noise", action="store_true", default=False)
+    parser.add_argument("--fail-safe", default="valuefs",
+                        choices=["valuefs", "naivefs", "nofs"])
+    parser.add_argument("--synthetic", action="store_true", default=False)
+    parser.add_argument("--f64", action="store_true", default=False,
+                        help="evaluate in float64 (parity runs); default f32")
+    parser.add_argument("--engine", default="torch",
+                        choices=["torch", "mujoco"])
+    parser.add_argument("--profile-dir", default=None)
+    parser.add_argument("--sp-devices", type=int, default=None)
+    parser.add_argument("--device", default=None,
+                        help="torch device; default cuda (raises without "
+                             "CUDA), cpu runs the plain PyTorch path")
+    args = parser.parse_args(argv)
+    for flag, on in (("--engine mujoco", args.engine == "mujoco"),
+                     ("--profile-dir", args.profile_dir is not None),
+                     ("--sp-devices", args.sp_devices is not None),
+                     ("--render", args.render)):
+        if on:
+            raise NotImplementedError(f"{flag} is not ported yet")
+
+    from .. import envs, resolve_device
+    from ..ops import math_utils as M
+    from ..ops import quat as Q
+    from ..ops import running_norm
+    from ..physics import substep
+    from ..rl.agent_ego import AgentEgo
+    from ..utils.config import EgoMimicConfig
+    from ..utils.log import create_logger
+    from .ego_mimic import build_world
+
+    device = resolve_device(args.device)
+    dtype = torch.float64 if args.f64 else torch.float32
+    cfg = EgoMimicConfig(args.cfg, create_dirs=False)
+    logger = create_logger(os.path.join(cfg.log_dir, "log_eval.txt"))
+    np.random.seed(cfg.seed)
+
+    t0 = time.time()
+    if device.type == "cuda":
+        substep.build()               # nvcc at first use, outside the loop
+    t_build = time.time() - t0
+
+    spec, model, tables, p, expert, cnn_feat = build_world(
+        cfg, dtype, device, synthetic=args.synthetic, data=args.data)
+    takes = cfg.takes[args.data] if cfg.takes[args.data] else \
+        [f"take_{i}" for i in range(expert.qpos.shape[0])]
+    if args.expert_ind >= 0:
+        i0 = args.expert_ind
+        expert = type(expert)(*[x[i0:i0 + 1] for x in expert])
+        cnn_feat = cnn_feat[i0:i0 + 1]
+        takes = [takes[i0] if i0 < len(takes) else f"take_{i0}"]
+    agent = AgentEgo(spec, p, cnn_feat.shape[-1], cfg, seed=cfg.seed,
+                     dtype=dtype, device=device)
+    cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
+    if os.path.exists(cp_path):
+        logger.info("loading policy net from checkpoint: %s" % cp_path)
+        agent.load(cp_path)
+    else:
+        logger.info("no checkpoint at %s -- evaluating untrained policy"
+                    % cp_path)
+
+    n_takes = expert.qpos.shape[0]
+    m = cfg.fr_margin
+    test_lens = (expert.lens - 2 * m).cpu().numpy()
+    t_max = int(test_lens.max())
+    test_lens_t = torch.as_tensor(test_lens, device=device)
+
+    if getattr(cfg, "state_net_cfg", None) and \
+            os.path.exists(getattr(cfg, "state_net_model", "")):
+        raise NotImplementedError(
+            "the trained state-regression net is not ported yet "
+            f"({cfg.state_net_model})")
+    state_preds = torch.stack([kinematic_state_pred(expert, i)
+                               for i in range(n_takes)])
+
+    with torch.no_grad():
+        feats = torch.as_tensor(cnn_feat).to(device=device, dtype=dtype)
+        if args.causal:
+            v_out_p = agent.policy_vs_net.causal_encode(feats)
+            v_out_v = agent.value_vs_net.causal_encode(feats)
+        else:
+            v_out_p = agent.policy_vs_net(feats)
+            v_out_v = agent.value_vs_net(feats)
+
+    def reset_to_pred(st, pred_row):
+        """Take the predicted state, aligned to the sim's xy and heading."""
+        ref = st.qpos
+        nq = p.nq
+        qpos = torch.cat([ref[:, :2], pred_row[:, :nq - 2]], 1)
+        qvel = pred_row[:, nq - 2:].clone()
+        hq = M.get_heading_q(ref[:, 3:7])
+        qpos[:, 3:7] = Q.quat_mul(hq, qpos[:, 3:7])
+        qvel[:, :3] = Q.quat_rotate(hq, qvel[:, :3])
+        bq = envs.get_body_quat(tables, qpos)
+        return st._replace(qpos=qpos, qvel=qvel, prev_qpos=qpos,
+                           prev_bquat=bq, bquat=bq)
+
+    take_idx = torch.arange(n_takes, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    st = envs.reset(model, p, tables, expert, gen, n_takes,
+                    fix_expert_ind=take_idx, fix_start_ind=m)
+    st = reset_to_pred(st, state_preds[:, m])
+    fix_head_lb = 0.3 if args.fail_safe == "naivefs" else None
+    sync_interval = int(getattr(cfg, "sync_exp_interval", 100))
+    noise_gen = torch.Generator(device=device)
+    noise_gen.manual_seed(cfg.seed)
+
+    vstat_n = torch.zeros(n_takes, dtype=dtype, device=device)
+    vstat_mean = torch.zeros(n_takes, dtype=dtype, device=device)
+    n_reset = torch.zeros(n_takes, dtype=torch.int64, device=device)
+    rel_h = torch.tensor([1.0, 0, 0, 0], dtype=dtype,
+                         device=device).repeat(n_takes, 1)
+    start_p = torch.zeros(n_takes, 3, dtype=dtype, device=device)
+    sim_p = torch.zeros(n_takes, 3, dtype=dtype, device=device)
+    rec_q, rec_v, rec_r, rec_sync = [], [], [], []
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.time()
+    with torch.no_grad():
+        for t in range(t_max):
+            active = t < test_lens_t
+            e_qpos_t = expert.qpos[:, m + t]
+            if t % sync_interval == 0:
+                # sync_expert: re-anchor the expert's heading/xy to the sim
+                rel_h = Q.quat_mul(M.get_heading_q(st.qpos[:, 3:7]),
+                                   Q.quat_inv(M.get_heading_q(
+                                       e_qpos_t[:, 3:7])))
+                start_p = e_qpos_t[:, :3]
+                sim_p = torch.cat([st.qpos[:, :2], e_qpos_t[:, 2:3]], 1)
+            rec_sync.append(torch.cat([
+                Q.quat_rotate(rel_h, e_qpos_t[:, :3] - start_p) + sim_p,
+                Q.quat_mul(rel_h, e_qpos_t[:, 3:7]), e_qpos_t[:, 7:]], 1))
+            rec_q.append(st.qpos)
+            rec_v.append(st.qvel)
+            zobs = running_norm.apply(agent.zstat, envs.observe(p, st),
+                                      clip=5.0)
+            action, log_std = agent.policy_net(
+                torch.cat([v_out_p[:, t], zobs], -1))
+            if args.show_noise:
+                action = action + torch.exp(log_std) * torch.randn(
+                    action.shape, generator=noise_gen, device=device,
+                    dtype=dtype)
+            value = agent.value_net(torch.cat([v_out_v[:, t], zobs], -1))
+            vstat_n = vstat_n + active
+            vstat_mean = vstat_mean + torch.where(
+                active, (value - vstat_mean) / torch.clamp(vstat_n, min=1),
+                torch.zeros_like(value))
+
+            new_st, out = envs.step(model, p, tables, expert, st, action,
+                                    0.0, fix_head_lb=fix_head_lb)
+            if args.fail_safe == "valuefs":
+                trigger = value < 0.6 * vstat_mean
+            elif args.fail_safe == "naivefs":
+                trigger = out.fail
+            else:
+                trigger = torch.zeros_like(active)
+            trigger = trigger & active & (t + 1 < test_lens_t)
+            resetted = reset_to_pred(new_st, state_preds[:, m + t + 1])
+            new_st = _select(trigger, resetted, new_st)
+            st = _select(active, new_st, st)        # frozen once inactive
+            n_reset = n_reset + trigger.to(torch.int64)
+            rec_r.append(out.reward)
+            if step_hook is not None:
+                step_hook(t)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.time() - t0
+    n_frames = int(test_lens.sum())
+    logger.info("eval rollout: %d frames over %d takes on %s -- kernel "
+                "build %.2fs, execute %.2fs = %.0f frames/s"
+                % (n_frames, n_takes, device, t_build, wall,
+                   n_frames / max(wall, 1e-9)))
+
+    to_np = lambda xs: torch.stack(xs).cpu().numpy()   # (T, B, ...)
+    qpos_traj, qvel_traj = to_np(rec_q), to_np(rec_v)
+    rewards, sync_traj = to_np(rec_r), to_np(rec_sync)
+    n_reset = n_reset.cpu().numpy()
+    expert_qpos = expert.qpos.cpu().numpy()
+    traj_pred, traj_orig, vel_pred, orig_sync, avg_reward = {}, {}, {}, {}, {}
+    for i in range(n_takes):
+        take = takes[i] if i < len(takes) else f"take_{i}"
+        tl = int(test_lens[i])
+        traj_pred[take] = qpos_traj[:tl, i]
+        vel_pred[take] = qvel_traj[:tl, i]
+        traj_orig[take] = expert_qpos[i, m:m + tl]
+        orig_sync[take] = sync_traj[:tl, i]
+        avg_reward[take] = float(rewards[:tl, i].mean())
+        logger.info("take %s: len %d resets %d avg reward %.4f"
+                    % (take, tl, n_reset[i], avg_reward[take]))
+
+    results = {"traj_pred": traj_pred, "traj_orig": traj_orig,
+               "vel_pred": vel_pred}
+    if args.sync:
+        results["traj_orig_synced"] = orig_sync
+    meta = {"algo": "ego_mimic", "num_reset": int(n_reset.sum()),
+            "frames_per_sec": n_frames / max(wall, 1e-9),
+            "compile_s": t_build, "engine": args.engine,
+            "device": str(device), "steps": t_max,
+            "avg_reward": avg_reward}
+    fs_tag = "" if args.fail_safe == "valuefs" else "_" + args.fail_safe
+    c_tag = "_causal" if args.causal else ""
+    res_path = "%s/iter_%04d_%s%s%s.p" % (cfg.result_dir, args.iter,
+                                          args.data, fs_tag, c_tag)
+    os.makedirs(cfg.result_dir, exist_ok=True)
+    with open(res_path, "wb") as f:
+        pickle.dump((results, meta), f)
+    logger.info("num reset: %d" % int(n_reset.sum()))
+    logger.info("saved results to %s" % res_path)
+    return results, meta
+
+
+if __name__ == "__main__":
+    main()

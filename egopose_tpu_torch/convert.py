@@ -1,0 +1,90 @@
+"""Weights carried across from the JAX package.
+
+``params_from_jax`` turns the flax parameter trees of an ego-mimic agent
+(nested dicts of numpy arrays, as the JAX package pickles them) into the
+port's ``state_dict``s.  ``load_checkpoint_pickle`` reads the committed
+``results/egomimic/<cfg>/models/iter_*.p`` without importing the JAX
+package: the one class those pickles reference,
+``egopose_tpu.ops.running_norm.RunningStat``, resolves to the port's own.
+"""
+from __future__ import annotations
+
+import importlib
+import pickle
+
+import numpy as np
+import torch
+
+from .ops.running_norm import RunningStat
+
+_CLASS_MAP = {("egopose_tpu.ops.running_norm", "RunningStat"): RunningStat}
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Maps the JAX package's RunningStat to the port's; refuses any other
+    class of the JAX package.  Pickles written by numpy >= 2 name
+    ``numpy._core``; older numpy reads them through ``numpy.core``."""
+
+    def find_class(self, module, name):
+        if (module, name) in _CLASS_MAP:
+            return _CLASS_MAP[(module, name)]
+        if module.split(".")[0] == "egopose_tpu":
+            raise pickle.UnpicklingError(
+                f"checkpoint references {module}.{name}, which the port "
+                "does not map")
+        if module.startswith("numpy._core"):
+            try:
+                importlib.import_module(module)
+            except ImportError:
+                module = "numpy.core" + module[len("numpy._core"):]
+        return super().find_class(module, name)
+
+
+def load_checkpoint_pickle(path: str) -> dict:
+    """Load an ego-mimic checkpoint pickle (our format: flax trees + a
+    RunningStat) with numpy leaves, importing nothing of the JAX package.
+    Only load checkpoints this project wrote: unpickling runs code."""
+    with open(path, "rb") as f:
+        return _CheckpointUnpickler(f).load()
+
+
+def _params(tree):
+    return tree["params"] if "params" in tree else tree
+
+
+def _linear(sd, prefix, dense):
+    """flax Dense {kernel (in,out), bias} -> torch Linear (out,in)."""
+    sd[prefix + ".weight"] = torch.as_tensor(
+        np.ascontiguousarray(np.asarray(dense["kernel"]).T))
+    sd[prefix + ".bias"] = torch.as_tensor(np.asarray(dense["bias"]))
+
+
+def _mlp(sd, prefix, net):
+    n = len([k for k in net if k.startswith("Dense_")])
+    for i in range(n):
+        _linear(sd, f"{prefix}.layers.{i}", net[f"Dense_{i}"])
+
+
+def _vsnet(tree):
+    sd = {}
+    v_net = _params(tree)["v_net"]
+    for cell in ("rnn_f", "rnn_b"):
+        if cell in v_net:
+            for gate in ("ih", "hh"):
+                _linear(sd, f"v_net.{cell}.{gate}", v_net[cell][gate])
+    return sd
+
+
+def params_from_jax(policy, policy_vs, value, value_vs):
+    """flax trees of (PolicyGaussian, VideoStateNet, Value, VideoStateNet)
+    -> the port's state_dicts in the same order."""
+    p = _params(policy)
+    sd_p = {}
+    _mlp(sd_p, "net", p["net"])
+    _linear(sd_p, "action_mean", p["action_mean"])
+    sd_p["action_log_std"] = torch.as_tensor(np.asarray(p["action_log_std"]))
+    v = _params(value)
+    sd_v = {}
+    _mlp(sd_v, "net", v["net"])
+    _linear(sd_v, "value_head", v["value_head"])
+    return sd_p, _vsnet(policy_vs), sd_v, _vsnet(value_vs)

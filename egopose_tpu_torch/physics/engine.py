@@ -1,0 +1,481 @@
+"""Batched rigid-body dynamics in plain PyTorch: the split path.
+
+Counterpart of egopose_tpu/physics/engine.py.  Every function takes a
+leading batch dimension B written out (the JAX engine is per-environment
+under ``vmap``).  This is the plain version of the CUDA control-step kernel
+(csrc/substep.cu, wrapped by physics/substep.py): CPU callers run it, and
+chip_smoke.py holds the kernel against it on the card.
+
+Conventions match MuJoCo (and the JAX engine): qvel[0:3] world-frame linear
+velocity of the root frame origin, qvel[3:6] body-local angular velocity.
+Spatial vectors are [omega; v_O], spatial forces [n_O; f].
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import quat as Q
+from .model import PhysicsModel, golden_min01
+
+cross = Q.cross
+
+
+class Kin(NamedTuple):
+    """World-frame kinematic state of all bodies (batched)."""
+    xpos: torch.Tensor    # (B,nb,3) body frame origins
+    xquat: torch.Tensor   # (B,nb,4) body frame orientations
+    com: torch.Tensor     # (B,nb,3) body coms (world)
+    s: torch.Tensor       # (B,nd,6) joint motion subspaces (world)
+
+
+class ContactParams(NamedTuple):
+    """Contact-solver / joint-limit parameters; the same defaults as
+    egopose_tpu.physics.engine.ContactParams.  Its resident-kernel flag and
+    fused Pallas variants are not part of the port: the tensor's device
+    picks the kernel or the split path (pd_control_step)."""
+    margin: float = 1.0e-3   # activation margin (m)
+    beta: float = 0.2        # Baumgarte penetration-recovery factor
+    slop: float = 1.0e-4     # penetration allowed without correction (m)
+    iters: int = 10          # projected-Jacobi iterations
+    relax: float = 1.0       # relaxation of the row-sum-scaled sweep
+    max_contacts: int = 6    # top-K deepest floor points kept per substep
+    max_pair_contacts: int = 6  # top-KP deepest body-body pairs (normal-only
+                             # rows; 0 disables self-collision)
+    klim: float = 200.0      # joint-limit stiffness (N m / rad)
+    blim: float = 5.0        # joint-limit damping (N m s / rad)
+    prep_refresh: int = 1    # recompute FK / mass matrix / bias / contact
+                             # geometry (and their factorizations) every
+                             # `prep_refresh`-th substep; PD error, limits,
+                             # solves, sweep and integration use fresh q/v
+
+
+# Same defaults as the JAX engine: prep-refresh R=3.
+DEFAULT_CONTACT = ContactParams(prep_refresh=3)
+
+
+# ---------------------------------------------------------------------------
+# forward kinematics (loop over tree depth, batched within a level)
+# ---------------------------------------------------------------------------
+
+def fk(m: PhysicsModel, qpos: torch.Tensor) -> Kin:
+    """World pose of every body + joint motion subspaces.  Within a body,
+    hinges apply sequentially about their local axis/anchor (MuJoCo)."""
+    nb, nd = m.nbody, m.ndof
+    bsz = qpos.shape[0]
+    dt = qpos.dtype
+    qpos_pad = torch.cat([qpos, qpos.new_zeros(bsz, 1)], 1)
+    # one dummy tail row so padded slots write nowhere
+    xpos = qpos.new_zeros(bsz, nb + 1, 3)
+    xquat = qpos.new_zeros(bsz, nb + 1, 4)
+    xquat[..., 0] = 1.0
+    s = qpos.new_zeros(bsz, nd + 1, 6)
+
+    root_q = Q.quat_normalize(qpos[:, 3:7])
+    r0t = Q.quat_to_mat(root_q).transpose(-1, -2)     # rows = local axes
+    xpos[:, 0] = qpos[:, :3]
+    xquat[:, 0] = root_q
+    s[:, 0:3, 3:] = torch.eye(3, dtype=dt, device=qpos.device)
+    s[:, 3:6, :3] = r0t
+    s[:, 3:6, 3:] = cross(qpos[:, None, :3].expand(bsz, 3, 3), r0t)
+
+    for body, parent, bodypos, axis, anchor, qidx, didx in m.levels:
+        wq = xquat[:, parent]                          # (B,n,4)
+        wt = xpos[:, parent] + Q.quat_rotate(wq, bodypos)
+        for k in range(3):                             # hinge slots
+            a = axis[:, k]
+            c = anchor[:, k]
+            angle = qpos_pad[:, qidx[:, k]]            # (B,n)
+            axis_w = Q.quat_rotate(wq, a)
+            anchor_w = wt + Q.quat_rotate(wq, c)
+            s[:, didx[:, k]] = torch.cat([axis_w, cross(anchor_w, axis_w)],
+                                         -1)
+            wq = Q.quat_mul(wq, Q.axis_angle_to_quat(a, angle))
+            wt = anchor_w - Q.quat_rotate(wq, c)
+        xpos[:, body] = wt
+        xquat[:, body] = wq
+    xpos, xquat, s = xpos[:, :nb], xquat[:, :nb], s[:, :nd]
+    com = xpos + Q.quat_rotate(xquat, m.body_ipos)
+    return Kin(xpos=xpos, xquat=xquat, com=com, s=s)
+
+
+def subtree_com(m: PhysicsModel, kin: Kin) -> torch.Tensor:
+    """Whole-model center of mass (B,3)."""
+    return torch.sum(m.body_mass[:, None] * kin.com, 1) / torch.sum(
+        m.body_mass)
+
+
+# ---------------------------------------------------------------------------
+# velocities / inertias
+# ---------------------------------------------------------------------------
+
+def spatial_inertia_world(m: PhysicsModel, kin: Kin) -> torch.Tensor:
+    """Per-body world-frame inertia about the body com (B,nb,3,3)."""
+    r = Q.quat_to_mat(kin.xquat)
+    return torch.einsum("nbij,bjk,nblk->nbil", r, m.body_inertia, r)
+
+
+def _apply_inertia(mass, com, ic, v):
+    """I * v for the spatial inertia about the world origin."""
+    w, vo = v[..., :3], v[..., 3:]
+    p = mass[..., None] * (vo + cross(w, com))
+    n = torch.einsum("...ij,...j->...i", ic, w) + cross(com, p)
+    return torch.cat([n, p], -1)
+
+
+def _cross_motion(a, b):
+    wa, va = a[..., :3], a[..., 3:]
+    wb, vb = b[..., :3], b[..., 3:]
+    return torch.cat([cross(wa, wb), cross(wa, vb) + cross(va, wb)], -1)
+
+
+def _cross_force(v, f):
+    w, vl = v[..., :3], v[..., 3:]
+    n, fl = f[..., :3], f[..., 3:]
+    return torch.cat([cross(w, n) + cross(vl, fl), cross(w, fl)], -1)
+
+
+# ---------------------------------------------------------------------------
+# CRBA mass matrix and RNEA bias
+# ---------------------------------------------------------------------------
+
+def crba(m: PhysicsModel, kin: Kin) -> torch.Tensor:
+    """Composite-rigid-body mass matrix (B,nd,nd), including armature."""
+    ic_c = spatial_inertia_world(m, kin)
+    eye = torch.eye(3, dtype=kin.xpos.dtype, device=kin.xpos.device)
+    c = kin.com
+    io = ic_c + m.body_mass[:, None, None] * (
+        torch.sum(c * c, -1)[..., None, None] * eye
+        - c[..., :, None] * c[..., None, :])
+    mom = m.body_mass[:, None] * c
+    cmass = m.body_desc_mask @ m.body_mass
+    cmom = m.body_desc_mask @ mom
+    cio = torch.einsum("bc,ncij->nbij", m.body_desc_mask, io)
+    db = list(m.dof_body)
+    w, vo = kin.s[..., :3], kin.s[..., 3:]
+    cm_d, cmom_d, cio_d = cmass[db], cmom[:, db], cio[:, db]
+    p = cm_d[:, None] * vo + cross(w, cmom_d)
+    n = torch.einsum("ndij,ndj->ndi", cio_d, w) + cross(cmom_d, vo)
+    f = torch.cat([n, p], -1)                           # (B,nd,6)
+    u = f @ kin.s.transpose(-1, -2)
+    mm = m.anc_mask * u + m.anc_mask.T * (1.0 - m.anc_mask) * u.transpose(
+        -1, -2)
+    return mm + torch.diag(m.dof_armature)
+
+
+def bias_force(m: PhysicsModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
+    """qfrc_bias (B,nd): gravity + Coriolis/centrifugal, MuJoCo's
+    data.qfrc_bias (RNEA with the precomputed vp_mask for S-dot q-dot)."""
+    ic_c = spatial_inertia_world(m, kin)
+    sq = kin.s * qvel[..., None]
+    v = m.body_dof_mask @ sq                            # (B,nb,6)
+    v_frame = m.vp_mask @ sq
+    cj = _cross_motion(v_frame, sq)
+    a0 = torch.cat([m.gravity.new_zeros(3), -m.gravity])
+    a = a0 + m.body_dof_mask @ cj
+    iv = _apply_inertia(m.body_mass, kin.com, ic_c, v)
+    ia = _apply_inertia(m.body_mass, kin.com, ic_c, a)
+    f = ia + _cross_force(v, iv)
+    ftot = m.body_dof_mask.T @ f                        # (B,nd,6)
+    return torch.sum(kin.s * ftot, -1)
+
+
+# ---------------------------------------------------------------------------
+# contacts (floor plane + body-body pairs) and joint limits
+# ---------------------------------------------------------------------------
+
+def pair_candidates(m: PhysicsModel, kin: Kin):
+    """Body-body candidates, one per enabled geom pair: depth phi (B,PP)
+    (positive = overlapping), normal n (B,PP,3) from body2/box toward
+    body1/segment, contact point p (B,PP,3).  Segment-box distance is a
+    fixed-budget golden-section search (model.golden_min01)."""
+    eps = 1e-12
+    outs = []
+    if m.npair:
+        q1, x1 = kin.xquat[:, m.pair_body1], kin.xpos[:, m.pair_body1]
+        q2, x2 = kin.xquat[:, m.pair_body2], kin.xpos[:, m.pair_body2]
+        a1 = x1 + Q.quat_rotate(q1, m.pair_a1)
+        b1 = x1 + Q.quat_rotate(q1, m.pair_b1)
+        a2 = x2 + Q.quat_rotate(q2, m.pair_a2)
+        b2 = x2 + Q.quat_rotate(q2, m.pair_b2)
+        # closest points between segments (Ericson 5.1.9, branch-free)
+        d1, d2, r = b1 - a1, b2 - a2, a1 - a2
+        A = torch.sum(d1 * d1, -1)
+        E = torch.sum(d2 * d2, -1)
+        B = torch.sum(d1 * d2, -1)
+        C = torch.sum(d1 * r, -1)
+        F = torch.sum(d2 * r, -1)
+        denom = A * E - B * B
+        s = torch.clamp((B * F - C * E) / torch.clamp(denom, min=eps), 0, 1)
+        t = torch.clamp((B * s + F) / torch.clamp(E, min=eps), 0, 1)
+        s = torch.clamp((B * t - C) / torch.clamp(A, min=eps), 0, 1)
+        c1 = a1 + s[..., None] * d1
+        c2 = a2 + t[..., None] * d2
+        diff = c1 - c2
+        dist = torch.sqrt(torch.sum(diff * diff, -1))
+        n = diff / torch.clamp(dist, min=1e-9)[..., None]
+        phi = m.pair_rsum - dist
+        p = 0.5 * (c1 + c2) - 0.5 * m.pair_rdiff[:, None] * n
+        outs.append((phi, n, p))
+    if m.nbpair:
+        qs, xs = kin.xquat[:, m.bpair_body_seg], kin.xpos[:, m.bpair_body_seg]
+        qb, xb = kin.xquat[:, m.bpair_body_box], kin.xpos[:, m.bpair_body_box]
+        qw = Q.quat_mul(qb, m.bpair_boxquat)           # box world orientation
+        cb = xb + Q.quat_rotate(qb, m.bpair_boxpos)
+        aw = xs + Q.quat_rotate(qs, m.bpair_a)
+        bw = xs + Q.quat_rotate(qs, m.bpair_b)
+        al = Q.quat_rotate_inv(qw, aw - cb)            # segment in box frame
+        bl = Q.quat_rotate_inv(qw, bw - cb)
+        h = m.bpair_half
+
+        def sdist(t):
+            qq = al + t[..., None] * (bl - al)
+            dout = torch.abs(qq) - h
+            mx = torch.amax(dout, -1)                  # inside: -depth
+            do = qq - torch.clamp(qq, -h, h)
+            return torch.where(mx > 0, torch.sqrt(torch.sum(do * do, -1)), mx)
+
+        t = golden_min01(sdist, al[..., 0])
+        qq = al + t[..., None] * (bl - al)
+        dout = torch.abs(qq) - h
+        mx = torch.amax(dout, -1)
+        outside = mx > 0
+        cc = torch.clamp(qq, -h, h)
+        do = qq - cc
+        disto = torch.sqrt(torch.sum(do * do, -1))
+        # inside: push out through the nearest face (first max, as argmax)
+        onehot = torch.nn.functional.one_hot(torch.argmax(dout, -1),
+                                             3).to(qq.dtype)
+        n_in = torch.where(qq >= 0, 1.0, -1.0).to(qq.dtype) * onehot
+        n_l = torch.where(outside[..., None],
+                          do / torch.clamp(disto, min=1e-9)[..., None], n_in)
+        signed = torch.where(outside, disto, mx)
+        phi_b = m.bpair_rseg - signed
+        n_b = Q.quat_rotate(qw, n_l)                   # box -> segment
+        pw_t = aw + t[..., None] * (bw - aw)
+        p_out = 0.5 * ((cb + Q.quat_rotate(qw, cc))
+                       + (pw_t - m.bpair_rseg[:, None] * n_b))
+        p_b = torch.where(outside[..., None], p_out, pw_t)
+        outs.append((phi_b, n_b, p_b))
+    return tuple(torch.cat([o[i] for o in outs], 1) for i in range(3))
+
+
+def top_k_desc(x: torch.Tensor, k: int):
+    """Top-k over the last axis, values descending, ties to the lowest
+    index (the JAX engine's _top_k_desc; torch.topk does not fix its tie
+    order)."""
+    n = x.shape[-1]
+    iota = torch.arange(n, device=x.device)
+    cur = x
+    vals, idxs = [], []
+    for _ in range(k):
+        mx = torch.amax(cur, -1, keepdim=True)
+        first = torch.amin(torch.where(cur >= mx, iota, n), -1)
+        vals.append(mx[..., 0])
+        idxs.append(first)
+        cur = torch.where(iota == first[..., None],
+                          torch.full_like(cur, -float("inf")), cur)
+    return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B,N,...) rows selected per batch by idx (B,k) -> (B,k,...)."""
+    shape = idx.shape + x.shape[2:]
+    flat = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape)
+    return torch.gather(x, 1, flat)
+
+
+def contact_blocks(m: PhysicsModel, kin: Kin,
+                   params: ContactParams = DEFAULT_CONTACT):
+    """Active-contact geometry in block row order: jf (B,3K+KP,nd), target
+    (B,3K+KP), mu (B,K).  Rows [0:3K] are the floor contacts ([x; y; z]
+    blocks of the top-K deepest floor points, friction mu); rows [3K:] are
+    the top-KP deepest body-body pairs, one frictionless normal row each."""
+    nd = m.ndof
+    dt = m.timestep
+    bsz = kin.xpos.shape[0]
+    k = min(params.max_contacts, m.ncpoint)
+    kp = min(params.max_pair_contacts, m.npair + m.nbpair)
+
+    p_all = kin.xpos[:, m.cpoint_body] + Q.quat_rotate(
+        kin.xquat[:, m.cpoint_body], m.cpoint_local)
+    phi_all = m.cpoint_radius - p_all[..., 2]
+    phi, sel = top_k_desc(phi_all, k)
+    p = _gather_rows(p_all, sel)                        # (B,k,3)
+    mu = m.cpoint_mu[sel]
+    dof_mask = m.point_dof_mask.T[sel]                  # (B,k,nd)
+    act = (phi > -params.margin).to(p.dtype)
+
+    s_ang, s_lin = kin.s[..., :3], kin.s[..., 3:]
+    jp = s_lin[:, None] + cross(s_ang[:, None].expand(bsz, k, nd, 3),
+                                p[:, :, None, :])       # (B,k,nd,3)
+    jp = jp * (act[..., None] * dof_mask)[..., None]
+    jf = jp.permute(0, 3, 1, 2).reshape(bsz, 3 * k, nd)
+    vn_target = torch.clamp(
+        params.beta * torch.clamp(phi - params.slop, min=0.0) / dt,
+        max=1.0) * act
+    target = torch.cat([phi.new_zeros(bsz, 2 * k), vn_target], 1)
+
+    if kp:
+        phi_p, n_p, p_p = pair_candidates(m, kin)
+        smask_all = torch.cat([m.pair_dof_mask, m.bpair_dof_mask], 1)
+        php, selp = top_k_desc(phi_p, kp)
+        n_sel, p_sel = _gather_rows(n_p, selp), _gather_rows(p_p, selp)
+        sm = smask_all.T[selp]                          # (B,kp,nd) signed
+        actp = (php > -params.margin).to(p.dtype)
+        pxn = cross(p_sel, n_sel)
+        rows = torch.einsum("ndi,nki->nkd", s_lin, n_sel) \
+            + torch.einsum("ndi,nki->nkd", s_ang, pxn)
+        rows = rows * (actp[..., None] * sm)
+        vn_p = torch.clamp(
+            params.beta * torch.clamp(php - params.slop, min=0.0) / dt,
+            max=1.0) * actp
+        jf = torch.cat([jf, rows], 1)
+        target = torch.cat([target, vn_p], 1)
+    return jf, target, mu
+
+
+def contact_sweep_blocks(jf, w, target, mu, v_pred, iters, relax):
+    """Projected-Jacobi sweep in block row order given the Delassus columns
+    W = Minv J^T (B,nd,c): friction box on the first 3K rows, lambda >= 0 on
+    the trailing frictionless pair rows.  Returns the post-contact
+    velocity."""
+    k = mu.shape[-1]
+    c = jf.shape[1]
+    a = jf @ w                                          # (B,c,c)
+    bhat = (jf @ v_pred[..., None])[..., 0] - target
+    # Gershgorin (row-sum) preconditioner keeps the sweep a contraction
+    diag = torch.sum(torch.abs(a), -1) + 1.0e-9
+    lam = v_pred.new_zeros(v_pred.shape[0], c)
+    for _ in range(iters):
+        g = (a @ lam[..., None])[..., 0] + bhat
+        lam = lam - relax * g / diag
+        ln = torch.clamp(lam[:, 2 * k:3 * k], min=0.0)
+        lim = mu * ln
+        parts = [torch.clamp(lam[:, :k], -lim, lim),
+                 torch.clamp(lam[:, k:2 * k], -lim, lim), ln]
+        if c > 3 * k:
+            parts.append(torch.clamp(lam[:, 3 * k:], min=0.0))
+        lam = torch.cat(parts, 1)
+    return v_pred + (w @ lam[..., None])[..., 0]
+
+
+def limit_qfrc(m: PhysicsModel, qpos, qvel,
+               params: ContactParams = DEFAULT_CONTACT) -> torch.Tensor:
+    """Soft joint-limit torques for limited hinge dofs (B,nd)."""
+    q = qpos[:, 7:]
+    dq = qvel[:, 6:]
+    below = torch.clamp(m.jnt_range[:, 0] - q, min=0.0)
+    above = torch.clamp(q - m.jnt_range[:, 1], min=0.0)
+    viol = ((below > 0) | (above > 0)).to(qpos.dtype)
+    tau = (params.klim * (below - above) - viol * params.blim * dq) \
+        * m.jnt_limited_f
+    return torch.cat([qpos.new_zeros(qpos.shape[0], 6), tau], 1)
+
+
+# ---------------------------------------------------------------------------
+# forward dynamics + integration
+# ---------------------------------------------------------------------------
+
+def spd_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched dense SPD solve A X = rhs (B,n,n), (B,n,r)."""
+    return torch.cholesky_solve(rhs, torch.linalg.cholesky(a))
+
+
+def smooth_dynamics(m: PhysicsModel, qpos, qvel, tau, params: ContactParams,
+                    mm, qfrc_bias):
+    """Constraint-free generalized force and the implicitly damped inertia
+    (M + dt diag(damping)) of MuJoCo's Euler integrator, given the mass
+    matrix and bias force of the (possibly frozen) prep."""
+    stiff = torch.cat([qpos.new_zeros(qpos.shape[0], 6),
+                       m.dof_stiffness[6:] * qpos[:, 7:]], 1)
+    qfrc = tau - qfrc_bias + limit_qfrc(m, qpos, qvel, params) \
+        - m.dof_damping * qvel - stiff
+    a = mm + m.timestep * torch.diag(m.dof_damping)
+    return qfrc, a
+
+
+def integrate(m: PhysicsModel, qpos, qvel, dt) -> torch.Tensor:
+    """Semi-implicit position update (mj_integratePos)."""
+    pos = qpos[:, :3] + dt * qvel[:, :3]
+    quat = Q.quat_integrate(qpos[:, 3:7], qvel[:, 3:6], dt)
+    joints = qpos[:, 7:] + dt * qvel[:, 6:]
+    return torch.cat([pos, quat, joints], 1)
+
+
+# ---------------------------------------------------------------------------
+# stable-PD control step
+# ---------------------------------------------------------------------------
+
+def stable_pd_torque(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, mm,
+                     qfrc_bias) -> torch.Tensor:
+    """Stable-PD actuator torque (B,nu): solve (M + Kd dt) qacc =
+    -C - Kp e - Kd edot, then tau = -kp e - kd (edot + qacc dt)."""
+    dt = m.timestep
+    z6 = qpos.new_zeros(qpos.shape[0], 6)
+    k_p = torch.cat([z6, jkp.expand(qpos.shape[0], -1)], 1)
+    k_d = torch.cat([z6, jkd.expand(qpos.shape[0], -1)], 1)
+    qpos_err = torch.cat([z6, qpos[:, 7:] - ctrl], 1)
+    rhs = -qfrc_bias - k_p * qpos_err - k_d * qvel
+    a = mm + dt * torch.diag_embed(k_d)
+    qacc = spd_solve(a, rhs[..., None])[..., 0]
+    qvel_err = qvel + qacc * dt
+    return -jkp * qpos_err[:, 6:] - jkd * qvel_err[:, 6:]
+
+
+def pd_control_step_split(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd,
+                          torque_lim, n_frames: int,
+                          params: ContactParams = DEFAULT_CONTACT):
+    """The plain (split-path) control step: n_frames substeps of stable-PD
+    torque + dynamics + contact sweep + integration, grouped by the
+    prep-refresh cadence R (the last group takes the remainder)."""
+    act = list(m.actuator_dof)
+    r = max(1, int(params.prep_refresh))
+
+    def group(qp, qv, nsub):
+        # FK, mass matrix, bias and contact geometry from the group-entry
+        # state, reused by the group's substeps
+        kin = fk(m, qp)
+        mm = crba(m, kin)
+        qfrc_bias = bias_force(m, kin, qv)
+        jf, target, mu = contact_blocks(m, kin, params)
+        for _ in range(nsub):
+            torque = stable_pd_torque(m, qp, qv, ctrl, jkp, jkd, mm,
+                                      qfrc_bias)
+            torque = torch.clamp(torque, -torque_lim, torque_lim)
+            tau = qp.new_zeros(qp.shape[0], m.ndof)
+            tau[:, act] = torque * m.actuator_gear
+            qfrc, a = smooth_dynamics(m, qp, qv, tau, params, mm, qfrc_bias)
+            sol = spd_solve(a, torch.cat([qfrc[..., None],
+                                          jf.transpose(1, 2)], 2))
+            qacc, w = sol[..., 0], sol[..., 1:]
+            v_pred = qv + m.timestep * qacc
+            qv = contact_sweep_blocks(jf, w, target, mu, v_pred,
+                                      params.iters, params.relax)
+            qp = integrate(m, qp, qv, m.timestep)
+        return qp, qv
+
+    for _ in range(n_frames // r):
+        qpos, qvel = group(qpos, qvel, r)
+    if n_frames % r:
+        qpos, qvel = group(qpos, qvel, n_frames % r)
+    return qpos, qvel
+
+
+def pd_control_step(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, torque_lim,
+                    n_frames: int, params: ContactParams = DEFAULT_CONTACT):
+    """One stable-PD control step for a batch (B,nq)/(B,nd)/(B,nu).
+
+    The counterpart of the JAX engine's dispatch through
+    substep_pallas.make_substep_step: a CUDA batch runs the hand-written
+    kernel (physics/substep.py), a CPU batch the plain split path above.
+    Gains and limits may be (nu,) (shared) or (B,nu)."""
+    if not qpos.is_cuda:
+        return pd_control_step_split(m, qpos, qvel, ctrl, jkp, jkd,
+                                     torque_lim, n_frames, params)
+    from . import substep
+    per_lane = lambda x: x.expand(qpos.shape[0], m.nu).contiguous()
+    return substep.pd_control_step_cuda(
+        m, qpos.contiguous(), qvel.contiguous(), per_lane(ctrl),
+        per_lane(jkp), per_lane(jkd), per_lane(torque_lim), n_frames, params)
