@@ -5,7 +5,8 @@
 Phases, one JSON line each; any failure exits non-zero:
 
   device       card name (torch) and name + power limit (nvidia-smi)
-  build        nvcc build of the control-step kernel from csrc/
+  build        nvcc builds of both kernels from csrc/ (K1 substep.cu, K2
+               spd_solve.cu), one nvcc per source, started together
   k1_vs_plain  the kernel against the plain split path on the card, one
                control step (15 substeps) at R=3 (B=1024, B=4) and R=2
                (remainder group), on contact-rich states drawn from a numpy
@@ -23,8 +24,28 @@ Phases, one JSON line each; any failure exits non-zero:
   eval_profile the same eval again under torch.profiler, recording only
                the steps WINDOW: device time by kernel, kernels launched
                per step, device busy share of the window's wall time
+  k2_vs_plain  the SPD-solve kernel against torch.cholesky_solve on the
+               torque path's systems (M + dt diag(damping), rhs [qfrc | J^T])
+               at contact-rich states, B=1024 and B=4, r=25 and r=1: f64
+               max-abs <= 1e-9 max|X|; f32 error against the f64 solution of
+               the same inputs at most 4x the plain f32 version's; finite
+  k2_time      kernel, plain version and torch.linalg.solve (the library
+               yardstick) timed with CUDA events at B=1024 and B=4, r=25,
+               f32, with the bound of the same work on this card
+  train        the training main path: ego_mimic --cfg subject_03
+               --synthetic --batch-lanes 1024 --max-iter 2 in f32 (shipped
+               widths; one 200-step segment of 204,800 env steps per
+               iteration; save_model_interval 2 in a scratch copy of the
+               config): K1 launches == control steps, K2 launches == 0,
+               finite losses and rewards, per-step reward components in
+               (0, 1], iter_0002.p written and loaded back into AgentEgo with
+               equal weights; T_sample, T_update, env-steps/s
+  train_torque the same CLI with action_type: torque in a scratch copy of
+               the config, --episode-len 20 --max-iter 1 (3 segments):
+               K2 launches == 15 x control steps, K1 launches == 0, finite
   kernels      every kernel of the port with its TPU counterpart, launches
-               on the main path, error against the plain version and times
+               on the main paths (eval + train + train_torque), error
+               against the plain version and times
 
 The last two lines are the card's name and power limit and then
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints no
@@ -316,17 +337,18 @@ def phase_eval(device):
     import torch
     from egopose_tpu_torch.cli import ego_mimic_eval
     from egopose_tpu_torch.cli.eval_pose import compute_stats
-    from egopose_tpu_torch.physics import substep
+    from egopose_tpu_torch.physics import linalg, substep
     marks = []
     with eval_workdir():
         substep.reset_launches()
+        linalg.reset_launches()
         t0 = time.time()
         results, meta = ego_mimic_eval.main(
             EVAL_ARGS + ["--device", str(device)],
             step_hook=window_hook(marks))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = substep.launches
+        launches, k2_launches = substep.launches, linalg.launches
         stats = compute_stats(results)
     steps = meta["steps"]
     rewards = meta["avg_reward"]
@@ -338,11 +360,13 @@ def phase_eval(device):
                window=list(WINDOW),
                window_step_ms=(marks[1] - marks[0]) * 1e3
                / (WINDOW[1] - WINDOW[0]),
-               steps=steps, launches=launches, num_reset=meta["num_reset"],
+               steps=steps, launches=launches, k2_launches=k2_launches,
+               num_reset=meta["num_reset"],
                avg_reward=rewards, pose_dist=stats["pose_dist"],
                vel_dist=stats["vel_dist"], accel=stats["accel"],
                finite=finite)
-    ok = bool(launches == steps and meta["num_reset"] <= 3
+    ok = bool(launches == steps and k2_launches == 0
+              and meta["num_reset"] <= 3
               and min(rewards.values()) >= 0.80
               and stats["pose_dist"] <= 0.50 and finite)
     emit("eval", ok=ok, **rec)
@@ -394,6 +418,213 @@ def phase_eval_profile(device, step_ms=None):
                    per_step=e.count / n) for e in top])
 
 
+# ---------------------------------------------------------------------------
+# K2: the batched SPD solve of the torque-mode substep
+# ---------------------------------------------------------------------------
+
+def k2_systems(m, q, v, params):
+    """The torque path's systems at the states (engine.step_raw): A = M +
+    dt diag(damping) (B,nd,nd), rhs = [qfrc | J^T] (B,nd,1+c)."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    kin = engine.fk(m, q)
+    qfrc, a = engine.smooth_dynamics(
+        m, q, v, torch.zeros_like(v), params, engine.crba(m, kin),
+        engine.bias_force(m, kin, v))
+    jf, _, _ = engine.contact_blocks(m, kin, params)
+    rhs = torch.cat([qfrc[..., None], jf.transpose(1, 2)], 2)
+    return a.contiguous(), rhs.contiguous()
+
+
+def k2_work(bsz, n, r, itemsize):
+    """(bytes, flops) of B solves: A and B read once, X written once;
+    n^3/3 for the factor and 2 n^2 r for the two substitutions."""
+    return (bsz * (n * n + 2 * n * r) * itemsize,
+            bsz * (n ** 3 / 3 + 2 * n * n * r))
+
+
+def phase_k2_vs_plain(device):
+    import torch
+    from egopose_tpu_torch.physics import engine, linalg
+    params = engine.DEFAULT_CONTACT
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        spec, m, _ = load_world(dtype, device)
+        for bsz, r, seed in ((1024, 25, 20), (4, 25, 21), (1024, 1, 22),
+                             (4, 1, 23)):
+            q, v, _ = contact_states(spec, m, bsz, seed, dtype, device)
+            a, rhs = k2_systems(m, q, v, params)
+            rhs = rhs[..., :r].contiguous()
+            xk = linalg.spd_solve_cuda(a, rhs)
+            xp = linalg.spd_solve_plain(a, rhs)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(xk).all() and torch.isfinite(xp).all())
+            scale = float(xp.abs().max())
+            rec = dict(dtype=str(dtype).split(".")[1], B=bsz, n=a.shape[1],
+                       r=r, finite=finite, max_abs_x=scale,
+                       max_abs_err=float((xk - xp).abs().max()))
+            if dtype == torch.float64:
+                ok = finite and rec["max_abs_err"] <= 1e-9 * scale
+            else:
+                ref = linalg.spd_solve_plain(a.double(), rhs.double())
+                rec["kernel_err_vs_f64"] = float((xk.double() - ref).abs().max())
+                rec["plain_err_vs_f64"] = float((xp.double() - ref).abs().max())
+                ok = finite and rec["kernel_err_vs_f64"] \
+                    <= 4 * rec["plain_err_vs_f64"]
+            emit("k2_vs_plain", ok=ok, **rec)
+            if not ok:
+                raise AssertionError(f"K2 disagrees with plain: {rec}")
+            key = rec["dtype"]
+            worst[key] = max(worst.get(key, 0.0), rec["max_abs_err"])
+    return worst
+
+
+def phase_k2_time(device):
+    import torch
+    from egopose_tpu_torch.physics import engine, linalg
+    spec, m, _ = load_world(torch.float32, device)
+    out = {}
+    for bsz in (1024, 4):
+        q, v, _ = contact_states(spec, m, bsz, 30 + bsz, torch.float32,
+                                 device)
+        a, rhs = k2_systems(m, q, v, engine.DEFAULT_CONTACT)
+        n, r = a.shape[1], rhs.shape[2]
+        nbytes, flops = k2_work(bsz, n, r, 4)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        rec = dict(B=bsz, n=n, r=r, dtype="float32",
+                   ms=time_ms(lambda: linalg.spd_solve_cuda(a, rhs)),
+                   plain_ms=time_ms(lambda: linalg.spd_solve_plain(a, rhs)),
+                   library_ms=time_ms(lambda: torch.linalg.solve(a, rhs)),
+                   bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes > t_ops else "operations")
+        emit("k2_time", **rec)
+        out[bsz] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training: the ego_mimic CLI in position and in torque mode
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def train_workdir(**overrides):
+    """A scratch working directory for the training CLI, with a copy of
+    config/egomimic/subject_03.yml whose keys ``overrides`` replaces."""
+    import yaml
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
+                                               "subject_03.yml")))
+        cfg.update(overrides)
+        os.makedirs(os.path.join(tmp, "config", "egomimic"))
+        with open(os.path.join(tmp, "config", "egomimic", "subject_03.yml"),
+                  "w") as f:
+            yaml.safe_dump(cfg, f)
+        os.chdir(tmp)
+        try:
+            yield cfg
+        finally:
+            os.chdir(cwd)
+
+
+def run_train(device, args):
+    """ego_mimic.main on the card with both launch counts zeroed just
+    before; returns (agent, per-iteration records, K1 and K2 launches,
+    wall seconds)."""
+    import torch
+    from egopose_tpu_torch.cli import ego_mimic
+    from egopose_tpu_torch.physics import linalg, substep
+    iters = []
+    hook = lambda i, log, metrics, t_update: iters.append(dict(
+        iter=i, T_sample=log.sample_time, T_update=t_update,
+        env_steps=log.num_steps,
+        env_steps_per_s=log.num_steps / log.sample_time,
+        R_avg=log.avg_c_reward, R_min=log.min_c_reward,
+        R_max=log.max_c_reward, R_info=[float(x) for x in log.avg_c_info],
+        eps_len_avg=log.avg_episode_len, **metrics))
+    substep.reset_launches()
+    linalg.reset_launches()
+    t0 = time.time()
+    agent = ego_mimic.main(["--cfg", "subject_03", "--synthetic",
+                            "--device", str(device)] + args, iter_hook=hook)
+    torch.cuda.synchronize()
+    return agent, iters, substep.launches, linalg.launches, time.time() - t0
+
+
+def train_finite(iters):
+    keys = ("T_sample", "T_update", "R_avg", "R_min", "R_max",
+            "policy_loss", "value_loss")
+    return bool(all(np.isfinite([it[k] for k in keys]).all()
+                    and np.isfinite(it["R_info"]).all() for it in iters))
+
+
+def phase_train(device):
+    """Position-mode PPO at the shipped widths: every control step is one
+    K1 launch over the 1024 lanes."""
+    import torch
+    from egopose_tpu_torch.rl.agent_ego import AgentEgo
+    lanes, n_iter = 1024, 2
+    with train_workdir(save_model_interval=2) as cfg:
+        agent, iters, k1, k2, wall = run_train(
+            device, ["--batch-lanes", str(lanes), "--max-iter", str(n_iter)])
+        n_seg = -(-cfg["min_batch_size"] // (lanes * cfg["env_episode_len"]))
+        steps = n_iter * n_seg * cfg["env_episode_len"]
+        path = os.path.join("results", "egomimic", "subject_03", "models",
+                            "iter_0002.p")
+        saved = os.path.exists(path)
+        same = False
+        if saved:
+            back = AgentEgo(agent.model, agent.spec, agent.p, agent.tables,
+                            agent.expert, agent.cnn_feat.cpu().numpy(),
+                            agent.cfg, batch_lanes=lanes, seed=99,
+                            dtype=agent.dtype, device=device)
+            back.load(path)
+            same = all(torch.equal(x, y) for n1, n2 in zip(agent.nets,
+                                                           back.nets)
+                       for x, y in zip(n1.state_dict().values(),
+                                       n2.state_dict().values())) \
+                and all(torch.equal(x, y) for x, y in zip(agent.zstat,
+                                                          back.zstat))
+    # rewards: the per-step imitation reward and its components lie in
+    # (0, 1]; from iteration 2 on an episode's last step also carries the
+    # end-of-episode bonus (avg reward * gamma / (1 - gamma)), so R_avg and
+    # R_max are bounded by 1 only in the first iteration
+    rewards_ok = all(0 < it["R_min"] and all(0 < x <= 1 for x in it["R_info"])
+                     for it in iters) \
+        and iters[0]["R_avg"] <= 1 and iters[0]["R_max"] <= 1
+    rec = dict(lanes=lanes, iters=iters, control_steps=steps, k1_launches=k1,
+               k2_launches=k2, wall_s=wall, checkpoint_written=saved,
+               checkpoint_reloads_equal=same)
+    ok = bool(k1 == steps and k2 == 0 and train_finite(iters) and rewards_ok
+              and saved and same)
+    emit("train", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"train out of bounds: {rec}")
+    return rec
+
+
+def phase_train_torque(device):
+    """Torque-mode PPO (action_type: torque): every control step is 15
+    substeps of step_raw, each one K2 launch over the 1024 lanes; the
+    episode cut to 20 steps."""
+    lanes, ep_len = 1024, 20
+    with train_workdir(action_type="torque") as cfg:
+        _, iters, k1, k2, wall = run_train(
+            device, ["--batch-lanes", str(lanes), "--episode-len",
+                     str(ep_len), "--max-iter", "1"])
+    n_seg = -(-cfg["min_batch_size"] // (lanes * ep_len))
+    steps = n_seg * ep_len
+    rec = dict(lanes=lanes, episode_len=ep_len, iters=iters,
+               control_steps=steps, k1_launches=k1, k2_launches=k2,
+               wall_s=wall)
+    ok = bool(k2 == N_FRAMES * steps and k1 == 0 and train_finite(iters))
+    emit("train_torque", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"train_torque out of bounds: {rec}")
+    return rec
+
+
 def main():
     only = sys.argv[sys.argv.index("--only") + 1].split(",") \
         if "--only" in sys.argv else None
@@ -403,29 +634,44 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import egopose_tpu_torch  # noqa: F401  (sets the TF32 policy)
-    from egopose_tpu_torch.physics import substep
+    from egopose_tpu_torch.physics import nvcc
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
     t0 = time.time()
-    lib = substep.build(verbose=True)
-    emit("build", seconds=time.time() - t0, library=os.path.relpath(lib, REPO))
+    libs = nvcc.build_all(verbose=True)
+    emit("build", seconds=time.time() - t0,
+         libraries=[os.path.relpath(lib, REPO) for lib in libs])
     errs = phase_k1_vs_plain(device) if want("k1_vs_plain") else {}
     times = phase_k1_time(device) if want("k1_time") else {}
     ev = phase_eval(device) if want("eval") else None
     if want("eval_profile"):
         phase_eval_profile(device, ev["window_step_ms"] if ev else None)
+    errs2 = phase_k2_vs_plain(device) if want("k2_vs_plain") else {}
+    times2 = phase_k2_time(device) if want("k2_time") else {}
+    tr = phase_train(device) if want("train") else None
+    tq = phase_train_torque(device) if want("train_torque") else None
     if only is None:
-        t4 = times[4]
-        print(json.dumps({"kernels": [dict(
-            name="substep_control_step", route="cuda",
-            source="egopose_tpu_torch/csrc/substep.cu",
-            replaces="egopose_tpu/physics/substep_pallas.py:694",
-            launches=ev["launches"], max_abs_err=errs["float32"],
-            ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"],
-            bound_by=t4["bound_by"], library_ms=None)]}), flush=True)
+        t4, t2 = times[4], times2[1024]
+        print(json.dumps({"kernels": [
+            dict(name="substep_control_step", route="cuda",
+                 source="egopose_tpu_torch/csrc/substep.cu",
+                 replaces="egopose_tpu/physics/substep_pallas.py:694",
+                 launches=ev["launches"] + tr["k1_launches"]
+                 + tq["k1_launches"], max_abs_err=errs["float32"],
+                 ms=t4["ms"], plain_ms=t4["plain_ms"],
+                 bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
+                 library_ms=None),
+            dict(name="batched_spd_solve", route="cuda",
+                 source="egopose_tpu_torch/csrc/spd_solve.cu",
+                 replaces="egopose_tpu/physics/linalg_pallas.py:163",
+                 launches=ev["k2_launches"] + tr["k2_launches"]
+                 + tq["k2_launches"], max_abs_err=errs2["float32"],
+                 ms=t2["ms"], plain_ms=t2["plain_ms"],
+                 bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
+                 library_ms=t2["library_ms"])]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

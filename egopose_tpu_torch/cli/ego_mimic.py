@@ -1,10 +1,23 @@
-"""Ego-mimic world construction (counterpart of
-egopose_tpu/cli/ego_mimic.py::build_world).  The training entry point
-belongs to the training slice."""
+"""Ego-mimic PPO training (counterpart of egopose_tpu/cli/ego_mimic.py):
+the same flags, config schema, checkpoint naming
+(results/egomimic/<cfg>/models/iter_%04d.p, the JAX package's pickle
+layout), per-iteration log line and adaptive-parameter schedule.  With
+``--synthetic`` it trains against synthetic mocap.
+
+    python -m egopose_tpu_torch.cli.ego_mimic --cfg subject_03 --synthetic \
+        [--batch-lanes 1024] [--max-iter N] [--iter N] [--device cuda|cpu]
+
+On the card every control step of the rollout is one launch of the K1
+control-step kernel (position mode) or 15 launches of the K2 SPD-solve
+kernel (``action_type: torque``).  Reads config/ and writes results/
+relative to the working directory.
+"""
 from __future__ import annotations
 
+import argparse
 import os
 import pickle
+import time
 
 import numpy as np
 
@@ -30,7 +43,7 @@ def build_world(cfg, dtype, device, synthetic=False, synthetic_takes=None,
     xml = find_model_xml(model_xml or cfg.mujoco_model)
     spec = apply_model_params(parse_mjcf(xml), cfg)
     model = build_model(spec, dtype=dtype, device=device)
-    tables = envs.make_body_tables(spec)
+    tables = envs.make_body_tables(spec, device)
     obs_dim = (1 if cfg.obs_heading else 0) + (spec.nq - 2) \
         + {"root": 6, "full": spec.ndof}.get(cfg.obs_vel, 0) \
         + (1 if cfg.obs_phase else 0)
@@ -67,3 +80,136 @@ def build_world(cfg, dtype, device, synthetic=False, synthetic_takes=None,
     expert = type(expert)(*[x.to(dtype) if x.is_floating_point() else x
                             for x in expert])
     return spec, model, tables, p, expert, np.asarray(cnn_feat)
+
+
+def main(argv=None, iter_hook=None):
+    """Train; returns the agent.  ``iter_hook(i_iter, log, metrics,
+    t_update)``, if given, is called after each iteration."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cfg", default=None)
+    parser.add_argument("--render", action="store_true", default=False)
+    parser.add_argument("--num-threads", type=int, default=12,
+                        help="accepted for CLI parity; lanes come from "
+                             "--batch-lanes")
+    parser.add_argument("--gpu-index", type=int, default=0,
+                        help="accepted for CLI parity (see --device)")
+    parser.add_argument("--iter", type=int, default=0)
+    parser.add_argument("--show-noise", action="store_true", default=False)
+    parser.add_argument("--batch-lanes", type=int, default=1024)
+    parser.add_argument("--dp-devices", type=int, default=None)
+    parser.add_argument("--sp-devices", type=int, default=None)
+    parser.add_argument("--max-iter", type=int, default=None)
+    parser.add_argument("--synthetic", action="store_true", default=False)
+    parser.add_argument("--f64", action="store_true", default=False)
+    parser.add_argument("--min-batch", type=int, default=None,
+                        help="override cfg.min_batch_size (debug)")
+    parser.add_argument("--episode-len", type=int, default=None,
+                        help="override cfg.env_episode_len (debug)")
+    parser.add_argument("--profile-dir", default=None)
+    parser.add_argument("--ckpt-format", default="pickle",
+                        choices=("pickle", "orbax"))
+    parser.add_argument("--device", default=None,
+                        help="torch device; default cuda (raises without "
+                             "CUDA), cpu runs the plain PyTorch path")
+    args = parser.parse_args(argv)
+    for flag, on, item in (
+            ("--dp-devices", args.dp_devices is not None, 8),
+            ("--sp-devices", args.sp_devices is not None, 8),
+            ("--profile-dir", args.profile_dir is not None, 2),
+            ("--render", args.render, 2),
+            ("--ckpt-format orbax", args.ckpt_format == "orbax", 9)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP §1 item {item})")
+
+    import torch
+    from .. import resolve_device
+    from ..physics import nvcc
+    from ..rl.agent_ego import AgentEgo
+    from ..utils.config import EgoMimicConfig
+    from ..utils.log import ScalarWriter, create_logger
+
+    device = resolve_device(args.device)
+    dtype = torch.float64 if args.f64 else torch.float32
+    cfg = EgoMimicConfig(args.cfg, create_dirs=args.iter == 0)
+    if getattr(cfg, "discriminator", None):
+        raise NotImplementedError(
+            "the discriminator block (VGAIL) is not ported yet (ROADMAP §1 "
+            "item 7)")
+    if args.min_batch is not None:
+        cfg.min_batch_size = args.min_batch
+    if args.episode_len is not None:
+        cfg.env_episode_len = args.episode_len
+    np.random.seed(cfg.seed)
+    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"))
+    tb = ScalarWriter(cfg.tb_dir)
+    if device.type == "cuda":
+        nvcc.build_all()              # nvcc at first use, outside the loop
+
+    spec, model, tables, p, expert, cnn_feat = build_world(
+        cfg, dtype, device, synthetic=args.synthetic)
+    logger.info(f"device: {device}  lanes: {args.batch_lanes}  "
+                f"experts: {tuple(expert.qpos.shape)}")
+    if args.num_threads != parser.get_default("num_threads"):
+        logger.info(f"--num-threads {args.num_threads} accepted for "
+                    f"reference CLI parity but has no effect here: sampling "
+                    f"runs as {args.batch_lanes} batched device lanes, not "
+                    f"host threads (use --batch-lanes to scale)")
+    agent = AgentEgo(model, spec, p, tables, expert, cnn_feat, cfg,
+                     batch_lanes=args.batch_lanes, seed=cfg.seed,
+                     dtype=dtype, device=device)
+    if args.iter > 0:
+        cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
+        logger.info("loading model from checkpoint: %s" % cp_path)
+        agent.load(cp_path)
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed)
+    max_iter = args.max_iter if args.max_iter is not None \
+        else cfg.max_iter_num
+    for i_iter in range(args.iter, max_iter):
+        cfg.update_adaptive_params(i_iter)
+        agent.set_noise_rate(cfg.adp_noise_rate)
+        agent.set_policy_lr(cfg.adp_policy_lr)
+        if cfg.fix_std:
+            agent.fill_log_std(cfg.adp_log_std)
+
+        batch, log = agent.sample(generator, cfg.min_batch_size)
+        agent.end_reward = log.avg_c_reward * cfg.gamma / (1 - cfg.gamma)
+        t0 = time.time()
+        metrics = agent.update_params(batch)   # reads its losses back
+        t_update = time.time() - t0
+
+        info_str = np.array2string(log.avg_c_info,
+                                   formatter={"all": lambda x: "%.4f" % x},
+                                   separator=",")
+        skips = metrics["policy_grad_skips"] + metrics["value_grad_skips"]
+        steps_per_s = log.num_steps / max(log.sample_time, 1e-9)
+        logger.info(
+            "{}\tT_sample {:.2f}\tT_update {:.2f}\tR_avg {:.4f} {}"
+            "\tR_range ({:.4f}, {:.4f})\teps_len_avg {:.2f}\tsteps/s {:.0f}{}"
+            .format(i_iter, log.sample_time, t_update, log.avg_c_reward,
+                    info_str, log.min_c_reward, log.max_c_reward,
+                    log.avg_episode_len, steps_per_s,
+                    "\tgrad_skips %d" % skips if skips else ""))
+        tb.scalar("total_reward", log.avg_c_reward, i_iter)
+        tb.scalar("episode_len", log.avg_episode_len, i_iter)
+        tb.scalar("env_steps_per_sec", steps_per_s, i_iter)
+        for i in range(log.avg_c_info.shape[0]):
+            tb.scalar(f"reward_{i}", log.avg_c_info[i], i_iter)
+
+        if cfg.save_model_interval > 0 \
+                and (i_iter + 1) % cfg.save_model_interval == 0:
+            cp_path = "%s/iter_%04d.p" % (cfg.model_dir, i_iter + 1)
+            agent.save(cp_path)
+            logger.info("saved checkpoint %s" % cp_path)
+        if iter_hook is not None:
+            iter_hook(i_iter, log, metrics, t_update)
+
+    tb.close()
+    logger.info("training done!")
+    return agent
+
+
+if __name__ == "__main__":
+    main()

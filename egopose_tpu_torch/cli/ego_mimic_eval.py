@@ -107,7 +107,8 @@ def main(argv=None, step_hook=None):
         expert = type(expert)(*[x[i0:i0 + 1] for x in expert])
         cnn_feat = cnn_feat[i0:i0 + 1]
         takes = [takes[i0] if i0 < len(takes) else f"take_{i0}"]
-    agent = AgentEgo(spec, p, cnn_feat.shape[-1], cfg, seed=cfg.seed,
+    agent = AgentEgo(model, spec, p, tables, expert, cnn_feat, cfg,
+                     batch_lanes=expert.qpos.shape[0], seed=cfg.seed,
                      dtype=dtype, device=device)
     cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
     if os.path.exists(cp_path):

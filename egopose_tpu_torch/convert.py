@@ -1,15 +1,19 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across to and from the JAX package.
 
 ``params_from_jax`` turns the flax parameter trees of an ego-mimic agent
 (nested dicts of numpy arrays, as the JAX package pickles them) into the
-port's ``state_dict``s.  ``load_checkpoint_pickle`` reads the committed
+port's ``state_dict``s; ``params_to_jax`` is its inverse.
+``load_checkpoint_pickle`` reads the committed
 ``results/egomimic/<cfg>/models/iter_*.p`` without importing the JAX
 package: the one class those pickles reference,
 ``egopose_tpu.ops.running_norm.RunningStat``, resolves to the port's own.
+``save_checkpoint_pickle`` writes the same layout, naming that class, so
+either package loads what the port saves.
 """
 from __future__ import annotations
 
 import importlib
+import io
 import pickle
 
 import numpy as np
@@ -46,6 +50,40 @@ def load_checkpoint_pickle(path: str) -> dict:
     Only load checkpoints this project wrote: unpickling runs code."""
     with open(path, "rb") as f:
         return _CheckpointUnpickler(f).load()
+
+
+_JAX_RUNNING_STAT = ("egopose_tpu.ops.running_norm", "RunningStat")
+
+
+class _JaxRunningStatRef:
+    """Stands for the JAX package's RunningStat class in a pickle."""
+
+
+class _CheckpointPickler(pickle._Pickler):
+    """Pickles the port's RunningStat as the JAX package's (by name, without
+    importing it), so the checkpoint has the JAX package's layout."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, RunningStat):
+            return _JaxRunningStatRef, tuple(obj)
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        if obj is not _JaxRunningStatRef:
+            return super().save_global(obj, name)
+        for part in _JAX_RUNNING_STAT:
+            self.save(part)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def save_checkpoint_pickle(path: str, cp: dict):
+    """Write a checkpoint dict (flax-layout trees of numpy arrays and a
+    RunningStat of numpy arrays) as the JAX package's AgentEgo.save does."""
+    buf = io.BytesIO()
+    _CheckpointPickler(buf, protocol=4).dump(cp)
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
 
 
 def _params(tree):
@@ -88,3 +126,42 @@ def params_from_jax(policy, policy_vs, value, value_vs):
     _mlp(sd_v, "net", v["net"])
     _linear(sd_v, "value_head", v["value_head"])
     return sd_p, _vsnet(policy_vs), sd_v, _vsnet(value_vs)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _dense(sd, prefix):
+    """torch Linear (out,in) -> flax Dense {kernel (in,out), bias}."""
+    return {"kernel": np.ascontiguousarray(_np(sd[prefix + ".weight"]).T),
+            "bias": _np(sd[prefix + ".bias"])}
+
+
+def _mlp_tree(sd, prefix):
+    n = len([k for k in sd if k.startswith(prefix + ".layers.")
+             and k.endswith(".weight")])
+    return {f"Dense_{i}": _dense(sd, f"{prefix}.layers.{i}")
+            for i in range(n)}
+
+
+def _vsnet_tree(sd):
+    v_net = {}
+    for cell in ("rnn_f", "rnn_b"):
+        if f"v_net.{cell}.ih.weight" in sd:
+            v_net[cell] = {gate: _dense(sd, f"v_net.{cell}.{gate}")
+                           for gate in ("ih", "hh")}
+    return {"params": {"v_net": v_net}}
+
+
+def params_to_jax(policy, policy_vs, value, value_vs):
+    """The port's state_dicts of (PolicyGaussian, VideoStateNet, Value,
+    VideoStateNet) -> flax variable trees of numpy arrays in the same
+    order (the inverse of params_from_jax)."""
+    pol = {"net": _mlp_tree(policy, "net"),
+           "action_mean": _dense(policy, "action_mean"),
+           "action_log_std": _np(policy["action_log_std"])}
+    val = {"net": _mlp_tree(value, "net"),
+           "value_head": _dense(value, "value_head")}
+    return ({"params": pol}, _vsnet_tree(policy_vs), {"params": val},
+            _vsnet_tree(value_vs))

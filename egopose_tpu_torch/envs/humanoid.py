@@ -96,15 +96,17 @@ class EnvParams:
 
 
 class BodyTables(NamedTuple):
-    euler_idx: np.ndarray    # (nb-1,3) padded qpos index per non-root body
-    ee_body: np.ndarray      # (5,) body indices of the end effectors
+    euler_idx: torch.Tensor  # (nb-1,3) padded qpos index per non-root body
+    ee_body: torch.Tensor    # (5,) body indices of the end effectors
     head_body: int
 
 
 EE_NAMES = ["LeftFoot", "RightFoot", "LeftHand", "RightHand", "Head"]
 
 
-def make_body_tables(spec: ModelSpec) -> BodyTables:
+def make_body_tables(spec: ModelSpec, device="cpu") -> BodyTables:
+    """Index tables on ``device``, so the env's gathers copy nothing from
+    the host inside a step."""
     qaddr = spec.body_qposaddr()
     euler_idx = np.full((spec.nbody - 1, 3), spec.nq, dtype=np.int64)
     for i, name in enumerate(spec.body_names[1:]):
@@ -113,7 +115,8 @@ def make_body_tables(spec: ModelSpec) -> BodyTables:
             euler_idx[i, k] = start + k
     ee_body = np.array([spec.body_names.index(n) for n in EE_NAMES],
                        dtype=np.int64)
-    return BodyTables(euler_idx=euler_idx, ee_body=ee_body,
+    return BodyTables(euler_idx=torch.as_tensor(euler_idx, device=device),
+                      ee_body=torch.as_tensor(ee_body, device=device),
                       head_body=spec.body_names.index("Head"))
 
 
@@ -167,6 +170,12 @@ def get_obs(p: EnvParams, qpos: torch.Tensor, qvel: torch.Tensor,
 # rewards
 # ---------------------------------------------------------------------------
 
+def _end_bonus(is_end, end_reward, dtype):
+    """end_reward where the episode ends, else 0, in ``dtype`` (a
+    torch.where on Python scalars would round end_reward to float32)."""
+    return is_end.to(dtype) * end_reward
+
+
 def quat_space_reward_v3(p: EnvParams, expert: ExpertBatch, state: EnvState,
                          cur_ee, dt, end_reward, is_end):
     """Weighted product-of-exponential-kernels imitation reward
@@ -209,14 +218,14 @@ def quat_space_reward_v3(p: EnvParams, expert: ExpertBatch, state: EnvState,
     if p.reward_decay:
         reward = reward * (1.0 - state.cur_t.to(reward.dtype)
                            / p.env_episode_len)
-    reward = reward + torch.where(is_end, end_reward, 0.0)
+    reward = reward + _end_bonus(is_end, end_reward, reward.dtype)
     comps = torch.stack([pose_reward, vel_reward, ee_reward,
                          root_pose_reward, root_vel_reward], -1)
     return reward, comps
 
 
 def constant_reward(p, expert, state, cur_ee, dt, end_reward, is_end):
-    r = 1.0 + torch.where(is_end, end_reward, 0.0).to(state.qpos.dtype)
+    r = 1.0 + _end_bonus(is_end, end_reward, state.qpos.dtype)
     return r, state.qpos.new_zeros(state.qpos.shape[0], 5)
 
 
@@ -224,7 +233,8 @@ def pose_dist_reward(p, expert, state, cur_ee, dt, end_reward, is_end):
     ind = state.start_ind + state.cur_t
     diff = expert.qpos[state.expert_ind, ind] - state.qpos
     pose_dist = torch.linalg.vector_norm(diff[:, 2:], dim=-1)
-    r = 5.0 - 3.0 * pose_dist + torch.where(is_end, end_reward, 0.0)
+    r = 5.0 - 3.0 * pose_dist + _end_bonus(is_end, end_reward,
+                                            pose_dist.dtype)
     comps = torch.cat([pose_dist[:, None],
                        state.qpos.new_zeros(state.qpos.shape[0], 4)], 1)
     return r, comps
@@ -239,47 +249,67 @@ REWARD_FUNCS = {"quat_v3": quat_space_reward_v3,
 # reset / step
 # ---------------------------------------------------------------------------
 
-def reset(model: PhysicsModel, p: EnvParams, tables: BodyTables,
-          expert: ExpertBatch, generator: torch.Generator, batch: int,
-          fix_expert_ind=None, fix_start_ind=None) -> EnvState:
-    """Episode initialization from an expert state with joint noise
-    (reset_model semantics), for ``batch`` environments.  Random draws come
-    from ``generator``."""
+def draw_reset(p: EnvParams, expert: ExpertBatch,
+               generator: torch.Generator, batch: int, fix_expert_ind=None,
+               fix_start_ind=None):
+    """The random draws of a batched reset (reset_model semantics), from
+    ``generator``: expert take in [0, E), start frame in [fr_margin,
+    max(len - episode_len - fr_margin, fr_margin + 1)) (0 with
+    env_start_first), the random_cur_t start step in [0, episode_len), and
+    standard-normal joint noise (B, nq-7).  Returns (expert_ind, start_ind,
+    cur_t0, init_noise)."""
     dev = expert.qpos.device
     n_expert = expert.qpos.shape[0]
     draw = lambda lo, hi: torch.floor(
         lo + (hi - lo) * torch.rand(batch, generator=generator, device=dev,
                                     dtype=torch.float64)).to(torch.int64)
+    zeros = torch.zeros(batch, dtype=torch.int64, device=dev)
     if fix_expert_ind is None:
         expert_ind = draw(0, n_expert)
     else:
         expert_ind = torch.as_tensor(fix_expert_ind, device=dev).expand(batch)
-    if fix_start_ind is None:
-        if p.env_start_first:
-            start_ind = torch.zeros(batch, dtype=torch.int64, device=dev)
-        else:
-            hi = expert.lens[expert_ind] - p.env_episode_len - p.fr_margin
-            hi = torch.clamp(hi, min=p.fr_margin + 1)
-            start_ind = draw(p.fr_margin, hi.to(torch.float64))
-    else:
+    if fix_start_ind is not None:
         start_ind = torch.as_tensor(fix_start_ind, device=dev).expand(batch)
+    elif p.env_start_first:
+        start_ind = zeros
+    else:
+        hi = expert.lens[expert_ind] - p.env_episode_len - p.fr_margin
+        hi = torch.clamp(hi, min=p.fr_margin + 1)
+        start_ind = draw(p.fr_margin, hi.to(torch.float64))
     if p.random_cur_t and fix_start_ind is None:
         cur_t0 = draw(0, p.env_episode_len)
     else:
-        cur_t0 = torch.zeros(batch, dtype=torch.int64, device=dev)
+        cur_t0 = zeros
+    init_noise = torch.randn(batch, p.nq - 7, generator=generator,
+                             device=dev, dtype=expert.qpos.dtype)
+    return expert_ind, start_ind, cur_t0, init_noise
+
+
+def reset_from(model: PhysicsModel, p: EnvParams, tables: BodyTables,
+               expert: ExpertBatch, expert_ind, start_ind, cur_t0,
+               init_noise) -> EnvState:
+    """Episode initialization from the expert state at start_ind + cur_t0,
+    with env_init_noise * init_noise on the joints."""
     init_ind = start_ind + cur_t0
     qpos = expert.qpos[expert_ind, init_ind].clone()
     qvel = expert.qvel[expert_ind, init_ind].clone()
-    if p.env_init_noise:
-        qpos[:, 7:] += p.env_init_noise * torch.randn(
-            batch, p.nq - 7, generator=generator, device=dev,
-            dtype=qpos.dtype)
+    qpos[:, 7:] += p.env_init_noise * init_noise.to(qpos.dtype)
     bq = get_body_quat(tables, qpos)
-    return EnvState(qpos=qpos, qvel=qvel, cur_t=cur_t0,
+    return EnvState(qpos=qpos, qvel=qvel, cur_t=cur_t0.to(torch.int64),
                     expert_ind=expert_ind.to(torch.int64).clone(),
                     start_ind=start_ind.to(torch.int64).clone(),
                     prev_qpos=qpos, prev_bquat=bq, bquat=bq,
-                    done=torch.zeros(batch, dtype=torch.bool, device=dev))
+                    done=torch.zeros(qpos.shape[0], dtype=torch.bool,
+                                     device=qpos.device))
+
+
+def reset(model: PhysicsModel, p: EnvParams, tables: BodyTables,
+          expert: ExpertBatch, generator: torch.Generator, batch: int,
+          fix_expert_ind=None, fix_start_ind=None) -> EnvState:
+    """Episode initialization for ``batch`` environments, its random draws
+    from ``generator`` (draw_reset, then reset_from)."""
+    return reset_from(model, p, tables, expert, *draw_reset(
+        p, expert, generator, batch, fix_expert_ind, fix_start_ind))
 
 
 def apply_action(p: EnvParams, action: torch.Tensor) -> torch.Tensor:
@@ -290,16 +320,19 @@ def apply_action(p: EnvParams, action: torch.Tensor) -> torch.Tensor:
 def step(model: PhysicsModel, p: EnvParams, tables: BodyTables,
          expert: ExpertBatch, state: EnvState, action: torch.Tensor,
          end_reward=0.0, fix_len: int | None = None, fix_head_lb=None):
-    """One 30 Hz control step for the batch: 15 stable-PD substeps, then
-    obs, reward and fail/end detection."""
-    if p.action_type != "position":
-        raise NotImplementedError(
-            "action_type 'torque' needs the batched SPD-solve kernel K2 "
-            "(egopose_tpu/physics/linalg_pallas.py::_batched_spd_solve_tpu),"
-            " which is not ported yet")
-    qpos, qvel = engine.pd_control_step(
-        model, state.qpos, state.qvel, apply_action(p, action), p.jkp, p.jkd,
-        p.torque_lim, p.frame_skip, p.contact)
+    """One 30 Hz control step for the batch: 15 physics substeps (stable
+    PD in position mode: the K1 kernel on the card; held torques in torque
+    mode: the K2 solve on the card), then obs, reward and fail/end
+    detection."""
+    ctrl = apply_action(p, action)
+    if p.action_type == "position":
+        qpos, qvel = engine.pd_control_step(
+            model, state.qpos, state.qvel, ctrl, p.jkp, p.jkd, p.torque_lim,
+            p.frame_skip, p.contact)
+    else:
+        qpos, qvel = engine.torque_control_step(
+            model, state.qpos, state.qvel, ctrl, p.torque_lim, p.frame_skip,
+            p.contact)
     return finish_step(model, p, tables, expert, state, qpos, qvel,
                        end_reward, fix_len, fix_head_lb)
 

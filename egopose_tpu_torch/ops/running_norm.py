@@ -1,5 +1,6 @@
-"""Running observation normalization (ZFilter), inference half
-(counterpart of egopose_tpu/ops/running_norm.py).
+"""Running observation normalization (ZFilter) (counterpart of
+egopose_tpu/ops/running_norm.py): Welford statistics, the batched Chan
+merge of a rollout batch, and the clipped z-normalization.
 
 ``RunningStat`` keeps the JAX package's field names and NamedTuple shape, so
 the committed checkpoints -- which pickle the JAX package's RunningStat --
@@ -15,6 +16,36 @@ class RunningStat(NamedTuple):
     n: object      # scalar count
     mean: object   # (D,)
     s: object      # (D,) sum of squared deviations
+
+
+def init_stat(dim: int, dtype=torch.float32, device="cpu") -> RunningStat:
+    return RunningStat(n=torch.zeros((), dtype=dtype, device=device),
+                       mean=torch.zeros(dim, dtype=dtype, device=device),
+                       s=torch.zeros(dim, dtype=dtype, device=device))
+
+
+def push_batch(stat: RunningStat, x: torch.Tensor,
+               weight: torch.Tensor | None = None) -> RunningStat:
+    """Fold a batch (..., D) into the stats, optionally weighted per row:
+    the Chan parallel-Welford merge, equal to pushing the rows one by one
+    (zfilter.py:12-22).  An empty (zero-weight) batch changes nothing."""
+    if weight is None:
+        weight = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+    w = weight[..., None]
+    dims = tuple(range(x.dim() - 1))
+    nb = torch.sum(weight)
+    safe_nb = torch.clamp(nb, min=1.0)
+    mb = torch.sum(x * w, dims) / safe_nb
+    sb = torch.sum(w * (x - mb) ** 2, dims)
+    n = stat.n + nb
+    safe_n = torch.clamp(n, min=1.0)
+    delta = mb - stat.mean
+    mean = stat.mean + delta * nb / safe_n
+    s = stat.s + sb + delta ** 2 * stat.n * nb / safe_n
+    keep = nb > 0
+    return RunningStat(n=torch.where(keep, n, stat.n),
+                       mean=torch.where(keep, mean, stat.mean),
+                       s=torch.where(keep, s, stat.s))
 
 
 def to_tensors(stat: RunningStat, device) -> RunningStat:

@@ -2,9 +2,11 @@
 
 Counterpart of egopose_tpu/physics/engine.py.  Every function takes a
 leading batch dimension B written out (the JAX engine is per-environment
-under ``vmap``).  This is the plain version of the CUDA control-step kernel
-(csrc/substep.cu, wrapped by physics/substep.py): CPU callers run it, and
-chip_smoke.py holds the kernel against it on the card.
+under ``vmap``).  The stable-PD split path is the plain version of the CUDA
+control-step kernel (csrc/substep.cu, wrapped by physics/substep.py): CPU
+callers run it, and chip_smoke.py holds the kernel against it on the card.
+The torque-mode substep (step_raw) solves through linalg.spd_solve, the
+K2 kernel on the card.
 
 Conventions match MuJoCo (and the JAX engine): qvel[0:3] world-frame linear
 velocity of the root frame origin, qvel[3:6] body-local angular velocity.
@@ -17,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import quat as Q
+from . import linalg
 from .model import PhysicsModel, golden_min01
 
 cross = Q.cross
@@ -378,9 +381,10 @@ def limit_qfrc(m: PhysicsModel, qpos, qvel,
 # forward dynamics + integration
 # ---------------------------------------------------------------------------
 
-def spd_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Batched dense SPD solve A X = rhs (B,n,n), (B,n,r)."""
-    return torch.cholesky_solve(rhs, torch.linalg.cholesky(a))
+# The stable-PD split path's solve is always the plain version, also on the
+# card: that path is K1's plain version, which chip_smoke.py and the kernel
+# tests hold the K1 kernel against.
+spd_solve = linalg.spd_solve_plain
 
 
 def smooth_dynamics(m: PhysicsModel, qpos, qvel, tau, params: ContactParams,
@@ -402,6 +406,25 @@ def integrate(m: PhysicsModel, qpos, qvel, dt) -> torch.Tensor:
     quat = Q.quat_integrate(qpos[:, 3:7], qvel[:, 3:6], dt)
     joints = qpos[:, 7:] + dt * qvel[:, 6:]
     return torch.cat([pos, quat, joints], 1)
+
+
+def step_raw(m: PhysicsModel, qpos, qvel, tau,
+             params: ContactParams = DEFAULT_CONTACT):
+    """One physics substep at m.timestep with generalized applied force tau
+    (B,nd): smooth dynamics -> predicted velocity -> contact projection ->
+    integrate.  The dynamics solve and the Delassus columns W = Minv J^T
+    share one SPD solve (linalg.spd_solve: the K2 kernel on the card)."""
+    kin = fk(m, qpos)
+    qfrc, a = smooth_dynamics(m, qpos, qvel, tau, params, crba(m, kin),
+                              bias_force(m, kin, qvel))
+    jf, target, mu = contact_blocks(m, kin, params)
+    sol = linalg.spd_solve(a, torch.cat([qfrc[..., None],
+                                         jf.transpose(1, 2)], 2))
+    qacc, w = sol[..., 0], sol[..., 1:]
+    v_pred = qvel + m.timestep * qacc
+    qvel = contact_sweep_blocks(jf, w, target, mu, v_pred, params.iters,
+                                params.relax)
+    return integrate(m, qpos, qvel, m.timestep), qvel
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +483,19 @@ def pd_control_step_split(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd,
         qpos, qvel = group(qpos, qvel, r)
     if n_frames % r:
         qpos, qvel = group(qpos, qvel, n_frames % r)
+    return qpos, qvel
+
+
+def torque_control_step(m: PhysicsModel, qpos, qvel, ctrl, torque_lim,
+                        n_frames: int,
+                        params: ContactParams = DEFAULT_CONTACT):
+    """One control step with action_type 'torque' (humanoid_v1.py:170-171):
+    the clamped, geared torque held over n_frames substeps of step_raw."""
+    torque = torch.clamp(ctrl, -torque_lim, torque_lim)
+    tau = qpos.new_zeros(qpos.shape[0], m.ndof)
+    tau[:, list(m.actuator_dof)] = torque * m.actuator_gear
+    for _ in range(n_frames):
+        qpos, qvel = step_raw(m, qpos, qvel, tau, params)
     return qpos, qvel
 
 

@@ -1,0 +1,73 @@
+"""Build the port's CUDA kernels (``csrc/*.cu``) with nvcc at first use.
+
+Each source compiles on its own into a shared library with a plain C
+interface (loaded with ctypes by its wrapper module), named by a hash of the
+source and the flags so an edited source never loads a stale library.
+Output goes to the git-ignored ``egopose_tpu_torch/_build/``.
+``build_all`` starts one nvcc per source at once and waits for all.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCES = ("substep.cu", "spd_solve.cu")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cand.append(shutil.which("nvcc") or "")
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kernels under csrc/")
+
+
+def library_path(source: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(os.path.join(CSRC, source), "rb") as f:
+        h.update(source.encode() + f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def build_all(sources=SOURCES, verbose: bool = False) -> list:
+    """Compile every source whose library is missing, all nvcc processes
+    at once; returns the libraries' paths in the order of ``sources``.
+    With ``verbose`` prints ptxas's register / shared-memory report."""
+    outs = [library_path(s) for s in sources]
+    procs = []
+    for src, out in zip(sources, outs):
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               os.path.join(CSRC, src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{stdout}{stderr}")
+            continue
+        if verbose:
+            print(stderr.strip())
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return outs
+
+
+def build(source: str, verbose: bool = False) -> str:
+    return build_all((source,), verbose)[0]

@@ -17,22 +17,12 @@ plain version: a model the kernel does not support raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
-from . import engine
+from . import engine, nvcc
 from .model import PhysicsModel
-
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # Launch count of the kernel: incremented once per launch, nowhere else.
 launches = 0
@@ -89,9 +79,9 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
     if not supports(m):
         raise NotImplementedError(
             "the CUDA control-step kernel needs one actuator per hinge dof "
-            "in dof order; other actuator layouts need the batched "
-            "SPD-solve kernel K2 (egopose_tpu/physics/linalg_pallas.py::"
-            "_batched_spd_solve_tpu), which is not ported yet")
+            "in dof order; the stable-PD split path for other actuator "
+            "layouts runs on the CPU only (on the card it would hold K1's "
+            "plain version against itself)")
     f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()
     nb, nd, nq, nu = m.nbody, m.ndof, m.nq, m.nu
     parent = np.array(m.parent, np.int64)
@@ -198,44 +188,10 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
 _lib = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    cand.append(shutil.which("nvcc") or "")
-    for c in cand:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "csrc/substep.cu")
-
-
-def library_path() -> str:
-    """Build output named by a hash of the sources and flags, so an edited
-    source never loads a stale library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(CSRC)):
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libsubstep_{h.hexdigest()[:16]}.so")
-
-
 def build(verbose: bool = False) -> str:
     """Compile csrc/substep.cu with nvcc (route (b): plain C interface,
-    loaded with ctypes) unless the library for these sources exists."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           os.path.join(CSRC, "substep.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    loaded with ctypes) unless the library for this source exists."""
+    return nvcc.build("substep.cu", verbose)
 
 
 def _load():

@@ -1,29 +1,64 @@
-"""AgentEgo, inference half (counterpart of egopose_tpu/rl/agent_ego.py):
-the policy, value and video-context nets, the observation filter (zstat)
-and checkpoint loading.  Sampling and PPO updates belong to the training
-slice."""
+"""AgentEgo: video-conditioned PPO, sampling and updates (counterpart of
+egopose_tpu/rl/agent_ego.py).
+
+Holds the policy, value and video-context nets, the observation filter
+(zstat) and the two optimizers; samples batches of segments through
+rl/rollout.py and updates through rl/ppo.py.  Checkpoints are pickles in
+the JAX package's layout (flax trees of numpy arrays + RunningStat), so
+either package loads what the other saves.
+"""
 from __future__ import annotations
 
+import math
+import time
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
-from ..convert import load_checkpoint_pickle, params_from_jax
+from ..convert import (load_checkpoint_pickle, params_from_jax,
+                       params_to_jax, save_checkpoint_pickle)
 from ..models.video_state_net import VideoStateNet
 from ..ops import running_norm
+from . import ppo, rollout
 from .nets import PolicyGaussian, Value
 
 
+class SampleLog(NamedTuple):
+    num_steps: float
+    num_episodes: float
+    avg_episode_len: float
+    avg_c_reward: float
+    min_c_reward: float
+    max_c_reward: float
+    avg_c_info: np.ndarray
+    fail_rate: float
+    sample_time: float = 0.0
+
+
 class AgentEgo:
-    def __init__(self, spec, params, cnn_fdim: int, cfg, seed: int = 1,
+    def __init__(self, model, spec, params, tables, expert, cnn_feat, cfg,
+                 batch_lanes: int = 1024, seed: int = 1,
                  dtype=torch.float32, device="cpu"):
+        self.model, self.spec, self.p, self.tables = model, spec, params, \
+            tables
         self.dtype, self.device = dtype, torch.device(device)
+        self.expert = expert
+        self.cnn_feat = torch.as_tensor(np.asarray(cnn_feat)).to(
+            device=self.device, dtype=dtype)
+        self.cfg = cfg
+        self.batch_lanes = batch_lanes
+        self.end_reward = 0.0
+        self.noise_rate = 1.0
         obs_dim = params.obs_dim
-        # untrained weights come from a seeded generator without touching
-        # the caller's global random state
+        cnn_fdim = self.cnn_feat.shape[-1]
+        # fresh weights come from a seeded generator without touching the
+        # caller's global random state
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.policy_net = PolicyGaussian(
                 obs_dim + cfg.policy_v_hdim, spec.nu, cfg.policy_hsize,
-                cfg.policy_htype, cfg.log_std)
+                cfg.policy_htype, cfg.log_std, cfg.fix_std)
             self.value_net = Value(obs_dim + cfg.value_v_hdim,
                                    cfg.value_hsize, cfg.value_htype)
             self.policy_vs_net = VideoStateNet(
@@ -34,18 +69,129 @@ class AgentEgo:
                 cfg.causal)
         for net in self.nets:
             net.to(device=self.device, dtype=dtype).eval()
-        self.zstat = running_norm.RunningStat(
-            n=torch.zeros((), dtype=dtype, device=self.device),
-            mean=torch.zeros(obs_dim, dtype=dtype, device=self.device),
-            s=torch.zeros(obs_dim, dtype=dtype, device=self.device))
+        self.zstat = running_norm.init_stat(obs_dim, dtype, self.device)
+        opt_p, opt_v = ppo.make_optimizers(
+            [*self.policy_net.parameters(), *self.policy_vs_net.parameters()],
+            [*self.value_net.parameters(), *self.value_vs_net.parameters()],
+            cfg.policy_lr, cfg.value_lr, grad_clip=40.0,
+            policy_weight_decay=cfg.policy_weightdecay,
+            value_weight_decay=cfg.value_weightdecay)
+        self.train_state = ppo.TrainState(
+            policy=self.policy_net, policy_vs=self.policy_vs_net,
+            value=self.value_net, value_vs=self.value_vs_net,
+            opt_policy=opt_p, opt_value=opt_v)
+        self.hyper = ppo.PPOHyper(
+            gamma=cfg.gamma, tau=cfg.tau, clip_epsilon=cfg.clip_epsilon,
+            num_epochs=cfg.num_optim_epoch,
+            kl_target=float(getattr(cfg, "policy_kl_target", 0.0) or 0.0))
+        # optional shuffled-minibatch PPO: cfg counts steps, the slices
+        # are lane-grained
+        mbs = getattr(cfg, "mini_batch_size", None)
+        self.mini_batch_lanes = 0
+        if mbs and mbs < batch_lanes * params.env_episode_len:
+            self.mini_batch_lanes = max(1, int(mbs) // params.env_episode_len)
+        self.update_generator = torch.Generator(device=self.device)
+        self.update_generator.manual_seed(seed + 17)
 
     @property
     def nets(self):
         return (self.policy_net, self.policy_vs_net, self.value_net,
                 self.value_vs_net)
 
+    # -- the schedule's hooks (ego_mimic.py: pre-iteration updates) ---------
+    def set_noise_rate(self, r):
+        self.noise_rate = float(r)
+
+    def set_policy_lr(self, lr):
+        self.train_state.opt_policy.lr = float(lr)
+
+    def fill_log_std(self, log_std):
+        with torch.no_grad():
+            self.policy_net.action_log_std.fill_(float(log_std))
+
+    # -- sampling -------------------------------------------------------------
+    def sample(self, generator: torch.Generator, min_batch_size: int,
+               mean_action: bool = False):
+        """ceil(min_batch_size / (lanes * episode_len)) segments, lanes
+        concatenated.  Returns (SegmentBatch, SampleLog)."""
+        t0 = time.time()
+        per_seg = self.batch_lanes * self.p.env_episode_len
+        n_seg = max(1, math.ceil(min_batch_size / per_seg))
+        segs = []
+        for _ in range(n_seg):
+            noise = rollout.draw_segment_noise(
+                self.p, self.expert, self.batch_lanes, self.noise_rate,
+                generator)
+            seg, self.zstat = rollout.rollout_segment(
+                self.model, self.p, self.tables, self.expert, self.cnn_feat,
+                self.policy_net, self.policy_vs_net, self.zstat, noise,
+                mean_action, self.end_reward)
+            segs.append(seg)
+        batch = rollout.SegmentBatch(*[
+            torch.cat(xs, 1 if xs[0].dim() > 1 else 0)
+            for xs in zip(*segs)]) if n_seg > 1 else segs[0]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return batch, self._make_log(batch, time.time() - t0)
+
+    def _make_log(self, batch, dt):
+        valid = batch.valids.double().cpu().numpy()
+        rewards = batch.rewards.double().cpu().numpy()
+        fails = batch.fails.double().cpu().numpy()
+        n_steps = valid.sum()
+        # every lane is one episode, plus one per mid-segment re-anchor
+        n_eps = valid.shape[1] + (fails * valid).sum()
+        vsum = max(n_steps, 1.0)
+        rv = rewards[valid > 0]
+        info = batch.reward_info.double().cpu().numpy()
+        return SampleLog(
+            num_steps=float(n_steps), num_episodes=float(n_eps),
+            avg_episode_len=float(n_steps / n_eps),
+            avg_c_reward=float((rewards * valid).sum() / vsum),
+            min_c_reward=float(rv.min()) if rv.size else 0.0,
+            max_c_reward=float(rv.max()) if rv.size else 0.0,
+            avg_c_info=(info * valid[..., None]).sum((0, 1)) / vsum,
+            fail_rate=float((fails * valid).sum() / n_eps),
+            sample_time=dt)
+
+    # -- update ---------------------------------------------------------------
+    def update_params(self, batch) -> dict:
+        objective = getattr(self.cfg, "policy_objective", None) or "ppo"
+        if objective != "ppo":
+            raise NotImplementedError(
+                f"policy_objective {objective!r} is not ported yet (ROADMAP "
+                "§1 item 7: the a2c objective and TRPO)")
+        windows = rollout.gather_windows(
+            self.cnn_feat, batch.expert_ind, batch.start_ind,
+            self.p.fr_margin, self.p.env_episode_len)
+        _, metrics = ppo.ppo_update(
+            self.train_state, self.hyper, batch, windows,
+            mini_batch_lanes=self.mini_batch_lanes,
+            generator=self.update_generator)
+        out = {k: float(v) for k, v in metrics.items()}
+        # non-finite-gradient skips (Adam's apply_if_finite counters)
+        for name in ("policy", "value"):
+            opt = getattr(self.train_state, "opt_" + name)
+            out[f"{name}_grad_skips"] = int(opt.total_notfinite)
+        return out
+
+    # -- checkpoints ----------------------------------------------------------
+    def checkpoint(self) -> dict:
+        """The JAX package's checkpoint dict: flax trees + RunningStat, all
+        numpy."""
+        trees = params_to_jax(*[net.state_dict() for net in self.nets])
+        np_ = lambda x: x.detach().cpu().numpy()
+        return {"policy_dict": trees[0], "policy_vs_dict": trees[1],
+                "value_dict": trees[2], "value_vs_dict": trees[3],
+                "running_state": running_norm.RunningStat(
+                    n=np_(self.zstat.n), mean=np_(self.zstat.mean),
+                    s=np_(self.zstat.s))}
+
+    def save(self, path: str):
+        save_checkpoint_pickle(path, self.checkpoint())
+
     def load(self, path: str):
-        """Load a checkpoint pickle written by the JAX package's
+        """Load a checkpoint pickle written by either package's
         AgentEgo.save (flax trees + RunningStat)."""
         self.load_checkpoint(load_checkpoint_pickle(path))
 
@@ -53,7 +199,8 @@ class AgentEgo:
         if "params" not in cp["policy_dict"]:
             raise NotImplementedError(
                 "reference-format (torch state_dict) checkpoints are not "
-                "ported; load a checkpoint written by egopose_tpu")
+                "ported; load a checkpoint written by egopose_tpu or "
+                "egopose_tpu_torch")
         sds = params_from_jax(cp["policy_dict"], cp["policy_vs_dict"],
                               cp["value_dict"], cp["value_vs_dict"])
         for net, sd in zip(self.nets, sds):

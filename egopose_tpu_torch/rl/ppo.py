@@ -1,0 +1,228 @@
+"""PPO update (counterpart of egopose_tpu/rl/ppo.py).
+
+Semantics, as in the JAX package:
+- values, log-probs and GAE advantages from the pre-update parameters over
+  the full batch;
+- per epoch: a critic MSE step, then the clipped-surrogate policy step over
+  exploration rows only (exps nonzero), with the log-ratio clamped to +-20;
+- the policy optimizer covers the policy and its video-context net, with a
+  global-norm clip at 40; the context nets are re-run inside each loss so
+  their parameters receive gradients;
+- the optional ``kl_target`` stop (Schulman's KL3 estimate against the
+  sampling policy, decided before each policy step): once it trips, the
+  remaining policy steps change neither the parameters nor the optimizer
+  state, while the critic keeps fitting;
+- the optional lane-grained minibatch path: each epoch permutes the lanes
+  and takes one critic + policy step per ``mini_batch_lanes`` slice.
+
+``Adam`` reproduces the JAX package's optax chain exactly (see its
+docstring), including optax's clip formula and ``apply_if_finite``; its
+steps read nothing back to the host.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+from torch import nn
+
+from ..ops.gae import estimate_advantages
+from .distributions import diag_gaussian_log_prob
+from .rollout import SegmentBatch
+
+
+class PPOHyper(NamedTuple):
+    gamma: float = 0.95
+    tau: float = 0.95
+    clip_epsilon: float = 0.2
+    num_epochs: int = 10
+    value_opt_niter: int = 1
+    kl_target: float = 0.0   # > 0: stop the policy steps once the approximate
+                             # KL to the sampling policy exceeds it (config key
+                             # policy_kl_target); 0 disables
+
+
+class Adam:
+    """``optax.inject_hyperparams(optax.apply_if_finite(optax.chain(
+    [clip_by_global_norm(grad_clip)], adam | adamw), 100))`` over a list of
+    parameters, updated in place:
+
+    - the gradient is checked first: a non-finite one leaves parameters and
+      moments unchanged and counts in ``notfinite_count`` (consecutive) and
+      ``total_notfinite``; after more than MAX_CONSECUTIVE_ERRORS in a row
+      the update is applied anyway, so a broken run surfaces;
+    - clip (optax's formula): g -> (g / norm) * grad_clip unless
+      norm < grad_clip, norm the global L2 norm;
+    - Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments), plus
+      weight_decay * p (AdamW) when it is nonzero;
+    - p <- p - lr * update, ``lr`` settable between steps.
+
+    A missing gradient counts as zeros (optax sees a zero gradient for a
+    stop_gradient parameter)."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+    MAX_CONSECUTIVE_ERRORS = 100
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float,
+                 grad_clip: float = 0.0, weight_decay: float = 0.0):
+        self.params = list(params)
+        self.lr, self.grad_clip, self.weight_decay = lr, grad_clip, \
+            weight_decay
+        dev = self.params[0].device
+        zero = lambda: torch.zeros((), dtype=torch.int64, device=dev)
+        self.count, self.notfinite_count, self.total_notfinite = \
+            zero(), zero(), zero()
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads, skip: torch.Tensor | None = None):
+        """One update from ``grads`` (one per parameter, None = zeros).
+        ``skip`` (a 0-d bool tensor) true leaves parameters and every part
+        of the state unchanged."""
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+        isfinite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        notfinite = torch.where(isfinite, torch.zeros_like(self.count),
+                                self.notfinite_count + 1)
+        accept = isfinite | (notfinite > self.MAX_CONSECUTIVE_ERRORS)
+        keep_state = torch.zeros_like(isfinite) if skip is None else skip
+        commit = accept & ~keep_state
+        if self.grad_clip:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            grads = [torch.where(norm < self.grad_clip, g,
+                                 (g / norm) * self.grad_clip) for g in grads]
+        count = self.count + 1
+        f64 = lambda x: torch.tensor(x, dtype=torch.float64,
+                                     device=count.device)
+        bc1 = 1 - f64(self.B1) ** count
+        bc2 = 1 - f64(self.B2) ** count
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            mu = (1 - self.B1) * g + self.B1 * self.mu[i]
+            nu = (1 - self.B2) * g ** 2 + self.B2 * self.nu[i]
+            u = (mu / bc1.to(p.dtype)) / (torch.sqrt(nu / bc2.to(p.dtype))
+                                          + self.EPS)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.copy_(torch.where(commit, p + (-self.lr) * u, p))
+            self.mu[i] = torch.where(commit, mu, self.mu[i])
+            self.nu[i] = torch.where(commit, nu, self.nu[i])
+        self.count = torch.where(commit, count, self.count)
+        self.notfinite_count = torch.where(keep_state, self.notfinite_count,
+                                           notfinite)
+        self.total_notfinite = torch.where(
+            keep_state | isfinite, self.total_notfinite,
+            self.total_notfinite + 1)
+
+
+class TrainState(NamedTuple):
+    """The four nets (updated in place) and the two optimizers."""
+    policy: nn.Module
+    policy_vs: nn.Module
+    value: nn.Module
+    value_vs: nn.Module
+    opt_policy: Adam
+    opt_value: Adam
+
+
+def make_optimizers(policy_params, value_params, policy_lr, value_lr,
+                    grad_clip=40.0, policy_weight_decay=0.0,
+                    value_weight_decay=0.0):
+    """(policy optimizer over the policy and policy-context parameters,
+    with the global-norm clip; value optimizer over the value and
+    value-context parameters, without), both skipping non-finite updates
+    up to 100 in a row."""
+    return (Adam(policy_params, policy_lr, grad_clip=grad_clip,
+                 weight_decay=policy_weight_decay),
+            Adam(value_params, value_lr, weight_decay=value_weight_decay))
+
+
+def _ctx(vs_net, windows, states):
+    """Network input (T,B,v_hdim+obs) from the context of each lane's
+    window and the recorded states."""
+    return torch.cat([vs_net(windows).transpose(0, 1), states], -1)
+
+
+def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
+               windows: torch.Tensor, mini_batch_lanes: int = 0, perms=None,
+               generator: torch.Generator | None = None):
+    """Run ``hyper.num_epochs`` PPO epochs on one sampled batch (time-major
+    (T,B,...) tensors; windows (B,W,feat)), updating ``ts``'s nets and
+    optimizers in place.
+
+    ``mini_batch_lanes`` in (0, B): the minibatch path; ``perms`` (epochs,
+    n_mb * mini_batch_lanes) gives each epoch's lane order, else it is drawn
+    from ``generator``.  Returns (ts, metrics dict of 0-d tensors)."""
+    bsz = batch.rewards.shape[1]
+    valid = batch.valids
+
+    def policy_logprob(states, win, actions):
+        mean, log_std = ts.policy(_ctx(ts.policy_vs, win, states))
+        return diag_gaussian_log_prob(actions, mean, log_std)
+
+    def values_of(states, win):
+        return ts.value(_ctx(ts.value_vs, win, states))
+
+    with torch.no_grad():
+        fixed_log_probs = policy_logprob(batch.states, windows,
+                                         batch.actions)
+        values = values_of(batch.states, windows)
+        advantages, returns = estimate_advantages(
+            batch.rewards, batch.masks, values, hyper.gamma, hyper.tau,
+            valid=valid)
+    exp_w = batch.exps * valid
+    stop = torch.zeros((), dtype=torch.bool, device=valid.device)
+
+    def opt_step(d):
+        nonlocal stop
+        states, actions, win, flp, adv, ret, val, expw = d
+        nv = torch.clamp(val.sum(), min=1.0)
+        ne = torch.clamp(expw.sum(), min=1.0)
+        for _ in range(hyper.value_opt_niter):
+            vloss = torch.sum(((values_of(states, win) - ret) ** 2) * val) / nv
+            ts.opt_value.step(torch.autograd.grad(
+                vloss, ts.opt_value.params, allow_unused=True))
+        if hyper.kl_target > 0:
+            with torch.no_grad():
+                lr = torch.clamp(policy_logprob(states, win, actions) - flp,
+                                 -20.0, 20.0)
+                approx_kl = torch.sum(((torch.exp(lr) - 1.0) - lr) * expw) \
+                    / ne
+            stop = stop | (approx_kl > hyper.kl_target)
+        ratio = torch.exp(torch.clamp(
+            policy_logprob(states, win, actions) - flp, -20.0, 20.0))
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1.0 - hyper.clip_epsilon,
+                            1.0 + hyper.clip_epsilon) * adv
+        ploss = -torch.sum(torch.minimum(surr1, surr2) * expw) / ne
+        ts.opt_policy.step(
+            torch.autograd.grad(ploss, ts.opt_policy.params,
+                                allow_unused=True),
+            skip=stop if hyper.kl_target > 0 else None)
+        return ploss.detach(), vloss.detach()
+
+    full = (batch.states, batch.actions, windows, fixed_log_probs,
+            advantages, returns, valid, exp_w)
+    if mini_batch_lanes and mini_batch_lanes < bsz:
+        mb = int(mini_batch_lanes)
+        n_mb = bsz // mb
+        if perms is None:
+            perms = torch.stack([
+                torch.randperm(bsz, generator=generator,
+                               device=generator.device)[:n_mb * mb]
+                for _ in range(hyper.num_epochs)])
+        for perm in torch.as_tensor(perms, device=valid.device):
+            for idx in perm.reshape(n_mb, mb):
+                states, actions, win, flp, adv, ret, val, expw = full
+                losses = opt_step((states[:, idx], actions[:, idx], win[idx],
+                                   flp[:, idx], adv[:, idx], ret[:, idx],
+                                   val[:, idx], expw[:, idx]))
+    else:
+        for _ in range(hyper.num_epochs):
+            losses = opt_step(full)
+    metrics = {"policy_loss": losses[0], "value_loss": losses[1],
+               "n_valid": torch.clamp(valid.sum(), min=1.0),
+               "n_exp": torch.clamp(exp_w.sum(), min=1.0)}
+    if hyper.kl_target > 0:
+        metrics["kl_stopped"] = stop
+    return ts, metrics

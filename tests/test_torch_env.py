@@ -121,12 +121,48 @@ def test_divergence_guard_matches(worlds):
         _close(getattr(tout, name), getattr(jout, name), "guard " + name)
 
 
-def test_torque_mode_needs_k2(worlds):
-    import dataclasses
-    _, (tm, tp, tt, te) = worlds
-    st = tenvs.reset(tm, tp, tt, te, torch.Generator().manual_seed(0), 1,
-                     fix_expert_ind=torch.tensor([0]), fix_start_ind=3)
-    torque = dataclasses.replace(tp, action_type="torque")
-    with pytest.raises(NotImplementedError, match="K2"):
-        tenvs.step(tm, torque, tt, te, st, torch.zeros(1, 52,
-                                                       dtype=torch.float64))
+def test_torque_mode_step_matches_jax():
+    """action_type 'torque' with the config's j_stiff / j_damp override of
+    every hinge dof (set_model_params): the overridden models agree, and
+    reset + steps under the same actions agree to 1e-8 (TOL), as in
+    position mode; the physics itself is held to 1e-9 in
+    test_torch_physics.py::test_torque_control_step_matches_jax."""
+    root = os.path.join(REPO, "config")
+    jc = jcfg.EgoMimicConfig("subject_03", config_root=root)
+    tc = tcfg.EgoMimicConfig("subject_03", config_root=root)
+    for c in (jc, tc):
+        c.action_type = "torque"
+        c.j_stiff, c.j_damp = 5.0, 20.0
+    jspec = jcfg.apply_model_params(jparse(XML), jc)
+    tspec = tcfg.apply_model_params(tparse(XML), tc)
+    assert (tspec.dof_stiffness[6:] == 5.0).all()
+    assert (tspec.dof_damping[6:] == 20.0).all()
+    np.testing.assert_array_equal(tspec.dof_damping, jspec.dof_damping)
+    jm = jbuild(jspec, dtype=jnp.float64)
+    tm = tmodel.build_model(tspec, dtype=torch.float64)
+    jp = jcfg.make_env_params(jc, jspec, obs_dim=115, dtype=np.float64)
+    tp = tcfg.make_env_params(tc, tspec, obs_dim=115, dtype=torch.float64)
+    assert tp.action_type == jp.action_type == "torque"
+    jt, tt = jenvs.make_body_tables(jspec), tenvs.make_body_tables(tspec)
+    je = jenvs.synthetic_experts(jm, jp, jt, jspec, N_TAKES, T_LEN, seed=1)
+    te = tenvs.synthetic_experts(tm, tp, tt, tspec, N_TAKES, T_LEN, seed=1)
+    ind = np.arange(N_TAKES)
+    jst = jax.vmap(lambda i: jenvs.reset(
+        jm, jp, jt, je, jax.random.PRNGKey(0), fix_expert_ind=i,
+        fix_start_ind=3))(jnp.asarray(ind))
+    tst = tenvs.reset(tm, tp, tt, te, torch.Generator().manual_seed(0),
+                      N_TAKES, fix_expert_ind=torch.tensor(ind),
+                      fix_start_ind=3)
+    jstep = jax.jit(jax.vmap(lambda s, a: jenvs.step(jm, jp, jt, je, s, a)))
+    rng = np.random.RandomState(6)
+    for k in range(2):
+        # actions are torques through a_ref + action * a_scale
+        action = 40.0 * rng.randn(N_TAKES, 52)
+        jst, jout = jstep(jst, jnp.asarray(action))
+        tst, tout = tenvs.step(tm, tp, tt, te, tst, torch.tensor(action))
+        for name in ("obs", "reward", "reward_info", "fail", "done", "end"):
+            _close(getattr(tout, name), getattr(jout, name),
+                   f"step {k} {name}")
+        _close(tst.qpos, jst.qpos, f"step {k} qpos")
+        _close(tst.qvel, jst.qvel, f"step {k} qvel")
+        assert torch.isfinite(tst.qpos).all()

@@ -1,5 +1,6 @@
-"""The CUDA control-step kernel against its plain PyTorch version on the
-card.  Needs an NVIDIA GPU and nvcc: marked ``cuda`` and skipped without
+"""The CUDA kernels against their plain PyTorch versions on the card: K1,
+the control step (csrc/substep.cu), and K2, the batched SPD solve
+(csrc/spd_solve.cu).  Needs an NVIDIA GPU and nvcc: marked ``cuda`` and skipped without
 them.  Imports no JAX, so it runs on a machine that has only the port:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -q
@@ -72,3 +73,58 @@ def test_kernel_wrapper_rejects_bad_inputs(card):
     with pytest.raises(ValueError):
         substep.pd_control_step_cuda(m, args[0].double(), *args[1:], 15,
                                      engine.DEFAULT_CONTACT)
+
+
+def _spd_systems(bsz, n, r, dtype, device, seed):
+    """SPD systems with condition numbers ~1e3: A = G G^T / n + 0.05 I."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(bsz, n, n)
+    a = g @ g.transpose(0, 2, 1) / n + 0.05 * np.eye(n)
+    rhs = rng.randn(bsz, n, r)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    return t(a), t(rhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 4, 1024])
+@pytest.mark.parametrize("r", [1, 25])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_spd_solve_matches_plain_on_card(card, dtype, r, bsz):
+    """f64: max-abs kernel - plain <= 1e-9 max|X|.  f32: the kernel's
+    error against the float64 solution is at most 4x the plain float32
+    version's (both Cholesky solves, summed in other orders)."""
+    from egopose_tpu_torch.physics import linalg
+    a, rhs = _spd_systems(bsz, 58, r, dtype, card, seed=bsz + r)
+    before = linalg.launches
+    x = linalg.spd_solve(a, rhs)
+    assert linalg.launches == before + 1
+    plain = linalg.spd_solve_plain(a, rhs)
+    torch.cuda.synchronize()
+    assert x.shape == rhs.shape and x.dtype == dtype
+    assert torch.isfinite(x).all()
+    if dtype == torch.float64:
+        assert (x - plain).abs().max() <= 1e-9 * plain.abs().max()
+    else:
+        ref = linalg.spd_solve_plain(a.double(), rhs.double())
+        err_k = (x.double() - ref).abs().max()
+        err_p = (plain.double() - ref).abs().max()
+        assert err_k <= 4 * err_p
+
+
+@pytest.mark.cuda
+def test_spd_solve_rejects_bad_inputs(card):
+    from egopose_tpu_torch.physics import linalg
+    a, rhs = _spd_systems(2, 8, 3, torch.float32, card, seed=0)
+    for bad_a, bad_rhs in ((a.half(), rhs.half()),            # dtype
+                           (a, rhs.double()),                  # mixed
+                           (a[:, :7], rhs),                    # not square
+                           (a, rhs[:1]),                       # batch
+                           (a.transpose(1, 2), rhs),           # layout
+                           (a.cpu(), rhs)):                    # device
+        with pytest.raises(ValueError):
+            linalg.spd_solve_cuda(bad_a, bad_rhs)
+    big = torch.eye(400, device=card, dtype=torch.float64).expand(1, -1, -1)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        linalg.spd_solve_cuda(big.contiguous(),
+                              torch.ones(1, 400, 1, device=card,
+                                         dtype=torch.float64))

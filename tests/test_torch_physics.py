@@ -2,7 +2,8 @@
 at B=4: fk / crba / bias_force / contact_blocks to 1e-10 (the JAX engine
 holds itself to 1e-9..1e-12 against MuJoCo C, tests/test_physics_golden.py),
 one stable-PD control step at prep-refresh R=1, R=3 and R=2 (remainder
-group) to 1e-9, and the model tables.  The states are contact-rich: feet
+group) to 1e-9, one torque-mode control step (15 substeps of step_raw,
+whose solve is the K2 dispatch) to 1e-9, and the model tables.  The states are contact-rich: feet
 pressed 3-10 mm into the floor and flailing arms, so floor and pair rows
 are active."""
 import os
@@ -109,6 +110,21 @@ def test_pd_control_step_matches_jax(world, r):
     _close(vt, vj, 1e-9, "qvel")
 
 
+def test_torque_control_step_matches_jax(world):
+    spec, jm, tm, q, v, _, (_, _, tl) = world
+    # torques of up to ~1.5x the limit, so the clamp is exercised
+    tau = np.random.RandomState(11).uniform(-1.5, 1.5, (B, spec.nu)) * tl
+    step = jax.jit(jax.vmap(lambda a, b, c: je.torque_control_step(
+        jm, a, b, c, jnp.asarray(tl), 15, je.DEFAULT_CONTACT)))
+    qj, vj = step(jnp.asarray(q), jnp.asarray(v), jnp.asarray(tau))
+    qt, vt = te.torque_control_step(tm, torch.tensor(q), torch.tensor(v),
+                                    torch.tensor(tau), torch.tensor(tl), 15,
+                                    te.DEFAULT_CONTACT)
+    assert torch.isfinite(qt).all() and torch.isfinite(vt).all()
+    _close(qt, qj, 1e-9, "qpos")
+    _close(vt, vj, 1e-9, "qvel")
+
+
 def test_build_model_tables_match_jax(world):
     spec, jm, tm, *_ = world
     for name in ("nbody", "ndof", "nq", "nu", "ngeom", "ncpoint", "npair",
@@ -155,5 +171,6 @@ def test_cuda_dispatch_refuses_unsupported_models(world):
     bad = tmodel.build_model(tparse(XML), dtype=torch.float64)
     object.__setattr__(bad, "actuator_dof", tuple(reversed(bad.actuator_dof)))
     assert substep.supports(tm) and not substep.supports(bad)
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(NotImplementedError,
+                       match="one actuator per hinge dof"):
         substep.build_tables(bad, te.DEFAULT_CONTACT)
