@@ -5,8 +5,9 @@
 Phases, one JSON line each; any failure exits non-zero:
 
   device       card name (torch) and name + power limit (nvidia-smi)
-  build        nvcc builds of both kernels from csrc/ (K1 substep.cu, K2
-               spd_solve.cu), one nvcc per source, started together
+  build        nvcc builds of every kernel source in csrc/ (K1 substep.cu,
+               K2 spd_solve.cu, K3 + K4 fused_contact.cu, K5 fk.cu), one
+               nvcc per source, started together
   k1_vs_plain  the kernel against the plain split path on the card, one
                control step (15 substeps) at R=3 (B=1024, B=4) and R=2
                (remainder group), on contact-rich states drawn from a numpy
@@ -43,9 +44,51 @@ Phases, one JSON line each; any failure exits non-zero:
   train_torque the same CLI with action_type: torque in a scratch copy of
                the config, --episode-len 20 --max-iter 1 (3 segments):
                K2 launches == 15 x control steps, K1 launches == 0, finite
+  k3_vs_plain  the fused contact-solve kernel (K3) against its plain
+               version on the torque path's systems at contact-rich states
+               (B=1024, B=4; c=24 rows, 10 iterations): f64 max-abs <= 1e-9
+               max|v|; f32 error against the f64 result of the same inputs
+               at most 4x the plain f32 version's; finite
+  k4_vs_plain  the same for the fused stable-PD substep kernel (K4) on the
+               position path's PD and dynamics systems
+  k5_vs_plain  the FK kernel (K5) against engine.fk on random and
+               contact-rich qpos (B=1024, B=4): every output within 1e-10
+               (f64) and 1e-5 (f32); finite
+  k3_time, k4_time, k5_time
+               kernel and plain version timed with CUDA events at B=1024
+               and B=4, f32, with the bound of the same work on this card
+  pd_fused_step
+               one control step of engine.pd_control_step with
+               ContactParams(substep_resident=False, pd_fused=True) on the
+               card (15 K4 launches, 0 K1) against pd_control_step_split at
+               R=1 on the card: f64 max-abs qpos <= 1e-9, qvel <= 1e-8; f32
+               RMS qpos <= 1e-6, qvel <= 1e-4
+  fused_solver_step
+               one torque-mode control step (torque_control_step, 15
+               step_raw substeps) with fused_solver=True on the card (15 K3
+               launches, 0 K2) against the same step on a CPU copy of the
+               inputs in f64: f64 the same bars; f32 error at most 4x that
+               of the same f32 step on the CPU
+  split_step   engine.pd_control_step with substep_resident and pd_fused
+               off on the card: the split path at R=3 (30 K2 launches: the
+               PD and the dynamics solve of each substep) and with
+               fused_solver (R=1: 15 K2, 15 K3, 15 K5), each against the
+               same step on a CPU copy of the inputs, with
+               fused_solver_step's bars
+  rollout_pd_fused
+               the slice's path at full width: build_world(subject_03,
+               synthetic), ContactParams(substep_resident=False,
+               pd_fused=True), AgentEgo.sample over 1024 lanes for one
+               segment cut to 20 control steps, then one PPO update: K4
+               launches == 15 x control steps, K1 == 0, finite rewards and
+               losses, reward components in (0, 1]; T_sample, env-steps/s
+  rollout_torque_fused
+               the same in torque mode with fused_solver=True: K3 launches
+               == 15 x control steps, K2 == 0
   kernels      every kernel of the port with its TPU counterpart, launches
-               on the main paths (eval + train + train_torque), error
-               against the plain version and times
+               on the main paths (eval + train + train_torque + the three
+               one-step phases + the two fused rollouts), error against the
+               plain version and times
 
 The last two lines are the card's name and power limit and then
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints no
@@ -69,6 +112,8 @@ sys.path.insert(0, REPO)
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 N_FRAMES = 15                 # substeps per 30 Hz control step
+ROLLOUT_STEPS = 20            # control steps of the fused rollouts' segment
+ROLLOUT_LANES = 1024          # lanes of the fused rollouts
 
 
 def emit(phase, **kw):
@@ -340,8 +385,7 @@ def phase_eval(device):
     from egopose_tpu_torch.physics import linalg, substep
     marks = []
     with eval_workdir():
-        substep.reset_launches()
-        linalg.reset_launches()
+        reset_counts()
         t0 = time.time()
         results, meta = ego_mimic_eval.main(
             EVAL_ARGS + ["--device", str(device)],
@@ -504,6 +548,367 @@ def phase_k2_time(device):
 
 
 # ---------------------------------------------------------------------------
+# K3, K4: the fused contact solve and the fused stable-PD substep; K5: FK
+# ---------------------------------------------------------------------------
+
+def k3_systems(m, q, v, params):
+    """The torque path's fused-solve inputs at the states (engine.step_raw
+    with fused_solver): (a, qfrc, qvel, jf, target, mu)."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    kin = engine.fk(m, q)
+    qfrc, a = engine.smooth_dynamics(
+        m, q, v, torch.zeros_like(v), params, engine.crba(m, kin),
+        engine.bias_force(m, kin, v))
+    jf, target, mu = engine.contact_blocks(m, kin, params)
+    return tuple(x.contiguous() for x in (a, qfrc, v, jf, target, mu))
+
+
+def k4_systems(m, gains, q, v, ctrl, params):
+    """The position path's fused PD-substep inputs at the states
+    (engine._pd_fused_control_step): the 13 tensors of linalg.pd_fused."""
+    from egopose_tpu_torch.physics import engine
+    jkp_f, jkd_f, tlim_f, gear_f, kdd = engine.pd_fused_gains(
+        m, q.shape[0], *gains)
+    mm, rhspd, e, qfb, jf, target, mu = engine.pd_fused_terms(
+        m, q, v, ctrl, jkp_f, jkd_f, engine.fk(m, q), params)
+    return tuple(x.contiguous() for x in (
+        mm, kdd, rhspd, e, jkp_f, jkd_f, tlim_f, gear_f, qfb, v, jf, target,
+        mu))
+
+
+def k3_work(bsz, n, c, k, iters, itemsize):
+    """(bytes, flops) of B fused contact solves: a, qfrc, qvel, jf, target,
+    mu read once, v_new written once; n^3/3 for the factor, 2 n^2 (1+c)
+    for the substitutions, 2 c^2 n for the Delassus matrix, 2 c n for the
+    residual, c^2 for the row sums, iters (2 c^2 + 4 c) for the sweep and
+    2 n c + n for v_new."""
+    return (bsz * (n * n + 3 * n + c * n + c + k) * itemsize,
+            bsz * (n ** 3 / 3 + 2 * n * n * (1 + c) + 2 * c * c * n
+                   + 2 * c * n + c * c + iters * (2 * c * c + 4 * c)
+                   + 2 * n * c + n))
+
+
+def k4_work(bsz, n, c, k, iters, itemsize):
+    """(bytes, flops) of B fused stable-PD substeps: M, kdd, the eight
+    vectors, jf, target, mu read once, v_new written once; K3's work plus
+    a second factor (n^3/3), the PD substitution (2 n^2), the two diagonal
+    additions (4 n) and the torque, clamp and force (10 n)."""
+    _, flops = k3_work(bsz, n, c, k, iters, itemsize)
+    return (bsz * (n * n + 11 * n + c * n + c + k) * itemsize,
+            flops + bsz * (n ** 3 / 3 + 2 * n * n + 14 * n))
+
+
+def k5_work(m, bsz, itemsize):
+    """(bytes, flops) of B FKs: qpos read once, xpos, xquat, com and s
+    written once; per hinge 139 operations (three quaternion rotations of
+    30, a product of 28, a cross product, the half-angle sine and cosine),
+    per body 66 (the body offset and com rotations), the root 131."""
+    nb, nd = m.nbody, m.ndof
+    return (bsz * (m.nq + 10 * nb + 6 * nd) * itemsize,
+            bsz * (139 * (nd - 6) + 66 * nb + 131))
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_fused_vs_plain(device, which):
+    """K3 (``which`` = "k3") or K4 ("k4") against its plain version."""
+    import torch
+    from egopose_tpu_torch.physics import engine, linalg
+    cuda, plain = {"k3": (linalg.fused_contact_cuda,
+                          linalg.fused_contact_plain),
+                   "k4": (linalg.pd_fused_cuda, linalg.pd_fused_plain)}[which]
+    params = engine.DEFAULT_CONTACT
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        spec, m, gains = load_world(dtype, device)
+        extra = (m.timestep, params.iters, params.relax)
+        for bsz, seed in ((1024, 40), (4, 41)):
+            q, v, ctrl = contact_states(spec, m, bsz, seed, dtype, device)
+            args = k3_systems(m, q, v, params) if which == "k3" \
+                else k4_systems(m, gains, q, v, ctrl, params)
+            vk = cuda(*args, *extra)
+            vp = plain(*args, *extra)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(vk).all() and torch.isfinite(vp).all())
+            scale = float(vp.abs().max())
+            c, k = args[-3].shape[1], args[-1].shape[1]
+            rec = dict(dtype=str(dtype).split(".")[1], B=bsz, c=c, k=k,
+                       iters=params.iters, finite=finite, max_abs_v=scale,
+                       max_abs_err=float((vk - vp).abs().max()))
+            if dtype == torch.float64:
+                ok = finite and rec["max_abs_err"] <= 1e-9 * scale
+            else:
+                ref = plain(*[x.double() for x in args], *extra)
+                rec["kernel_err_vs_f64"] = float((vk.double() - ref).abs().max())
+                rec["plain_err_vs_f64"] = float((vp.double() - ref).abs().max())
+                ok = finite and rec["kernel_err_vs_f64"] \
+                    <= 4 * rec["plain_err_vs_f64"]
+            emit(which + "_vs_plain", ok=ok, **rec)
+            if not ok:
+                raise AssertionError(f"{which} disagrees with plain: {rec}")
+            key = rec["dtype"]
+            worst[key] = max(worst.get(key, 0.0), rec["max_abs_err"])
+    return worst
+
+
+def phase_fused_time(device, which):
+    import torch
+    from egopose_tpu_torch.physics import engine, linalg
+    cuda, plain, work = {
+        "k3": (linalg.fused_contact_cuda, linalg.fused_contact_plain,
+               k3_work),
+        "k4": (linalg.pd_fused_cuda, linalg.pd_fused_plain, k4_work)}[which]
+    params = engine.DEFAULT_CONTACT
+    spec, m, gains = load_world(torch.float32, device)
+    extra = (m.timestep, params.iters, params.relax)
+    out = {}
+    for bsz in (1024, 4):
+        q, v, ctrl = contact_states(spec, m, bsz, 50 + bsz, torch.float32,
+                                    device)
+        args = k3_systems(m, q, v, params) if which == "k3" \
+            else k4_systems(m, gains, q, v, ctrl, params)
+        n, c, k = args[0].shape[1], args[-3].shape[1], args[-1].shape[1]
+        rec = dict(B=bsz, n=n, c=c, k=k, iters=params.iters, dtype="float32",
+                   ms=time_ms(lambda: cuda(*args, *extra)),
+                   plain_ms=time_ms(lambda: plain(*args, *extra)),
+                   library_ms=None,
+                   **bound(*work(bsz, n, c, k, params.iters, 4)))
+        emit(which + "_time", **rec)
+        out[bsz] = rec
+    return out
+
+
+def fk_states(spec, m, bsz, seed, dtype, device):
+    """Half random qpos (any root, unnormalised root quaternion, hinges in
+    +-1.5 rad), half contact_states."""
+    import torch
+    rng = np.random.RandomState(seed)
+    h = bsz // 2
+    q = np.zeros((h, spec.nq))
+    q[:, :3] = rng.randn(h, 3)
+    q[:, 3:7] = rng.randn(h, 4)
+    q[:, 7:] = rng.uniform(-1.5, 1.5, (h, spec.nq - 7))
+    qc, _, _ = contact_states(spec, m, bsz - h, seed, dtype, device)
+    return torch.cat([torch.tensor(q, dtype=dtype, device=device), qc])
+
+
+def phase_k5_vs_plain(device):
+    import torch
+    from egopose_tpu_torch.physics import engine, fk
+    worst = {}
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+        spec, m, _ = load_world(dtype, device)
+        for bsz, seed in ((1024, 60), (4, 61)):
+            q = fk_states(spec, m, bsz, seed, dtype, device)
+            got = fk.fk_cuda(m, q)
+            want = engine.fk(m, q)
+            torch.cuda.synchronize()
+            errs = {name: float((g - w).abs().max())
+                    for name, g, w in zip(want._fields, got, want)}
+            finite = bool(all(torch.isfinite(g).all() for g in got))
+            rec = dict(dtype=str(dtype).split(".")[1], B=bsz, tol=tol,
+                       finite=finite, max_abs_err=errs)
+            ok = finite and max(errs.values()) <= tol
+            emit("k5_vs_plain", ok=ok, **rec)
+            if not ok:
+                raise AssertionError(f"K5 disagrees with engine.fk: {rec}")
+            key = rec["dtype"]
+            worst[key] = max(worst.get(key, 0.0), *errs.values())
+    return worst
+
+
+def phase_k5_time(device):
+    import torch
+    from egopose_tpu_torch.physics import engine, fk
+    spec, m, _ = load_world(torch.float32, device)
+    out = {}
+    for bsz in (1024, 4):
+        q, _, _ = contact_states(spec, m, bsz, 70 + bsz, torch.float32,
+                                 device)
+        rec = dict(B=bsz, dtype="float32",
+                   ms=time_ms(lambda: fk.fk_cuda(m, q)),
+                   plain_ms=time_ms(lambda: engine.fk(m, q)),
+                   library_ms=None, **bound(*k5_work(m, bsz, 4)))
+        emit("k5_time", **rec)
+        out[bsz] = rec
+    return out
+
+
+def reset_counts():
+    """Zero the launch count of every kernel."""
+    from egopose_tpu_torch.physics import fk, linalg, substep
+    substep.reset_launches()
+    linalg.reset_launches()
+    fk.reset_launches()
+
+
+def read_counts():
+    from egopose_tpu_torch.physics import fk, linalg, substep
+    return dict(k1=substep.launches, k2=linalg.launches,
+                k3=linalg.fused_contact_launches,
+                k4=linalg.pd_fused_launches, k5=fk.launches)
+
+
+def step_bars(dtype, dq, dv):
+    """f64: max-abs qpos <= 1e-9, qvel <= 1e-8; f32: RMS qpos <= 1e-6,
+    qvel <= 1e-4 (K1's bar)."""
+    import torch
+    rec = dict(max_abs_qpos=float(dq.abs().max()),
+               max_abs_qvel=float(dv.abs().max()),
+               rms_qpos=float(dq.pow(2).mean().sqrt()),
+               rms_qvel=float(dv.pow(2).mean().sqrt()))
+    if dtype == torch.float64:
+        ok = rec["max_abs_qpos"] <= 1e-9 and rec["max_abs_qvel"] <= 1e-8
+    else:
+        ok = rec["rms_qpos"] <= 1e-6 and rec["rms_qvel"] <= 1e-4
+    return ok, rec
+
+
+def add_counts(total, counts):
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+    return total
+
+
+def hold_against_cpu(dtype, out, step, args):
+    """(ok, record) of a card step's (qpos, qvel) ``out`` against
+    ``step(m, *args)`` on a CPU copy of the inputs in f64.  f64: the step
+    bars.  f32: the card's error against that f64 step is at most 4x the
+    error of the same f32 step on the CPU (K2's rule)."""
+    import torch
+    cpu = lambda dt: [x.cpu().to(dt) for x in args]
+    q64, v64 = step(load_world(torch.float64, "cpu")[1], *cpu(torch.float64))
+    dq, dv = out[0].cpu().double() - q64, out[1].cpu().double() - v64
+    ok, rec = step_bars(dtype, dq, dv)
+    if dtype == torch.float32:
+        qc, vc = step(load_world(dtype, "cpu")[1], *cpu(dtype))
+        rec.update(cpu_f32_max_abs_qpos=float((qc.double() - q64).abs()
+                                              .max()),
+                   cpu_f32_max_abs_qvel=float((vc.double() - v64).abs()
+                                              .max()))
+        ok = rec["max_abs_qpos"] <= 4 * rec["cpu_f32_max_abs_qpos"] \
+            and rec["max_abs_qvel"] <= 4 * rec["cpu_f32_max_abs_qvel"]
+    return ok, rec
+
+
+def phase_pd_fused_step(device):
+    """engine.pd_control_step with pd_fused (K4) on the card against the
+    split path at R=1 on the card, one control step at B=64.  Returns the
+    launch counts of the K4 runs."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    fused = engine.DEFAULT_CONTACT._replace(substep_resident=False,
+                                            pd_fused=True)
+    split = engine.DEFAULT_CONTACT._replace(substep_resident=False,
+                                            prep_refresh=1)
+    total = {}
+    for dtype in (torch.float64, torch.float32):
+        spec, m, gains = load_world(dtype, device)
+        q, v, ctrl = contact_states(spec, m, 64, 80, dtype, device)
+        reset_counts()
+        qk, vk = engine.pd_control_step(m, q, v, ctrl, *gains, N_FRAMES,
+                                        fused)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(total, counts)
+        qp, vp = engine.pd_control_step_split(m, q, v, ctrl, *gains,
+                                              N_FRAMES, split)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(qk).all() and torch.isfinite(vk).all())
+        ok, rec = step_bars(dtype, (qk - qp).double(), (vk - vp).double())
+        ok = ok and finite and counts["k4"] == N_FRAMES and counts["k1"] == 0
+        emit("pd_fused_step", ok=ok, dtype=str(dtype).split(".")[1], B=64,
+             finite=finite, launches=counts, **rec)
+        if not ok:
+            raise AssertionError(f"pd_fused step out of bounds: {rec} "
+                                 f"{counts}")
+    return total
+
+
+def phase_fused_solver_step(device):
+    """torque_control_step with fused_solver (K3) on the card against the
+    same step on a CPU copy of the inputs (hold_against_cpu), one control
+    step at B=64.  The f32 bar is K2's rule, not K1's RMS bar: held torques
+    of up to 1.5x the limits make the step amplify rounding, so two f32
+    runs on two devices already differ by ~1e-3 in qvel.  Returns the
+    launch counts."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    params = engine.DEFAULT_CONTACT._replace(fused_solver=True)
+    step = lambda mc, *a: engine.torque_control_step(mc, *a, N_FRAMES, params)
+    total = {}
+    for dtype in (torch.float64, torch.float32):
+        spec, m, gains = load_world(dtype, device)
+        q, v, _ = contact_states(spec, m, 64, 81, dtype, device)
+        tl = gains[2]
+        tau = torch.tensor(np.random.RandomState(82).uniform(
+            -1.5, 1.5, (64, spec.nu)), dtype=dtype, device=device) * tl
+        reset_counts()
+        qk, vk = engine.torque_control_step(m, q, v, tau, tl, N_FRAMES,
+                                            params)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(total, counts)
+        finite = bool(torch.isfinite(qk).all() and torch.isfinite(vk).all())
+        ok, rec = hold_against_cpu(dtype, (qk, vk), step, (q, v, tau, tl))
+        ok = ok and finite and counts["k3"] == N_FRAMES and counts["k2"] == 0
+        emit("fused_solver_step", ok=ok, dtype=str(dtype).split(".")[1], B=64,
+             finite=finite, launches=counts, **rec)
+        if not ok:
+            raise AssertionError(f"fused_solver step out of bounds: {rec} "
+                                 f"{counts}")
+    return total
+
+
+def phase_split_step(device):
+    """engine.pd_control_step on the card with substep_resident and pd_fused
+    off: the split path with its SPD solves through K2, at R=3 and with
+    fused_solver (R=1, each substep's dynamics solve and sweep through K3
+    and its FK through K5); one control step at B=64 against the same step
+    on a CPU copy of the inputs (hold_against_cpu).  Returns the launch
+    counts."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    base = engine.DEFAULT_CONTACT._replace(substep_resident=False)
+    variants = (
+        ("split", base, dict(k2=2 * N_FRAMES)),
+        ("fused_solver", base._replace(fused_solver=True),
+         dict(k2=N_FRAMES, k3=N_FRAMES, k5=N_FRAMES)))
+    total = {}
+    for name, params, want in variants:
+        step = lambda mc, *a, p=params: engine.pd_control_step(
+            mc, *a, N_FRAMES, p)
+        for dtype in (torch.float64, torch.float32):
+            spec, m, gains = load_world(dtype, device)
+            q, v, ctrl = contact_states(spec, m, 64, 83, dtype, device)
+            reset_counts()
+            qk, vk = step(m, q, v, ctrl, *gains)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            add_counts(total, counts)
+            finite = bool(torch.isfinite(qk).all()
+                          and torch.isfinite(vk).all())
+            ok, rec = hold_against_cpu(dtype, (qk, vk), step,
+                                       (q, v, ctrl, *gains))
+            ok = ok and finite and all(counts[key] == want.get(key, 0)
+                                       for key in counts)
+            r = 1 if params.fused_solver else params.prep_refresh
+            emit("split_step", ok=ok, variant=name, R=r,
+                 dtype=str(dtype).split(".")[1], B=64, finite=finite,
+                 launches=counts, want_launches=want, **rec)
+            if not ok:
+                raise AssertionError(f"split step ({name}) out of bounds: "
+                                     f"{rec} {counts}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # training: the ego_mimic CLI in position and in torque mode
 # ---------------------------------------------------------------------------
 
@@ -543,8 +948,7 @@ def run_train(device, args):
         R_avg=log.avg_c_reward, R_min=log.min_c_reward,
         R_max=log.max_c_reward, R_info=[float(x) for x in log.avg_c_info],
         eps_len_avg=log.avg_episode_len, **metrics))
-    substep.reset_launches()
-    linalg.reset_launches()
+    reset_counts()
     t0 = time.time()
     agent = ego_mimic.main(["--cfg", "subject_03", "--synthetic",
                             "--device", str(device)] + args, iter_hook=hook)
@@ -625,6 +1029,88 @@ def phase_train_torque(device):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the slice's path: rollouts with the fused solver options at full width
+# ---------------------------------------------------------------------------
+
+def run_rollout(device, option, **overrides):
+    """AgentEgo.sample on the synthetic subject_03 world (1024 lanes, f32)
+    with ContactParams ``option`` on and substep_resident off, one segment
+    cut to ROLLOUT_STEPS control steps, with every launch count zeroed just
+    before it; then one PPO update.  Returns (record, launch counts)."""
+    import dataclasses
+    import torch
+    from egopose_tpu_torch.cli.ego_mimic import build_world
+    from egopose_tpu_torch.rl.agent_ego import AgentEgo
+    from egopose_tpu_torch.utils.config import EgoMimicConfig
+    lanes = ROLLOUT_LANES
+    cfg = EgoMimicConfig("subject_03", config_root=os.path.join(REPO,
+                                                                "config"))
+    cfg.env_episode_len = ROLLOUT_STEPS
+    for key, val in overrides.items():
+        setattr(cfg, key, val)
+    spec, model, tables, p, expert, cnn_feat = build_world(
+        cfg, torch.float32, device, synthetic=True)
+    p = dataclasses.replace(p, contact=p.contact._replace(
+        substep_resident=False, **{option: True}))
+    agent = AgentEgo(model, spec, p, tables, expert, cnn_feat, cfg,
+                     batch_lanes=lanes, seed=cfg.seed, dtype=torch.float32,
+                     device=device)
+    cfg.update_adaptive_params(0)
+    agent.set_noise_rate(cfg.adp_noise_rate)
+    if cfg.fix_std:
+        agent.fill_log_std(cfg.adp_log_std)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed)
+    reset_counts()
+    batch, log = agent.sample(generator, lanes * ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t0 = time.time()
+    metrics = agent.update_params(batch)
+    t_update = time.time() - t0
+    info = [float(x) for x in log.avg_c_info]
+    finite = bool(np.isfinite([log.avg_c_reward, log.min_c_reward,
+                               log.max_c_reward, metrics["policy_loss"],
+                               metrics["value_loss"]]).all()
+                  and np.isfinite(info).all())
+    rec = dict(lanes=lanes, control_steps=ROLLOUT_STEPS,
+               env_steps=log.num_steps, T_sample=log.sample_time,
+               env_steps_per_s=log.num_steps / log.sample_time,
+               T_update=t_update, R_avg=log.avg_c_reward,
+               R_min=log.min_c_reward, R_max=log.max_c_reward, R_info=info,
+               policy_loss=metrics["policy_loss"],
+               value_loss=metrics["value_loss"], launches=counts,
+               finite=finite)
+    rewards_ok = 0 < log.min_c_reward and log.max_c_reward <= 1 \
+        and all(0 < x <= 1 for x in info)
+    return rec, counts, finite and rewards_ok
+
+
+def phase_rollout_pd_fused(device):
+    """Position mode with pd_fused: every control step is 15 K4 launches
+    (each substep's FK through K5)."""
+    rec, n, ok = run_rollout(device, "pd_fused")
+    ok = bool(ok and n["k4"] == N_FRAMES * ROLLOUT_STEPS and n["k1"] == 0
+              and n["k2"] == 0 and n["k3"] == 0)
+    emit("rollout_pd_fused", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"rollout_pd_fused out of bounds: {rec}")
+    return rec
+
+
+def phase_rollout_torque_fused(device):
+    """Torque mode with fused_solver: every control step is 15 K3 launches
+    (each substep's FK through K5)."""
+    rec, n, ok = run_rollout(device, "fused_solver", action_type="torque")
+    ok = bool(ok and n["k3"] == N_FRAMES * ROLLOUT_STEPS and n["k2"] == 0
+              and n["k1"] == 0 and n["k4"] == 0)
+    emit("rollout_torque_fused", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"rollout_torque_fused out of bounds: {rec}")
+    return rec
+
+
 def main():
     only = sys.argv[sys.argv.index("--only") + 1].split(",") \
         if "--only" in sys.argv else None
@@ -651,27 +1137,51 @@ def main():
         phase_eval_profile(device, ev["window_step_ms"] if ev else None)
     errs2 = phase_k2_vs_plain(device) if want("k2_vs_plain") else {}
     times2 = phase_k2_time(device) if want("k2_time") else {}
+    errs3 = phase_fused_vs_plain(device, "k3") if want("k3_vs_plain") else {}
+    errs4 = phase_fused_vs_plain(device, "k4") if want("k4_vs_plain") else {}
+    errs5 = phase_k5_vs_plain(device) if want("k5_vs_plain") else {}
+    times3 = phase_fused_time(device, "k3") if want("k3_time") else {}
+    times4 = phase_fused_time(device, "k4") if want("k4_time") else {}
+    times5 = phase_k5_time(device) if want("k5_time") else {}
+    steps = {}
+    if want("pd_fused_step"):
+        add_counts(steps, phase_pd_fused_step(device))
+    if want("fused_solver_step"):
+        add_counts(steps, phase_fused_solver_step(device))
+    if want("split_step"):
+        add_counts(steps, phase_split_step(device))
     tr = phase_train(device) if want("train") else None
     tq = phase_train_torque(device) if want("train_torque") else None
+    rp = phase_rollout_pd_fused(device) if want("rollout_pd_fused") else None
+    rt = phase_rollout_torque_fused(device) \
+        if want("rollout_torque_fused") else None
     if only is None:
         t4, t2 = times[4], times2[1024]
+        fused = lambda key: rp["launches"][key] + rt["launches"][key] \
+            + steps[key]
+
+        def row(name, source, replaces, launches, err, t):
+            return dict(name=name, route="cuda",
+                        source="egopose_tpu_torch/csrc/" + source,
+                        replaces="egopose_tpu/physics/" + replaces,
+                        launches=launches, max_abs_err=err, ms=t["ms"],
+                        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                        bound_by=t["bound_by"], library_ms=t["library_ms"])
         print(json.dumps({"kernels": [
-            dict(name="substep_control_step", route="cuda",
-                 source="egopose_tpu_torch/csrc/substep.cu",
-                 replaces="egopose_tpu/physics/substep_pallas.py:694",
-                 launches=ev["launches"] + tr["k1_launches"]
-                 + tq["k1_launches"], max_abs_err=errs["float32"],
-                 ms=t4["ms"], plain_ms=t4["plain_ms"],
-                 bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
-                 library_ms=None),
-            dict(name="batched_spd_solve", route="cuda",
-                 source="egopose_tpu_torch/csrc/spd_solve.cu",
-                 replaces="egopose_tpu/physics/linalg_pallas.py:163",
-                 launches=ev["k2_launches"] + tr["k2_launches"]
-                 + tq["k2_launches"], max_abs_err=errs2["float32"],
-                 ms=t2["ms"], plain_ms=t2["plain_ms"],
-                 bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
-                 library_ms=t2["library_ms"])]}), flush=True)
+            row("substep_control_step", "substep.cu", "substep_pallas.py:694",
+                ev["launches"] + tr["k1_launches"] + tq["k1_launches"]
+                + fused("k1"), errs["float32"], t4),
+            row("batched_spd_solve", "spd_solve.cu", "linalg_pallas.py:163",
+                ev["k2_launches"] + tr["k2_launches"] + tq["k2_launches"]
+                + fused("k2"), errs2["float32"], t2),
+            row("fused_contact_solve", "fused_contact.cu",
+                "linalg_pallas.py:360", fused("k3"), errs3["float32"],
+                times3[1024]),
+            row("pd_fused_substep", "fused_contact.cu",
+                "linalg_pallas.py:495", fused("k4"), errs4["float32"],
+                times4[1024]),
+            row("fk_batched", "fk.cu", "fk_pallas.py:67", fused("k5"),
+                errs5["float32"], times5[1024])]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """egopose_tpu_torch: the PyTorch/CUDA port of egopose_tpu.
 
 Mirrors the JAX package's module layout (physics / envs / models / rl / cli)
-so each counterpart is easy to find.  Plain tensor code is PyTorch; the
-substep-resident control step (the JAX package's Pallas kernel
-``physics/substep_pallas.py::_substep_kernel``) is a hand-written CUDA kernel
-under ``csrc/``, built with nvcc at first use.
+so each counterpart is easy to find.  Plain tensor code is PyTorch; each of
+the JAX package's Pallas kernels (the substep-resident control step, the
+batched SPD solve, the fused contact solve, the fused stable-PD substep and
+the lane-major FK) is a hand-written CUDA kernel under ``csrc/``, built with
+nvcc at first use.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"`` / ``--device cpu``); without CUDA they raise instead of

@@ -13,34 +13,22 @@
 // Design.  One thread block per system, 256 threads.  A (n x n) and X
 // (n x r) live in dynamic shared memory: at n = 58, r = 25 that is 19.3 KB
 // in float and 38.6 KB in double; above 48 KB the launch opts in, up to the
-// card's per-block limit (227 KB on an H100), and refuses beyond it.
-//   Factorization: right-looking, column by column.  At stage j every thread
-//   reads the pivot A[j][j] (final after stage j-1) and updates its share of
-//   the trailing lower triangle, A[i][k] -= (A[i][j] s)(A[k][j] s) with
-//   s = rsqrt(max(A[j][j], 1e-12)); column j itself is only read at stage j,
-//   so it is scaled after the loop, and one __syncthreads ends each stage.
-//   Substitutions: the same pattern over the r columns in parallel, rows x
-//   columns spread over the threads: at stage j the threads eliminate x_j
-//   from the rows it feeds, the division of row j by L[j][j] is done after
-//   the loop.  Device memory is read once (A, B) and written once (X).
+// card's per-block limit (227 KB on an H100), and refuses beyond it.  The
+// factor and the substitutions are cholesky.cuh's (shared with K3 and K4 in
+// fused_contact.cu): one __syncthreads per stage, n stages for the factor
+// and 2n for the solves.  Device memory is read once (A, B) and written
+// once (X).
 //
 // What bounds it.  Per system the work is n^3/3 + 2 n^2 r flops (~0.23
 // MFLOP at n = 58, r = 25) and (n^2 + 2 n r) values moved; at B = 1024 the
 // card's floor is the ~26 MB of traffic (~7.7 us at 3.35 TB/s).  The kernel
-// is a simple one: its stages are short (n = 58 barriers for the factor,
-// 2n for the solves), so a block is latency-bound on that chain and the
-// card needs many blocks in flight, which the small shared footprint allows
-// (several blocks per SM).  No wgmma or TMA; no library call.  No
-// --use_fast_math: the 58-dof system is stiff.
-#include <cuda_runtime.h>
-#include <math.h>
+// is a simple one: its stages are short, so a block is latency-bound on
+// that chain and the card needs many blocks in flight, which the small
+// shared footprint allows (several blocks per SM).  No wgmma or TMA; no
+// library call.  No --use_fast_math: the 58-dof system is stiff.
+#include "cholesky.cuh"
 
 #define NT 256
-
-__device__ inline float xrsqrt(float x) { return rsqrtf(x); }
-__device__ inline double xrsqrt(double x) { return rsqrt(x); }
-__device__ inline float xmax(float a, float b) { return fmaxf(a, b); }
-__device__ inline double xmax(double a, double b) { return fmax(a, b); }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -57,48 +45,10 @@ spd_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
   for (int e = tid; e < n * n; e += NT) A[e] = ag[e];
   for (int e = tid; e < n * r; e += NT) X[e] = bg[e];
   __syncthreads();
-
-  // A = L L^T, lower triangle; column j is scaled after the loop
-  for (int j = 0; j < n; ++j) {
-    const T s = xrsqrt(xmax(A[j * n + j], T(1e-12)));
-    if (tid == 0) dinv[j] = s;
-    const int m = n - j - 1;              // trailing block is m x m
-    for (int e = tid; e < m * m; e += NT) {
-      const int i = j + 1 + e / m, k = j + 1 + e % m;
-      if (k <= i) A[i * n + k] -= (A[i * n + j] * s) * (A[k * n + j] * s);
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < n * n; e += NT) {
-    const int i = e / n, k = e % n;
-    if (k <= i) A[e] *= dinv[k];
-  }
-  __syncthreads();
-
-  // forward: L y = b; row j is divided by L[j][j] after the loop
-  for (int j = 0; j < n; ++j) {
-    const T ljj = A[j * n + j];
-    const int m = n - j - 1;
-    for (int e = tid; e < m * r; e += NT) {
-      const int i = j + 1 + e / r, c = e % r;
-      X[i * r + c] -= A[i * n + j] * (X[j * r + c] / ljj);
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < n * r; e += NT) X[e] /= A[(e / r) * (n + 1)];
-  __syncthreads();
-
-  // backward: L^T x = y; row j is divided by L[j][j] after the loop
-  for (int j = n - 1; j >= 0; --j) {
-    const T ljj = A[j * n + j];
-    for (int e = tid; e < j * r; e += NT) {
-      const int i = e / r, c = e % r;
-      X[i * r + c] -= A[j * n + i] * (X[j * r + c] / ljj);
-    }
-    __syncthreads();
-  }
+  block_cholesky(A, dinv, n);
+  block_cho_solve(A, X, n, r);
   T* xg = x + sys * (size_t)n * r;
-  for (int e = tid; e < n * r; e += NT) xg[e] = X[e] / A[(e / r) * (n + 1)];
+  for (int e = tid; e < n * r; e += NT) xg[e] = X[e];
 }
 
 template <typename T>
@@ -106,15 +56,8 @@ static int launch(const T* a, const T* b, T* x, int batch, int n, int r,
                   void* stream) {
   if (batch < 1 || n < 1 || r < 1) return -1;
   const size_t bytes = ((size_t)n * n + (size_t)n * r + n) * sizeof(T);
-  int dev = 0, max_optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (bytes > (size_t)max_optin) return -2;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        spd_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = opt_in_shared(spd_solve_kernel<T>, bytes);
+  if (err != 0) return err;
   spd_solve_kernel<T><<<batch, NT, bytes, (cudaStream_t)stream>>>(a, b, x, n, r);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,24 @@
-"""Batched rigid-body dynamics in plain PyTorch: the split path.
+"""Batched rigid-body dynamics in plain PyTorch: the split path, and the
+dispatch to the CUDA kernels.
 
 Counterpart of egopose_tpu/physics/engine.py.  Every function takes a
 leading batch dimension B written out (the JAX engine is per-environment
-under ``vmap``).  The stable-PD split path is the plain version of the CUDA
-control-step kernel (csrc/substep.cu, wrapped by physics/substep.py): CPU
-callers run it, and chip_smoke.py holds the kernel against it on the card.
-The torque-mode substep (step_raw) solves through linalg.spd_solve, the
-K2 kernel on the card.
+under ``vmap``).  The stable-PD split path (pd_control_step_split) is the
+plain version of the CUDA control-step kernel K1 (csrc/substep.cu, wrapped
+by physics/substep.py): called directly it solves with
+linalg.spd_solve_plain on every device, and chip_smoke.py holds the kernels
+against it on the card.  The kernels each path runs on a CUDA batch:
+
+- pd_control_step: K1 with ``substep_resident``; else K4 (linalg.pd_fused)
+  per substep with ``pd_fused``; else the split path with its solves
+  through K2 (linalg.spd_solve) and, with ``fused_solver``, each substep's
+  dynamics solve and sweep through K3 (linalg.fused_contact);
+- step_raw (torque mode): K2, or K3 with ``fused_solver``.
+
+Forward kinematics (physics/fk.py): under the fused options
+(``fused_solver`` or ``pd_fused``) each substep's prep takes it from
+fk_batched, K5 on the card; every other path takes the plain fk.  On the
+CPU every kernel's plain version runs and ``substep_resident`` is ignored.
 
 Conventions match MuJoCo (and the JAX engine): qvel[0:3] world-frame linear
 velocity of the root frame origin, qvel[3:6] body-local angular velocity.
@@ -20,24 +32,19 @@ import torch
 
 from ..ops import quat as Q
 from . import linalg
+from .fk import Kin, fk, fk_batched
 from .model import PhysicsModel, golden_min01
 
 cross = Q.cross
 
 
-class Kin(NamedTuple):
-    """World-frame kinematic state of all bodies (batched)."""
-    xpos: torch.Tensor    # (B,nb,3) body frame origins
-    xquat: torch.Tensor   # (B,nb,4) body frame orientations
-    com: torch.Tensor     # (B,nb,3) body coms (world)
-    s: torch.Tensor       # (B,nd,6) joint motion subspaces (world)
-
-
 class ContactParams(NamedTuple):
-    """Contact-solver / joint-limit parameters; the same defaults as
-    egopose_tpu.physics.engine.ContactParams.  Its resident-kernel flag and
-    fused Pallas variants are not part of the port: the tensor's device
-    picks the kernel or the split path (pd_control_step)."""
+    """Contact-solver / joint-limit parameters and the choice of kernel;
+    the same fields and defaults as egopose_tpu.physics.engine.ContactParams
+    except ``sparse_ldl`` (K1 takes only its sparse tree LDL^T).  The solver
+    flags act on CUDA tensors as in the JAX package on the TPU
+    (pd_control_step); on the CPU ``substep_resident`` is ignored and the
+    others run their kernels' plain versions."""
     margin: float = 1.0e-3   # activation margin (m)
     beta: float = 0.2        # Baumgarte penetration-recovery factor
     slop: float = 1.0e-4     # penetration allowed without correction (m)
@@ -46,61 +53,27 @@ class ContactParams(NamedTuple):
     max_contacts: int = 6    # top-K deepest floor points kept per substep
     max_pair_contacts: int = 6  # top-KP deepest body-body pairs (normal-only
                              # rows; 0 disables self-collision)
+    fused_solver: bool = False  # each substep's dynamics solve and contact
+                             # sweep in one launch of K3 (step_raw and the
+                             # split path, which then refreshes its prep
+                             # every substep)
+    pd_fused: bool = False   # each stable-PD substep's solves and sweep in
+                             # one launch of K4, prep recomputed every
+                             # substep; below substep_resident, above
+                             # fused_solver in pd_control_step
+    substep_resident: bool = False  # the whole control step in one launch
+                             # of K1 (CUDA only); takes precedence
     klim: float = 200.0      # joint-limit stiffness (N m / rad)
     blim: float = 5.0        # joint-limit damping (N m s / rad)
     prep_refresh: int = 1    # recompute FK / mass matrix / bias / contact
                              # geometry (and their factorizations) every
                              # `prep_refresh`-th substep; PD error, limits,
-                             # solves, sweep and integration use fresh q/v
+                             # solves, sweep and integration use fresh q/v;
+                             # ignored by pd_fused and fused_solver
 
 
-# Same defaults as the JAX engine: prep-refresh R=3.
-DEFAULT_CONTACT = ContactParams(prep_refresh=3)
-
-
-# ---------------------------------------------------------------------------
-# forward kinematics (loop over tree depth, batched within a level)
-# ---------------------------------------------------------------------------
-
-def fk(m: PhysicsModel, qpos: torch.Tensor) -> Kin:
-    """World pose of every body + joint motion subspaces.  Within a body,
-    hinges apply sequentially about their local axis/anchor (MuJoCo)."""
-    nb, nd = m.nbody, m.ndof
-    bsz = qpos.shape[0]
-    dt = qpos.dtype
-    qpos_pad = torch.cat([qpos, qpos.new_zeros(bsz, 1)], 1)
-    # one dummy tail row so padded slots write nowhere
-    xpos = qpos.new_zeros(bsz, nb + 1, 3)
-    xquat = qpos.new_zeros(bsz, nb + 1, 4)
-    xquat[..., 0] = 1.0
-    s = qpos.new_zeros(bsz, nd + 1, 6)
-
-    root_q = Q.quat_normalize(qpos[:, 3:7])
-    r0t = Q.quat_to_mat(root_q).transpose(-1, -2)     # rows = local axes
-    xpos[:, 0] = qpos[:, :3]
-    xquat[:, 0] = root_q
-    s[:, 0:3, 3:] = torch.eye(3, dtype=dt, device=qpos.device)
-    s[:, 3:6, :3] = r0t
-    s[:, 3:6, 3:] = cross(qpos[:, None, :3].expand(bsz, 3, 3), r0t)
-
-    for body, parent, bodypos, axis, anchor, qidx, didx in m.levels:
-        wq = xquat[:, parent]                          # (B,n,4)
-        wt = xpos[:, parent] + Q.quat_rotate(wq, bodypos)
-        for k in range(3):                             # hinge slots
-            a = axis[:, k]
-            c = anchor[:, k]
-            angle = qpos_pad[:, qidx[:, k]]            # (B,n)
-            axis_w = Q.quat_rotate(wq, a)
-            anchor_w = wt + Q.quat_rotate(wq, c)
-            s[:, didx[:, k]] = torch.cat([axis_w, cross(anchor_w, axis_w)],
-                                         -1)
-            wq = Q.quat_mul(wq, Q.axis_angle_to_quat(a, angle))
-            wt = anchor_w - Q.quat_rotate(wq, c)
-        xpos[:, body] = wt
-        xquat[:, body] = wq
-    xpos, xquat, s = xpos[:, :nb], xquat[:, :nb], s[:, :nd]
-    com = xpos + Q.quat_rotate(xquat, m.body_ipos)
-    return Kin(xpos=xpos, xquat=xquat, com=com, s=s)
+# Same defaults as the JAX engine: the resident kernel K1, prep-refresh R=3.
+DEFAULT_CONTACT = ContactParams(substep_resident=True, prep_refresh=3)
 
 
 def subtree_com(m: PhysicsModel, kin: Kin) -> torch.Tensor:
@@ -339,31 +312,6 @@ def contact_blocks(m: PhysicsModel, kin: Kin,
     return jf, target, mu
 
 
-def contact_sweep_blocks(jf, w, target, mu, v_pred, iters, relax):
-    """Projected-Jacobi sweep in block row order given the Delassus columns
-    W = Minv J^T (B,nd,c): friction box on the first 3K rows, lambda >= 0 on
-    the trailing frictionless pair rows.  Returns the post-contact
-    velocity."""
-    k = mu.shape[-1]
-    c = jf.shape[1]
-    a = jf @ w                                          # (B,c,c)
-    bhat = (jf @ v_pred[..., None])[..., 0] - target
-    # Gershgorin (row-sum) preconditioner keeps the sweep a contraction
-    diag = torch.sum(torch.abs(a), -1) + 1.0e-9
-    lam = v_pred.new_zeros(v_pred.shape[0], c)
-    for _ in range(iters):
-        g = (a @ lam[..., None])[..., 0] + bhat
-        lam = lam - relax * g / diag
-        ln = torch.clamp(lam[:, 2 * k:3 * k], min=0.0)
-        lim = mu * ln
-        parts = [torch.clamp(lam[:, :k], -lim, lim),
-                 torch.clamp(lam[:, k:2 * k], -lim, lim), ln]
-        if c > 3 * k:
-            parts.append(torch.clamp(lam[:, 3 * k:], min=0.0))
-        lam = torch.cat(parts, 1)
-    return v_pred + (w @ lam[..., None])[..., 0]
-
-
 def limit_qfrc(m: PhysicsModel, qpos, qvel,
                params: ContactParams = DEFAULT_CONTACT) -> torch.Tensor:
     """Soft joint-limit torques for limited hinge dofs (B,nd)."""
@@ -380,12 +328,6 @@ def limit_qfrc(m: PhysicsModel, qpos, qvel,
 # ---------------------------------------------------------------------------
 # forward dynamics + integration
 # ---------------------------------------------------------------------------
-
-# The stable-PD split path's solve is always the plain version, also on the
-# card: that path is K1's plain version, which chip_smoke.py and the kernel
-# tests hold the K1 kernel against.
-spd_solve = linalg.spd_solve_plain
-
 
 def smooth_dynamics(m: PhysicsModel, qpos, qvel, tau, params: ContactParams,
                     mm, qfrc_bias):
@@ -408,22 +350,35 @@ def integrate(m: PhysicsModel, qpos, qvel, dt) -> torch.Tensor:
     return torch.cat([pos, quat, joints], 1)
 
 
+def prep_fk(m: PhysicsModel, qpos, params: ContactParams) -> Kin:
+    """The FK of a substep's prep: fk_batched under the fused options, fk
+    otherwise (module docstring)."""
+    fused = params.fused_solver or params.pd_fused
+    return (fk_batched if fused else fk)(m, qpos)
+
+
 def step_raw(m: PhysicsModel, qpos, qvel, tau,
              params: ContactParams = DEFAULT_CONTACT):
     """One physics substep at m.timestep with generalized applied force tau
     (B,nd): smooth dynamics -> predicted velocity -> contact projection ->
     integrate.  The dynamics solve and the Delassus columns W = Minv J^T
-    share one SPD solve (linalg.spd_solve: the K2 kernel on the card)."""
-    kin = fk(m, qpos)
+    share one SPD solve (linalg.spd_solve: the K2 kernel on the card); with
+    ``fused_solver`` the solve and the sweep are one linalg.fused_contact
+    (the K3 kernel on the card)."""
+    kin = prep_fk(m, qpos, params)
     qfrc, a = smooth_dynamics(m, qpos, qvel, tau, params, crba(m, kin),
                               bias_force(m, kin, qvel))
     jf, target, mu = contact_blocks(m, kin, params)
-    sol = linalg.spd_solve(a, torch.cat([qfrc[..., None],
-                                         jf.transpose(1, 2)], 2))
-    qacc, w = sol[..., 0], sol[..., 1:]
-    v_pred = qvel + m.timestep * qacc
-    qvel = contact_sweep_blocks(jf, w, target, mu, v_pred, params.iters,
-                                params.relax)
+    if params.fused_solver:
+        qvel = linalg.fused_contact(a, qfrc, qvel, jf, target, mu,
+                                    m.timestep, params.iters, params.relax)
+    else:
+        sol = linalg.spd_solve(a, torch.cat([qfrc[..., None],
+                                             jf.transpose(1, 2)], 2))
+        qacc, w = sol[..., 0], sol[..., 1:]
+        v_pred = qvel + m.timestep * qacc
+        qvel = linalg.contact_sweep_blocks(jf, w, target, mu, v_pred,
+                                           params.iters, params.relax)
     return integrate(m, qpos, qvel, m.timestep), qvel
 
 
@@ -432,9 +387,10 @@ def step_raw(m: PhysicsModel, qpos, qvel, tau,
 # ---------------------------------------------------------------------------
 
 def stable_pd_torque(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, mm,
-                     qfrc_bias) -> torch.Tensor:
+                     qfrc_bias, solve=linalg.spd_solve_plain) -> torch.Tensor:
     """Stable-PD actuator torque (B,nu): solve (M + Kd dt) qacc =
-    -C - Kp e - Kd edot, then tau = -kp e - kd (edot + qacc dt)."""
+    -C - Kp e - Kd edot with ``solve``, then tau = -kp e - kd (edot +
+    qacc dt)."""
     dt = m.timestep
     z6 = qpos.new_zeros(qpos.shape[0], 6)
     k_p = torch.cat([z6, jkp.expand(qpos.shape[0], -1)], 1)
@@ -442,40 +398,51 @@ def stable_pd_torque(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, mm,
     qpos_err = torch.cat([z6, qpos[:, 7:] - ctrl], 1)
     rhs = -qfrc_bias - k_p * qpos_err - k_d * qvel
     a = mm + dt * torch.diag_embed(k_d)
-    qacc = spd_solve(a, rhs[..., None])[..., 0]
+    qacc = solve(a, rhs[..., None])[..., 0]
     qvel_err = qvel + qacc * dt
     return -jkp * qpos_err[:, 6:] - jkd * qvel_err[:, 6:]
 
 
 def pd_control_step_split(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd,
                           torque_lim, n_frames: int,
-                          params: ContactParams = DEFAULT_CONTACT):
-    """The plain (split-path) control step: n_frames substeps of stable-PD
-    torque + dynamics + contact sweep + integration, grouped by the
-    prep-refresh cadence R (the last group takes the remainder)."""
+                          params: ContactParams = DEFAULT_CONTACT,
+                          solve=linalg.spd_solve_plain):
+    """The split-path control step: n_frames substeps of stable-PD torque +
+    dynamics + contact sweep + integration, grouped by the prep-refresh
+    cadence R (the last group takes the remainder).  The SPD solves go
+    through ``solve``: the plain version by default, which makes this K1's
+    plain version; pd_control_step passes linalg.spd_solve (K2 on the card).
+    With ``fused_solver`` R is 1 and each substep's dynamics solve and
+    sweep are one linalg.fused_contact (the K3 kernel on the card)."""
     act = list(m.actuator_dof)
-    r = max(1, int(params.prep_refresh))
+    fused = params.fused_solver
+    r = 1 if fused else max(1, int(params.prep_refresh))
 
     def group(qp, qv, nsub):
         # FK, mass matrix, bias and contact geometry from the group-entry
         # state, reused by the group's substeps
-        kin = fk(m, qp)
+        kin = prep_fk(m, qp, params)
         mm = crba(m, kin)
         qfrc_bias = bias_force(m, kin, qv)
         jf, target, mu = contact_blocks(m, kin, params)
         for _ in range(nsub):
             torque = stable_pd_torque(m, qp, qv, ctrl, jkp, jkd, mm,
-                                      qfrc_bias)
+                                      qfrc_bias, solve)
             torque = torch.clamp(torque, -torque_lim, torque_lim)
             tau = qp.new_zeros(qp.shape[0], m.ndof)
             tau[:, act] = torque * m.actuator_gear
             qfrc, a = smooth_dynamics(m, qp, qv, tau, params, mm, qfrc_bias)
-            sol = spd_solve(a, torch.cat([qfrc[..., None],
+            if fused:
+                qv = linalg.fused_contact(a, qfrc, qv, jf, target, mu,
+                                          m.timestep, params.iters,
+                                          params.relax)
+            else:
+                sol = solve(a, torch.cat([qfrc[..., None],
                                           jf.transpose(1, 2)], 2))
-            qacc, w = sol[..., 0], sol[..., 1:]
-            v_pred = qv + m.timestep * qacc
-            qv = contact_sweep_blocks(jf, w, target, mu, v_pred,
-                                      params.iters, params.relax)
+                qacc, w = sol[..., 0], sol[..., 1:]
+                v_pred = qv + m.timestep * qacc
+                qv = linalg.contact_sweep_blocks(jf, w, target, mu, v_pred,
+                                                 params.iters, params.relax)
             qp = integrate(m, qp, qv, m.timestep)
         return qp, qv
 
@@ -483,6 +450,61 @@ def pd_control_step_split(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd,
         qpos, qvel = group(qpos, qvel, r)
     if n_frames % r:
         qpos, qvel = group(qpos, qvel, n_frames % r)
+    return qpos, qvel
+
+
+def pd_fused_gains(m: PhysicsModel, bsz: int, jkp, jkd, torque_lim):
+    """The per-dof gains of the fused stable-PD substep, (B,nd) each:
+    jkp_full, jkd_full, tlim_full, gear_full and kdd = [jkd_full,
+    dof_damping] (B,nd,2), the diagonal additions of its two systems.
+    Gains and limits may be (nu,) or (B,nu)."""
+    act = list(m.actuator_dof)
+    lanes = lambda x: x.to(m.dtype).expand(bsz, -1)
+    z6 = m.dof_damping.new_zeros(bsz, 6)
+    jkp_full = torch.cat([z6, lanes(jkp)], 1)
+    jkd_full = torch.cat([z6, lanes(jkd)], 1)
+    gear_full = m.dof_damping.new_zeros(bsz, m.ndof)
+    gear_full[:, act] = m.actuator_gear
+    tlim_full = m.dof_damping.new_zeros(bsz, m.ndof)
+    tlim_full[:, act] = lanes(torque_lim)
+    kdd = torch.stack([jkd_full, m.dof_damping.expand(bsz, -1)], -1)
+    return jkp_full, jkd_full, tlim_full, gear_full, kdd
+
+
+def pd_fused_terms(m: PhysicsModel, qpos, qvel, ctrl, jkp_full, jkd_full,
+                   kin: Kin, params: ContactParams):
+    """The state-dependent inputs of one fused stable-PD substep at (qpos,
+    qvel): mass matrix, PD rhs, position error, passive + bias force and
+    the contact blocks -- (mm, rhspd, e, qfb, jf, target, mu)."""
+    mm = crba(m, kin)
+    qfrc_bias = bias_force(m, kin, qvel)
+    z6 = qpos.new_zeros(qpos.shape[0], 6)
+    e = torch.cat([z6, qpos[:, 7:] - ctrl], 1)
+    rhspd = -qfrc_bias - jkp_full * e - jkd_full * qvel
+    qfb = -qfrc_bias + limit_qfrc(m, qpos, qvel, params) \
+        - m.dof_damping * qvel \
+        - torch.cat([z6, m.dof_stiffness[6:] * qpos[:, 7:]], 1)
+    jf, target, mu = contact_blocks(m, kin, params)
+    return mm, rhspd, e, qfb, jf, target, mu
+
+
+def _pd_fused_control_step(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd,
+                           torque_lim, n_frames: int,
+                           params: ContactParams = DEFAULT_CONTACT):
+    """pd_control_step with each substep's solve chain (stable-PD solve ->
+    torque clamp -> dynamics + Delassus solve -> contact sweep) in one
+    linalg.pd_fused (the K4 kernel on the card).  FK, mass matrix, bias and
+    contacts are recomputed every substep: prep_refresh does not apply."""
+    gains = pd_fused_gains(m, qpos.shape[0], jkp, jkd, torque_lim)
+    jkp_full, jkd_full, tlim_full, gear_full, kdd = gains
+    for _ in range(n_frames):
+        mm, rhspd, e, qfb, jf, target, mu = pd_fused_terms(
+            m, qpos, qvel, ctrl, jkp_full, jkd_full, prep_fk(m, qpos, params),
+            params)
+        qvel = linalg.pd_fused(mm, kdd, rhspd, e, jkp_full, jkd_full,
+                               tlim_full, gear_full, qfb, qvel, jf, target,
+                               mu, m.timestep, params.iters, params.relax)
+        qpos = integrate(m, qpos, qvel, m.timestep)
     return qpos, qvel
 
 
@@ -503,15 +525,23 @@ def pd_control_step(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, torque_lim,
                     n_frames: int, params: ContactParams = DEFAULT_CONTACT):
     """One stable-PD control step for a batch (B,nq)/(B,nd)/(B,nu).
 
-    The counterpart of the JAX engine's dispatch through
-    substep_pallas.make_substep_step: a CUDA batch runs the hand-written
-    kernel (physics/substep.py), a CPU batch the plain split path above.
+    The JAX engine's dispatch, in its order of precedence: with
+    ``substep_resident`` a CUDA batch runs K1, the whole control step in one
+    launch (physics/substep.py; a model K1 does not take raises); otherwise
+    ``pd_fused`` runs _pd_fused_control_step (K4 on the card), and else the
+    split path above runs with its solves through linalg.spd_solve (K2 on
+    the card), as the JAX split path solves through K2 on the TPU.  On the
+    CPU ``substep_resident`` is ignored, as off the TPU in the JAX package.
     Gains and limits may be (nu,) (shared) or (B,nu)."""
-    if not qpos.is_cuda:
-        return pd_control_step_split(m, qpos, qvel, ctrl, jkp, jkd,
-                                     torque_lim, n_frames, params)
-    from . import substep
-    per_lane = lambda x: x.expand(qpos.shape[0], m.nu).contiguous()
-    return substep.pd_control_step_cuda(
-        m, qpos.contiguous(), qvel.contiguous(), per_lane(ctrl),
-        per_lane(jkp), per_lane(jkd), per_lane(torque_lim), n_frames, params)
+    if qpos.is_cuda and params.substep_resident:
+        from . import substep
+        per_lane = lambda x: x.expand(qpos.shape[0], m.nu).contiguous()
+        return substep.pd_control_step_cuda(
+            m, qpos.contiguous(), qvel.contiguous(), per_lane(ctrl),
+            per_lane(jkp), per_lane(jkd), per_lane(torque_lim), n_frames,
+            params)
+    if params.pd_fused:
+        return _pd_fused_control_step(m, qpos, qvel, ctrl, jkp, jkd,
+                                      torque_lim, n_frames, params)
+    return pd_control_step_split(m, qpos, qvel, ctrl, jkp, jkd, torque_lim,
+                                 n_frames, params, solve=linalg.spd_solve)

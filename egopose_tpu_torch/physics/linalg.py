@@ -1,16 +1,27 @@
-"""Batched dense SPD solve: the CUDA kernel K2 and its plain version.
+"""Batched solves of the physics substep: the CUDA kernels K2, K3 and K4
+and their plain versions.
 
-Port of egopose_tpu/physics/linalg_pallas.py:163-227: the Pallas kernel
-``_cho_solve_kernel_blocked`` (launched by ``_batched_spd_solve_tpu`` from
-the ``custom_vmap`` rule of ``spd_solve``) becomes the hand-written CUDA C++
-kernel in ``csrc/spd_solve.cu``, one thread block per system.
+Port of egopose_tpu/physics/linalg_pallas.py, each Pallas kernel a
+hand-written CUDA C++ kernel, one thread block per system:
 
-``spd_solve`` dispatches on the tensors' device: a CUDA batch launches the
-kernel, a CPU batch runs ``spd_solve_plain``.  There is no fallback from
-CUDA to the plain version: a dtype or size the kernel does not take raises.
-The torque-mode substep (engine.step_raw) solves through ``spd_solve``; the
-stable-PD split path (engine.pd_control_step_split, K1's plain version)
-keeps ``spd_solve_plain`` on every device.
+- K2, ``_cho_solve_kernel_blocked`` (launched by ``_batched_spd_solve_tpu``
+  from the ``custom_vmap`` rule of ``spd_solve``): the dense SPD solve, in
+  ``csrc/spd_solve.cu``;
+- K3, ``_fused_contact_kernel`` (``_fused_contact_tpu``): factor, solve
+  [dt qfrc | J^T], Delassus operator and projected-Jacobi sweep -> v_new,
+  in ``csrc/fused_contact.cu``;
+- K4, ``_pd_fused_kernel`` (``_pd_fused_tpu``): one stable-PD substep's
+  PD solve, torque clamp, dynamics solve and sweep -> v_new, in the same
+  file.  K2, K3 and K4 share the factor and substitutions of
+  ``csrc/cholesky.cuh``.
+
+``spd_solve``, ``fused_contact`` and ``pd_fused`` dispatch on the tensors'
+device: a CUDA batch launches the kernel, a CPU batch runs the plain
+version.  There is no fallback from CUDA to the plain version: a dtype or
+size a kernel does not take raises.  physics/engine.py states which path
+runs which kernel; called directly, its stable-PD split path
+(engine.pd_control_step_split, K1's plain version) solves with
+``spd_solve_plain`` on every device.
 """
 from __future__ import annotations
 
@@ -20,15 +31,19 @@ import torch
 
 from . import nvcc
 
-# Launch count of the kernel: incremented once per launch, nowhere else.
+# Launch counts of the kernels: each incremented once per launch of its
+# kernel, nowhere else.  ``launches`` is K2's.
 launches = 0
+fused_contact_launches = 0
+pd_fused_launches = 0
 
-_lib = None
+_libs = {}
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    """Zero the launch counts of K2, K3 and K4."""
+    global launches, fused_contact_launches, pd_fused_launches
+    launches = fused_contact_launches = pd_fused_launches = 0
 
 
 def spd_solve_plain(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -36,51 +51,185 @@ def spd_solve_plain(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(rhs, torch.linalg.cholesky(a))
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(nvcc.build("spd_solve.cu"))
-        for name in ("egopose_spd_solve_f32", "egopose_spd_solve_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def contact_sweep_blocks(jf, w, target, mu, v_pred, iters, relax):
+    """Projected-Jacobi sweep in block row order given the Delassus columns
+    W = Minv J^T (B,nd,c): friction box on the first 3K rows, lambda >= 0 on
+    the trailing frictionless pair rows.  Returns the post-contact
+    velocity."""
+    k = mu.shape[-1]
+    c = jf.shape[1]
+    a = jf @ w                                          # (B,c,c)
+    bhat = (jf @ v_pred[..., None])[..., 0] - target
+    # Gershgorin (row-sum) preconditioner keeps the sweep a contraction
+    diag = torch.sum(torch.abs(a), -1) + 1.0e-9
+    lam = v_pred.new_zeros(v_pred.shape[0], c)
+    for _ in range(iters):
+        g = (a @ lam[..., None])[..., 0] + bhat
+        lam = lam - relax * g / diag
+        ln = torch.clamp(lam[:, 2 * k:3 * k], min=0.0)
+        lim = mu * ln
+        parts = [torch.clamp(lam[:, :k], -lim, lim),
+                 torch.clamp(lam[:, k:2 * k], -lim, lim), ln]
+        if c > 3 * k:
+            parts.append(torch.clamp(lam[:, 3 * k:], min=0.0))
+        lam = torch.cat(parts, 1)
+    return v_pred + (w @ lam[..., None])[..., 0]
+
+
+def fused_contact_plain(a, qfrc, qvel, jf, target, mu, dt, iters, relax):
+    """Fused dynamics + contact solve (the batched _fused_contact_single):
+    a (B,n,n), qfrc/qvel (B,n), jf (B,c,n) in block row order, target (B,c),
+    mu (B,k) -> v_new (B,n)."""
+    sol = spd_solve_plain(a, torch.cat([qfrc[..., None],
+                                        jf.transpose(1, 2)], 2))
+    qacc, w = sol[..., 0], sol[..., 1:]
+    v_pred = qvel + dt * qacc
+    return contact_sweep_blocks(jf, w, target, mu, v_pred, iters, relax)
+
+
+def pd_fused_plain(mmat, kdd, rhspd, e, jkp, jkd, tlim, gear, qfb, qvel, jf,
+                   target, mu, dt, iters, relax):
+    """Fused stable-PD substep (the batched _pd_fused_single): mmat
+    (B,n,n); kdd (B,n,2) = [jkd_full, dof_damping]; rhspd/e/jkp/jkd/tlim/
+    gear/qfb/qvel (B,n); jf (B,c,n); target (B,c); mu (B,k) -> v_new (B,n)."""
+    a_pd = mmat + dt * torch.diag_embed(kdd[..., 0])
+    qacc = spd_solve_plain(a_pd, rhspd[..., None])[..., 0]
+    torque = -jkp * e - jkd * (qvel + dt * qacc)
+    torque = torch.clamp(torque, -tlim, tlim)
+    qfrc = qfb + torque * gear
+    a_dyn = mmat + dt * torch.diag_embed(kdd[..., 1])
+    return fused_contact_plain(a_dyn, qfrc, qvel, jf, target, mu, dt, iters,
+                               relax)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SIGNATURES = {
+    "spd_solve.cu": {"egopose_spd_solve": [_P] * 3 + [_I] * 3 + [_P]},
+    "fused_contact.cu": {
+        "egopose_fused_contact": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_P],
+        "egopose_pd_fused": [_P] * 14 + [_I] * 5 + [_D] * 2 + [_P]},
+}
+
+
+def _kernel(source: str, name: str, dtype: torch.dtype):
+    """The C entry ``name`` of ``source`` for ``dtype``, built at first use."""
+    if source not in _libs:
+        lib = ctypes.CDLL(nvcc.build(source))
+        for stem, argtypes in _SIGNATURES[source].items():
+            for sfx in ("_f32", "_f64"):
+                fn = getattr(lib, stem + sfx)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _libs[source] = lib
+    sfx = "_f64" if dtype == torch.float64 else "_f32"
+    return getattr(_libs[source], name + sfx)
+
+
+def _check(what: str, shapes):
+    """Every (tensor, shape) pair: a contiguous CUDA tensor of the first
+    tensor's float dtype and device with exactly that shape."""
+    t0 = shapes[0][0]
+    if t0.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what}: unsupported dtype {t0.dtype}")
+    for t, shape in shapes:
+        if not t.is_cuda or t.device != t0.device or t.dtype != t0.dtype \
+                or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{what}: expected a contiguous {t0.dtype} CUDA tensor of "
+                f"shape {tuple(shape)} on {t0.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} (contiguous: "
+                f"{t.is_contiguous()})")
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: error {err} (a CUDA error code; "
+            "-1: unsupported sizes, -2: the system needs more shared memory "
+            "than a block may use)")
+
+
+def _contact_sizes(what, jf, mu):
+    if jf.dim() != 3 or mu.dim() != 2:
+        raise ValueError(f"{what}: expected jf (B,c,n) and mu (B,k), got "
+                         f"{tuple(jf.shape)} and {tuple(mu.shape)}")
+    bsz, c, n = jf.shape
+    k = mu.shape[1]
+    if bsz < 1 or n < 1 or c < 1 or 3 * k > c:
+        raise ValueError(f"{what}: needs B >= 1, n >= 1 and c >= 3k >= 0 "
+                         f"contact rows, got B={bsz}, n={n}, c={c}, k={k}")
+    return bsz, n, c, k
 
 
 def spd_solve_cuda(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: a (B,n,n), rhs (B,n,r), contiguous CUDA tensors of
-    one float dtype -> X (B,n,r), a new tensor."""
+    """Launch K2: a (B,n,n), rhs (B,n,r), contiguous CUDA tensors of one
+    float dtype -> X (B,n,r), a new tensor."""
     global launches
-    if a.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {a.dtype}")
     if a.dim() != 3 or rhs.dim() != 3 or a.shape[1] != a.shape[2] \
             or rhs.shape[:2] != a.shape[:2] or a.shape[0] < 1 \
             or rhs.shape[2] < 1 or a.shape[1] < 1:
         raise ValueError(f"expected a (B,n,n) and rhs (B,n,r), got "
                          f"{tuple(a.shape)} and {tuple(rhs.shape)}")
-    for t in (a, rhs):
-        if not t.is_cuda or t.device != a.device or t.dtype != a.dtype \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"expected contiguous {a.dtype} CUDA tensors on {a.device}, "
-                f"got {t.dtype} on {t.device} (contiguous: "
-                f"{t.is_contiguous()})")
+    _check("spd_solve", [(a, a.shape), (rhs, rhs.shape)])
     bsz, n, r = rhs.shape
     x = torch.empty_like(rhs)
-    fn = _load().egopose_spd_solve_f64 if a.dtype == torch.float64 \
-        else _load().egopose_spd_solve_f32
-    err = fn(a.data_ptr(), rhs.data_ptr(), x.data_ptr(), bsz, n, r,
-             torch.cuda.current_stream(a.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"spd_solve kernel launch failed: error {err} (a CUDA error "
-            "code; -2: the system needs more shared memory than a block may "
-            "use)")
+    fn = _kernel("spd_solve.cu", "egopose_spd_solve", a.dtype)
+    _raise_on(fn(a.data_ptr(), rhs.data_ptr(), x.data_ptr(), bsz, n, r,
+                 torch.cuda.current_stream(a.device).cuda_stream),
+              "spd_solve")
     launches += 1
     return x
 
+
+def fused_contact_cuda(a, qfrc, qvel, jf, target, mu, dt, iters, relax):
+    """Launch K3 (arguments as fused_contact_plain; contiguous CUDA tensors
+    of one float dtype) -> v_new (B,n), a new tensor."""
+    global fused_contact_launches
+    bsz, n, c, k = _contact_sizes("fused_contact", jf, mu)
+    _check("fused_contact", [(a, (bsz, n, n)), (qfrc, (bsz, n)),
+                             (qvel, (bsz, n)), (jf, (bsz, c, n)),
+                             (target, (bsz, c)), (mu, (bsz, k))])
+    out = torch.empty_like(qvel)
+    fn = _kernel("fused_contact.cu", "egopose_fused_contact", a.dtype)
+    _raise_on(fn(a.data_ptr(), qfrc.data_ptr(), qvel.data_ptr(),
+                 jf.data_ptr(), target.data_ptr(), mu.data_ptr(),
+                 out.data_ptr(), bsz, n, c, k, int(iters), float(dt),
+                 float(relax),
+                 torch.cuda.current_stream(a.device).cuda_stream),
+              "fused_contact")
+    fused_contact_launches += 1
+    return out
+
+
+def pd_fused_cuda(mmat, kdd, rhspd, e, jkp, jkd, tlim, gear, qfb, qvel, jf,
+                  target, mu, dt, iters, relax):
+    """Launch K4 (arguments as pd_fused_plain; contiguous CUDA tensors of
+    one float dtype) -> v_new (B,n), a new tensor."""
+    global pd_fused_launches
+    bsz, n, c, k = _contact_sizes("pd_fused", jf, mu)
+    vecs = (rhspd, e, jkp, jkd, tlim, gear, qfb, qvel)
+    _check("pd_fused", [(mmat, (bsz, n, n)), (kdd, (bsz, n, 2))]
+           + [(v, (bsz, n)) for v in vecs]
+           + [(jf, (bsz, c, n)), (target, (bsz, c)), (mu, (bsz, k))])
+    out = torch.empty_like(qvel)
+    fn = _kernel("fused_contact.cu", "egopose_pd_fused", mmat.dtype)
+    _raise_on(fn(mmat.data_ptr(), kdd.data_ptr(),
+                 *[v.data_ptr() for v in vecs], jf.data_ptr(),
+                 target.data_ptr(), mu.data_ptr(), out.data_ptr(), bsz, n, c,
+                 k, int(iters), float(dt), float(relax),
+                 torch.cuda.current_stream(mmat.device).cuda_stream),
+              "pd_fused")
+    pd_fused_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dispatch on the device
+# ---------------------------------------------------------------------------
 
 def spd_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """A X = rhs for a batch of SPD systems: the kernel on CUDA, the plain
@@ -88,3 +237,25 @@ def spd_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if not a.is_cuda:
         return spd_solve_plain(a, rhs)
     return spd_solve_cuda(a.contiguous(), rhs.contiguous())
+
+
+def fused_contact(a, qfrc, qvel, jf, target, mu, dt, iters, relax):
+    """Fused dynamics + contact solve -> v_new: K3 on CUDA, the plain
+    version on the CPU."""
+    if not a.is_cuda:
+        return fused_contact_plain(a, qfrc, qvel, jf, target, mu, dt, iters,
+                                   relax)
+    return fused_contact_cuda(*[t.contiguous() for t in
+                                (a, qfrc, qvel, jf, target, mu)],
+                              dt, iters, relax)
+
+
+def pd_fused(mmat, kdd, rhspd, e, jkp, jkd, tlim, gear, qfb, qvel, jf,
+             target, mu, dt, iters, relax):
+    """Fused stable-PD substep -> v_new: K4 on CUDA, the plain version on
+    the CPU."""
+    args = (mmat, kdd, rhspd, e, jkp, jkd, tlim, gear, qfb, qvel, jf, target,
+            mu)
+    if not mmat.is_cuda:
+        return pd_fused_plain(*args, dt, iters, relax)
+    return pd_fused_cuda(*[t.contiguous() for t in args], dt, iters, relax)

@@ -2,7 +2,8 @@
 
 Each source compiles on its own into a shared library with a plain C
 interface (loaded with ctypes by its wrapper module), named by a hash of the
-source and the flags so an edited source never loads a stale library.
+flags, the source and every header under ``csrc/`` (``*.cuh``), so an edited
+source or header never loads a stale library.
 Output goes to the git-ignored ``egopose_tpu_torch/_build/``.
 ``build_all`` starts one nvcc per source at once and waits for all.
 """
@@ -18,7 +19,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("substep.cu", "spd_solve.cu")
+SOURCES = ("substep.cu", "spd_solve.cu", "fused_contact.cu", "fk.cu")
 
 
 def _nvcc() -> str:
@@ -34,8 +35,10 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC, source), "rb") as f:
-        h.update(source.encode() + f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 

@@ -9,9 +9,10 @@ tables (the counterpart of ``_build_static`` / ``_packed_consts`` /
 ``_packed_pair_consts`` and of ldl_pallas's ancestor lists), compiles the
 kernel with nvcc at first use, and launches it through ctypes.
 
-Dispatch (engine.pd_control_step, the counterpart of make_substep_step): a
-CUDA batch runs the kernel at any B >= 1; a CPU batch runs the plain split
-path (engine.pd_control_step_split).  There is no fallback from CUDA to the
+Dispatch (engine.pd_control_step, the counterpart of make_substep_step):
+with ``ContactParams.substep_resident`` (the default) a CUDA batch runs the
+kernel at any B >= 1; a CPU batch runs the plain split path
+(engine.pd_control_step_split).  There is no fallback from CUDA to the
 plain version: a model the kernel does not support raises.
 """
 from __future__ import annotations

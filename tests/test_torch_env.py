@@ -121,12 +121,11 @@ def test_divergence_guard_matches(worlds):
         _close(getattr(tout, name), getattr(jout, name), "guard " + name)
 
 
-def test_torque_mode_step_matches_jax():
-    """action_type 'torque' with the config's j_stiff / j_damp override of
-    every hinge dof (set_model_params): the overridden models agree, and
-    reset + steps under the same actions agree to 1e-8 (TOL), as in
-    position mode; the physics itself is held to 1e-9 in
-    test_torch_physics.py::test_torque_control_step_matches_jax."""
+@pytest.fixture(scope="module")
+def torque_worlds():
+    """The worlds of ``worlds`` with action_type 'torque' and the config's
+    j_stiff / j_damp override of every hinge dof (set_model_params), and
+    the overridden specs."""
     root = os.path.join(REPO, "config")
     jc = jcfg.EgoMimicConfig("subject_03", config_root=root)
     tc = tcfg.EgoMimicConfig("subject_03", config_root=root)
@@ -135,17 +134,27 @@ def test_torque_mode_step_matches_jax():
         c.j_stiff, c.j_damp = 5.0, 20.0
     jspec = jcfg.apply_model_params(jparse(XML), jc)
     tspec = tcfg.apply_model_params(tparse(XML), tc)
-    assert (tspec.dof_stiffness[6:] == 5.0).all()
-    assert (tspec.dof_damping[6:] == 20.0).all()
-    np.testing.assert_array_equal(tspec.dof_damping, jspec.dof_damping)
     jm = jbuild(jspec, dtype=jnp.float64)
     tm = tmodel.build_model(tspec, dtype=torch.float64)
     jp = jcfg.make_env_params(jc, jspec, obs_dim=115, dtype=np.float64)
     tp = tcfg.make_env_params(tc, tspec, obs_dim=115, dtype=torch.float64)
-    assert tp.action_type == jp.action_type == "torque"
     jt, tt = jenvs.make_body_tables(jspec), tenvs.make_body_tables(tspec)
     je = jenvs.synthetic_experts(jm, jp, jt, jspec, N_TAKES, T_LEN, seed=1)
     te = tenvs.synthetic_experts(tm, tp, tt, tspec, N_TAKES, T_LEN, seed=1)
+    return (jm, jp, jt, je), (tm, tp, tt, te), (jspec, tspec)
+
+
+def test_torque_mode_step_matches_jax(torque_worlds):
+    """action_type 'torque' with the config's j_stiff / j_damp override of
+    every hinge dof (set_model_params): the overridden models agree, and
+    reset + steps under the same actions agree to 1e-8 (TOL), as in
+    position mode; the physics itself is held to 1e-9 in
+    test_torch_physics.py::test_torque_control_step_matches_jax."""
+    (jm, jp, jt, je), (tm, tp, tt, te), (jspec, tspec) = torque_worlds
+    assert (tspec.dof_stiffness[6:] == 5.0).all()
+    assert (tspec.dof_damping[6:] == 20.0).all()
+    np.testing.assert_array_equal(tspec.dof_damping, jspec.dof_damping)
+    assert tp.action_type == jp.action_type == "torque"
     ind = np.arange(N_TAKES)
     jst = jax.vmap(lambda i: jenvs.reset(
         jm, jp, jt, je, jax.random.PRNGKey(0), fix_expert_ind=i,

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card: K1,
-the control step (csrc/substep.cu), and K2, the batched SPD solve
-(csrc/spd_solve.cu).  Needs an NVIDIA GPU and nvcc: marked ``cuda`` and skipped without
-them.  Imports no JAX, so it runs on a machine that has only the port:
+the control step (csrc/substep.cu), K2, the batched SPD solve
+(csrc/spd_solve.cu), K3 and K4, the fused contact solve and the fused
+stable-PD substep (csrc/fused_contact.cu), and K5, forward kinematics
+(csrc/fk.cu).  Needs an NVIDIA GPU and nvcc: marked ``cuda`` and skipped
+without them.  Imports no JAX, so it runs on a machine that has only the port:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -q
 
@@ -58,6 +60,50 @@ def test_kernel_matches_plain_on_card(card, dtype, r):
     else:
         assert dq.pow(2).mean().sqrt() <= 1e-6
         assert dv.pow(2).mean().sqrt() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,want", [
+    (dict(prep_refresh=3), dict(k2=30)),
+    (dict(fused_solver=True), dict(k2=15, k3=15, k5=15))],
+    ids=["split", "fused_solver"])
+def test_split_path_on_card_runs_the_kernels(card, flags, want):
+    """pd_control_step with substep_resident and pd_fused off: the split
+    path solves through K2 (and with fused_solver through K3, its FK through
+    K5) on the card, and agrees with the same step on the CPU in f64."""
+    from egopose_tpu_torch.physics import engine, fk, linalg, model, substep
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    spec = parse_mjcf(XML)
+    rng = np.random.RandomState(5)
+    bsz = 8
+    q = np.zeros((bsz, spec.nq))
+    q[:, 2] = 0.935
+    q[:, 3] = 1.0
+    q[:, 7:] = rng.uniform(-0.3, 0.3, (bsz, spec.nq - 7))
+    v = rng.normal(0, 0.5, (bsz, spec.ndof))
+    ctrl = q[:, 7:] + rng.normal(0, 0.1, (bsz, spec.nu))
+    gains = [np.full(spec.nu, g) for g in (300.0, 30.0, 100.0)]
+    params = engine.DEFAULT_CONTACT._replace(substep_resident=False, **flags)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        m = model.build_model(spec, dtype=torch.float64, device=dev)
+        t = lambda x: torch.tensor(x, dtype=torch.float64, device=dev)
+        before = dict(k1=substep.launches, k2=linalg.launches,
+                      k3=linalg.fused_contact_launches,
+                      k4=linalg.pd_fused_launches, k5=fk.launches)
+        out[dev.type] = engine.pd_control_step(
+            m, t(q), t(v), t(ctrl), *map(t, gains), 15, params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            after = dict(k1=substep.launches, k2=linalg.launches,
+                         k3=linalg.fused_contact_launches,
+                         k4=linalg.pd_fused_launches, k5=fk.launches)
+            assert {k: after[k] - before[k] for k in after} == {
+                k: want.get(k, 0) for k in after}
+    (qk, vk), (qc, vc) = out["cuda"], out["cpu"]
+    assert torch.isfinite(qk).all() and torch.isfinite(vk).all()
+    assert (qk.cpu() - qc).abs().max() <= 1e-9
+    assert (vk.cpu() - vc).abs().max() <= 1e-8
 
 
 @pytest.mark.cuda
@@ -128,3 +174,141 @@ def test_spd_solve_rejects_bad_inputs(card):
         linalg.spd_solve_cuda(big.contiguous(),
                               torch.ones(1, 400, 1, device=card,
                                          dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# K3, K4: the fused contact solve and the fused stable-PD substep
+# ---------------------------------------------------------------------------
+
+def _contact_system(bsz, n, c, k, dtype, device, seed):
+    """Random SPD systems and contact rows (the JAX tests' recipe)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(bsz, n, n)
+    a = np.einsum("bij,bkj->bik", x, x) / n + np.eye(n)
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    return (t(a), t(rng.randn(bsz, n)), t(rng.randn(bsz, n)),
+            t(rng.randn(bsz, c, n) * 0.3), t(np.abs(rng.randn(bsz, c)) * 0.1),
+            t(np.abs(rng.randn(bsz, k)) + 0.2))
+
+
+def _pd_system(bsz, n, c, k, dtype, device, seed):
+    a, qfrc, qvel, jf, target, mu = _contact_system(bsz, n, c, k, dtype,
+                                                    device, seed)
+    rng = np.random.RandomState(seed + 100)
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    kdd = t(np.abs(rng.randn(bsz, n, 2)) * 50)
+    rhspd, e, jkp, jkd = (t(rng.randn(bsz, n) * s) for s in (1, 0.1, 300, 30))
+    tlim, gear = t(np.abs(rng.randn(bsz, n)) * 50), t(np.ones((bsz, n)))
+    return (a, kdd, rhspd, e, jkp.abs(), jkd.abs(), tlim, gear, qfrc, qvel,
+            jf, target, mu)
+
+
+def _hold(got, plain, dtype, ref64):
+    """f64: max-abs kernel - plain <= 1e-9 max|v|.  f32: the kernel's error
+    against the float64 result of the same inputs is at most 4x the plain
+    float32 version's."""
+    assert got.shape == plain.shape and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    if dtype == torch.float64:
+        assert (got - plain).abs().max() <= 1e-9 * plain.abs().max()
+    else:
+        err_k = (got.double() - ref64).abs().max()
+        err_p = (plain.double() - ref64).abs().max()
+        assert err_k <= 4 * err_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,c,k", [(1, 24, 6), (64, 24, 6), (16, 48, 16),
+                                     (8, 30, 8)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_contact_matches_plain_on_card(card, dtype, bsz, c, k):
+    from egopose_tpu_torch.physics import linalg
+    args = _contact_system(bsz, 58, c, k, dtype, card, seed=bsz + c)
+    before = linalg.fused_contact_launches
+    got = linalg.fused_contact(*args, 1 / 450, 10, 1.0)
+    assert linalg.fused_contact_launches == before + 1
+    plain = linalg.fused_contact_plain(*args, 1 / 450, 10, 1.0)
+    ref = linalg.fused_contact_plain(*[x.double() for x in args], 1 / 450,
+                                     10, 1.0)
+    torch.cuda.synchronize()
+    _hold(got, plain, dtype, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,c,k", [(1, 24, 6), (64, 24, 6), (16, 48, 16)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pd_fused_matches_plain_on_card(card, dtype, bsz, c, k):
+    from egopose_tpu_torch.physics import linalg
+    args = _pd_system(bsz, 58, c, k, dtype, card, seed=bsz + c)
+    before = linalg.pd_fused_launches
+    got = linalg.pd_fused(*args, 1 / 450, 10, 1.0)
+    assert linalg.pd_fused_launches == before + 1
+    plain = linalg.pd_fused_plain(*args, 1 / 450, 10, 1.0)
+    ref = linalg.pd_fused_plain(*[x.double() for x in args], 1 / 450, 10,
+                                1.0)
+    torch.cuda.synchronize()
+    _hold(got, plain, dtype, ref)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_reject_bad_inputs(card):
+    from egopose_tpu_torch.physics import linalg
+    args = list(_contact_system(2, 8, 6, 2, torch.float32, card, seed=0))
+    for i, bad in ((0, args[0].cpu()), (1, args[1].double()),
+                   (0, args[0].transpose(1, 2)), (4, args[4][:, :5])):
+        with pytest.raises(ValueError):
+            linalg.fused_contact_cuda(*args[:i], bad, *args[i + 1:],
+                                      1 / 450, 10, 1.0)
+    with pytest.raises(ValueError, match="c >= 3k"):
+        linalg.fused_contact_cuda(*args[:5], torch.ones(2, 3, device=card),
+                                  1 / 450, 10, 1.0)
+    big = _contact_system(1, 200, 24, 6, torch.float64, card, seed=1)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        linalg.fused_contact_cuda(*big, 1 / 450, 10, 1.0)
+    pd = list(_pd_system(2, 8, 6, 2, torch.float32, card, seed=0))
+    with pytest.raises(ValueError):
+        linalg.pd_fused_cuda(*pd[:1], pd[1][..., :1].contiguous(), *pd[2:],
+                             1 / 450, 10, 1.0)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        linalg.pd_fused_cuda(*_pd_system(1, 200, 24, 6, torch.float64, card,
+                                         seed=1), 1 / 450, 10, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# K5: forward kinematics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 5, 300])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fk_matches_plain_on_card(card, dtype, bsz):
+    """f64: every output within 1e-10 of engine.fk; f32 within 1e-5."""
+    from egopose_tpu_torch.physics import engine, fk, model
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    m = model.build_model(parse_mjcf(XML), dtype=dtype, device=card)
+    rng = np.random.RandomState(bsz)
+    q = np.zeros((bsz, m.nq))
+    q[:, :3] = rng.randn(bsz, 3)
+    q[:, 3:7] = rng.randn(bsz, 4)
+    q[:, 7:] = rng.uniform(-1.5, 1.5, (bsz, m.nq - 7))
+    qt = torch.tensor(q, dtype=dtype, device=card)
+    before = fk.launches
+    got = fk.fk_batched(m, qt)
+    assert fk.launches == before + 1
+    want = engine.fk(m, qt)
+    torch.cuda.synchronize()
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    for name, g, w in zip(want._fields, got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert (g - w).abs().max() <= tol, name
+
+
+@pytest.mark.cuda
+def test_fk_wrapper_rejects_bad_inputs(card):
+    from egopose_tpu_torch.physics import fk, model
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    m = model.build_model(parse_mjcf(XML), dtype=torch.float32, device=card)
+    q = torch.zeros(3, m.nq, device=card)
+    for bad in (q.cpu(), q.double(), q[:, :58], q.t()):
+        with pytest.raises(ValueError):
+            fk.fk_cuda(m, bad)
