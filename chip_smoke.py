@@ -15,7 +15,12 @@ Phases, one JSON line each; any failure exits non-zero:
                <= 1e-4 with finite outputs
   k1_time      kernel and plain version timed with CUDA events (median of
                >= 20 launches after warm-up) at B=1024 and B=4, f32, with
-               the bound of the same work on this card
+               the bound of the same work on this card, and the kernel's
+               registers, shared bytes, blocks per SM and waves at B=1024
+  k1_stages    the stage-clock build of K1 (EGOPOSE_STAGE_CLOCKS: thread 0
+               of each block sums clock64() cycles per stage) at B=4 and
+               B=1024, f32: the median over environments of each stage's
+               cycles in one control step
   eval         the port's main path: ego_mimic_eval --cfg subject_03
                --synthetic --iter 3000 in f32 on the card (4 takes x 380
                steps), then eval_pose's compute_stats; asserts one kernel
@@ -32,7 +37,8 @@ Phases, one JSON line each; any failure exits non-zero:
                the same inputs at most 4x the plain f32 version's; finite
   k2_time      kernel, plain version and torch.linalg.solve (the library
                yardstick) timed with CUDA events at B=1024 and B=4, r=25,
-               f32, with the bound of the same work on this card
+               f32, with the bound of the same work on this card and the
+               kernel's resources as in k1_time
   train        the training main path: ego_mimic --cfg subject_03
                --synthetic --batch-lanes 1024 --max-iter 2 in f32 (shipped
                widths; one 200-step segment of 204,800 env steps per
@@ -89,6 +95,12 @@ Phases, one JSON line each; any failure exits non-zero:
                on the main paths (eval + train + train_torque + the three
                one-step phases + the two fused rollouts), error against the
                plain version and times
+
+With ``--only a,b`` only the phases named run (the device and build
+phases always do).  ``--ab DIR`` instead times K1 and K2 of the checkout
+in DIR (a parent commit, unpacked with git archive) and of this tree in
+turns, parent, tree, tree, parent (phase ``ab``), each run a subprocess of
+``--only k1_time,k2_time``.
 
 The last two lines are the card's name and power limit and then
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints no
@@ -294,6 +306,16 @@ def time_ms(fn, n=25, warm=5):
     return float(np.median(times))
 
 
+def resources(occ, bsz, per_block=1):
+    """An occupancy record plus the waves ``bsz`` blocks of work take on
+    this card (``per_block``: systems per block)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-bsz // per_block)
+    return dict(occ, sms=sms,
+                waves=blocks / (occ["blocks_per_sm"] * sms))
+
+
 def phase_k1_time(device):
     import torch
     from egopose_tpu_torch.physics import engine, substep
@@ -324,7 +346,46 @@ def phase_k1_time(device):
                    bound_by="bytes" if t_bytes > t_ops else "operations",
                    library_ms=None)
         rec["env_steps_per_s"] = bsz / rec["ms"] * 1e3
+        rec.update(resources(substep.occupancy(m, torch.float32), bsz))
         emit("k1_time", **rec)
+        out[bsz] = rec
+    return out
+
+
+def phase_k1_stages(device):
+    """K1's stage-clock build at B=4 and B=1024 (f32, contact-rich states,
+    R=3): the median over environments of each stage's cycles in one
+    control step, after two warm-up launches.  The SM clock
+    (nvidia-smi) converts cycles to microseconds."""
+    import torch
+    from egopose_tpu_torch.physics import engine, substep
+    spec, m, gains = load_world(torch.float32, device)
+    jkp, jkd, tl = gains
+    params = engine.DEFAULT_CONTACT
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    out = {}
+    for bsz in (4, 1024):
+        q, v, ctrl = contact_states(spec, m, bsz, 10 + bsz, torch.float32,
+                                    device)
+        lane = lambda x: x.expand(bsz, -1).contiguous()
+        clocks = torch.zeros(bsz, len(substep.STAGES), dtype=torch.int64,
+                             device=device)
+        for _ in range(3):
+            substep.pd_control_step_cuda(m, q, v, ctrl, lane(jkp), lane(jkd),
+                                         lane(tl), N_FRAMES, params,
+                                         clocks=clocks)
+        torch.cuda.synchronize()
+        med = clocks.double().median(0).values.cpu().numpy()
+        total = float(med.sum())
+        rec = dict(B=bsz, R=params.prep_refresh, dtype="float32",
+                   sm_clock_mhz_now_max=clock, total_cycles=total,
+                   cycles={n: float(c) for n, c in zip(substep.STAGES, med)},
+                   share={n: float(c) / total
+                          for n, c in zip(substep.STAGES, med)})
+        emit("k1_stages", **rec)
         out[bsz] = rec
     return out
 
@@ -542,6 +603,8 @@ def phase_k2_time(device):
                    library_ms=time_ms(lambda: torch.linalg.solve(a, rhs)),
                    bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes > t_ops else "operations")
+        occ = linalg.spd_solve_occupancy(n, r, torch.float32)
+        rec.update(resources(occ, bsz, occ["systems_per_block"]))
         emit("k2_time", **rec)
         out[bsz] = rec
     return out
@@ -1111,7 +1174,40 @@ def phase_rollout_torque_fused(device):
     return rec
 
 
+def run_ab(parent_dir):
+    """K1's and K2's times of a parent checkout (``parent_dir``, holding
+    its own chip_smoke.py) and of this tree in turns, parent, tree, tree,
+    parent: each a subprocess running ``--only k1_time,k2_time``, which
+    builds its own kernels.  Prints one ``ab`` line per run and one
+    summary line; returns 0 when every run passed."""
+    runs = []
+    for who in ("parent", "tree", "tree", "parent"):
+        root = parent_dir if who == "parent" else REPO
+        out = subprocess.run(
+            [sys.executable, os.path.join(root, "chip_smoke.py"), "--only",
+             "k1_time,k2_time"], cwd=root, capture_output=True, text=True,
+            timeout=900)
+        recs = [json.loads(x) for x in out.stdout.splitlines()
+                if x.startswith('{"phase": "k')]
+        times = {f"{r['phase'][:2]}_B{r['B']}_ms": r["ms"] for r in recs}
+        runs.append(dict(who=who, rc=out.returncode, **times))
+        emit("ab", **runs[-1])
+    keys = [k for k in runs[1] if k.endswith("_ms")]
+    summary = {k: dict(parent=[r[k] for r in runs if r["who"] == "parent"],
+                       tree=[r[k] for r in runs if r["who"] == "tree"])
+               for k in keys}
+    emit("ab_summary", parent_dir=os.path.relpath(parent_dir, REPO),
+         order=[r["who"] for r in runs], **summary)
+    return 0 if all(r["rc"] == 0 for r in runs) else 1
+
+
 def main():
+    if "--ab" in sys.argv:
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            return 2
+        return run_ab(os.path.abspath(sys.argv[sys.argv.index("--ab") + 1]))
     only = sys.argv[sys.argv.index("--only") + 1].split(",") \
         if "--only" in sys.argv else None
     want = lambda p: only is None or p in only
@@ -1126,12 +1222,17 @@ def main():
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    from egopose_tpu_torch.physics import substep
     t0 = time.time()
-    libs = nvcc.build_all(verbose=True)
+    libs = nvcc.build_all(nvcc.SOURCES + (("substep.cu",
+                                           (substep.CLOCKS_DEFINE,)),),
+                          verbose=True)
     emit("build", seconds=time.time() - t0,
          libraries=[os.path.relpath(lib, REPO) for lib in libs])
     errs = phase_k1_vs_plain(device) if want("k1_vs_plain") else {}
     times = phase_k1_time(device) if want("k1_time") else {}
+    if want("k1_stages"):
+        phase_k1_stages(device)
     ev = phase_eval(device) if want("eval") else None
     if want("eval_profile"):
         phase_eval_profile(device, ev["window_step_ms"] if ev else None)

@@ -1,6 +1,7 @@
-// Block-level dense Cholesky factor and solve in shared memory, shared by
-// the batched SPD solve (spd_solve.cu, K2) and the fused contact and
-// stable-PD solves (fused_contact.cu, K3 and K4).
+// Block-level dense Cholesky factor and solve in shared memory, used by the
+// fused contact and stable-PD solves (fused_contact.cu, K3 and K4); the
+// batched SPD solve (spd_solve.cu, K2) has its own one-warp factor and
+// takes only the math helpers and opt_in_shared from here.
 //
 // Both functions are called by every thread of a block and work on one
 // system in shared memory, row-major.  They are the counterparts of

@@ -6,44 +6,89 @@
 // the prep-refresh cadence R, the remainder group last -- for a batch of
 // environments:
 //
-//   per group: FK -> CRBA in compressed ancestor-slot rows -> RNEA bias ->
-//              floor top-K and capsule/box pair narrowphase with top-KP
-//              selection -> contact Jacobian -> sparse tree LDL^T of the PD
-//              and dynamics systems -> Y = L^-T J^T -> Delassus Y^T D^-1 Y
+//   per group: FK -> floor top-K and capsule/box pair narrowphase with
+//              top-KP selection -> contact Jacobian (as J^T) -> CRBA in
+//              compressed ancestor-slot rows -> RNEA bias -> sparse tree
+//              LDL^T of the PD and dynamics systems -> L^-1 of both ->
+//              Y = L^-T J^T -> Delassus Y^T D^-1 Y
 //   per substep: joint limits + PD rhs -> PD solve -> torque clamp ->
-//              dynamics solve -> projected-Jacobi sweep -> L^-1 D^-1 (Y lam)
-//              -> semi-implicit integration
+//              u = D^-1 L^-T (dt qfrc) -> residual Y^T (L v + u) ->
+//              projected-Jacobi sweep -> v += L^-1 (u + D^-1 Y lam) ->
+//              semi-implicit integration
 //
-// Design.  One thread block per environment, 128 threads, the lane's whole
-// working set in (dynamic) shared memory: 39.4 KB in float and 78.8 KB in
-// double for the 58-dof humanoid.  Device memory is touched for the state,
-// controls and gains in and the state out, once per control step, plus the
-// read-only model tables (a few tens of KB shared by all blocks, L1/L2
-// resident).  Threads work over bodies within an FK level, over dofs for
-// CRBA / bias / PD rhs / integration, over pairs for the narrowphase, and
-// over contact rows for the Jacobian and Delassus; __syncthreads separates
-// the stages.  The tree factorization runs leaves first, one dof at a time,
-// parallel over the dof's ancestor slots (both systems in the same pass);
-// the single-column solves and the 10-iteration sweep (<= 32 rows) run in
-// one warp with __syncwarp and shuffles.
+// Design.  One thread block of 128 threads per environment, the working set
+// in (dynamic) shared memory.  What bounds it is not bytes or flops (~2 KB
+// and ~1-2 MFLOP per environment and control step) but a long chain of
+// small dependent stages per environment, so the design keeps that chain
+// short and keeps enough environments in flight:
 //
-// What bounds it.  Per environment the work is a long chain of small
-// dependent stages (~60 factor steps, ~3 x 58 solve steps and 10 sweep
-// iterations per substep), so a block is latency-bound on that chain, not
-// on bytes or flops: the bytes per control step are ~2 KB per environment
-// and the flops ~1-2 MFLOP.  The design answers with many independent blocks
-// in flight (several per SM) rather than with wide per-block parallelism.
+// - Footprint.  The block's arrays are placed by physics/substep.py::
+//   smem_layout, which overlays arrays live only in the prep (FK, candidate,
+//   CRBA and RNEA intermediates) on those written later (L^-1, Delassus
+//   matrix, per-substep vectors), and the Jacobian is not kept beside Y
+//   in the substeps: 24.0 KB in float (47 KB in double) for the 58-dof
+//   humanoid.
+//   With __launch_bounds__(128, 8) (64 registers a thread) 8 float blocks
+//   fit one SM, so B = 1024 runs in one wave on the H100's 132 SMs.
+// - Short chains.  The factor runs by the levels of the dofs' elimination
+//   tree (28 for the humanoid, not its 58 dofs), from item tables built on
+//   the host (substep.py::factor_schedule): an item updates one value, the
+//   items of one target run in one thread in a row, so no two threads
+//   write one value and nothing is reduced across threads; each thread
+//   reads its items three rows ahead.  The tree factor has no fill and a
+//   row's ancestor list holds all its ancestors, so L^-1 has L's slots:
+//   once per group the kernel forms L^-1 of both factors, one row per
+//   thread and all rows at once (from L^-1 L = I a row needs only itself
+//   and L), and every solve of the substeps, and Y = L^-T J^T, is then a
+//   gather per dof (per dof and active column for Y) in parallel: a
+//   column of L^-1 for L^-T, a row for L^-1.
+// - One L^-1 product less per substep: the velocity update is
+//   v + L^-1 D^-1 (L^-T dt qfrc + Y lam) and the contact residual
+//   J v_pred = Y^T (L v + D^-1 L^-T dt qfrc), so the dynamics solve stops
+//   after D^-1 L^-T and J is not kept once Y is formed.
+// - Contacts: Y skips the inactive contact columns (an inactive row of J
+//   is zero, so its lambda is exactly 0 and skipping it is exact), the
+//   Delassus matrix and the sweep run over active rows only, and the sweep
+//   reads G by column (G is symmetric), so its lanes hit distinct banks.
+// - The per-dof floats the substep loop reads (gains, control, limits,
+//   damping, stiffness, gear, torque limit) stay in the registers of the
+//   thread that owns the dof; the warps that own no dof form L v meanwhile.
 //
 // The model is not baked into the code: every table arrives as device
 // memory (itab: int32, ftab: T) described by the Dims offsets, which the
-// Python wrapper (physics/substep.py) builds once per model.  No
-// --use_fast_math: the 58-dof system is stiff.
+// Python wrapper builds once per model.  No --use_fast_math: the 58-dof
+// system is stiff.  Built with -DEGOPOSE_STAGE_CLOCKS, thread 0 of every
+// block sums the clock64() cycles of each stage (a barrier closes each)
+// into clocks[env * N_STAGES + stage]; the main path's library has no
+// clock code.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <string.h>
 
 #define NT 128
 
+enum Stage {
+  ST_LOAD, ST_FK, ST_DYNAMICS, ST_NARROW, ST_SELECT, ST_FACTOR, ST_INVERSE,
+  ST_Y, ST_DELASSUS, ST_PD, ST_TORQUE, ST_DYN_SOLVE, ST_RESIDUAL, ST_SWEEP,
+  ST_VELOCITY, ST_INTEGRATE, ST_STORE, N_STAGES
+};
+#ifdef EGOPOSE_STAGE_CLOCKS
+#define STAMP(st)                                    \
+  do {                                               \
+    __syncthreads();                                 \
+    if (tid == 0) {                                  \
+      const long long now_ = clock64();              \
+      clk[st] += now_ - clk_last;                    \
+      clk_last = now_;                               \
+    }                                                \
+  } while (0)
+#else
+#define STAMP(st) \
+  do {            \
+  } while (0)
+#endif
+
+// Field order: physics/substep.py::DIM_FIELDS.
 struct Dims {
   int nb, nd, nq, nu, ncp, npair, nbpair, k, kp, c3, nnz, nlevel;
   int n_frames, prep_refresh, iters;
@@ -51,52 +96,34 @@ struct Dims {
   int i_path_off, i_path_idx, i_vp_off, i_vp_idx, i_desc_off, i_desc_idx;
   int i_anc_off, i_anc_idx, i_ent_row, i_banc, i_cp_body;
   int i_p_b1, i_p_b2, i_bp_seg, i_bp_box;
+  int i_height, i_fac_a, i_fac_b, i_fac_row, i_col_off, i_col_slot;
+  int i_col_row, i_anc_base, n_fac;
   int f_body_pos, f_body_ipos, f_mass, f_inertia, f_axis, f_anchor;
   int f_armature, f_damping, f_stiffness, f_lo, f_hi, f_limited, f_gear;
   int f_gravity, f_cp_local, f_cp_radius, f_cp_mu;
   int f_p_a1, f_p_b1, f_p_a2, f_p_b2, f_p_rsum, f_p_rdiff;
   int f_bp_a, f_bp_b, f_bp_rseg, f_bp_pos, f_bp_quat, f_bp_half, f_scal;
+  int l_q, l_v, l_mpd, l_mdyn, l_ipd, l_idyn, l_bias, l_lidyn, l_y, l_tgt,
+      l_mu;
+  int l_xpos, l_xquat, l_s, l_pall, l_phiall, l_pphi, l_pn, l_pp, l_selphi;
+  int l_com, l_ic, l_io, l_smom, l_sio, l_smass, l_sq, l_cj, l_fcrb, l_fb;
+  int l_dpd, l_ddyn, l_lipd, l_abase, l_jt, l_g, l_gid, l_rhs, l_z, l_u;
+  int l_w, l_lam;
+  int l_sel, l_act, l_nact, l_amask, l_total, l_ints;
 };
 
-// Offsets (in elements of T) of every shared-memory array of one block.
-struct Layout {
-  int q, v, ctrl, kp, kd, tlim;
-  int xpos, xquat, com, ic, io, smom, sio, smass, s, fcrb;
-  int mpd, mdyn, dpd, ddyn, ipd, idyn, bias;
-  int sq, cj, fb;
-  int pall, phiall, pphi, pn, pp;
-  int jf, y, g, gid, tgt, bh, mu, selphi;
-  int qfb, e, rhs, x0, u, vn, lam;
-  int total;  // T elements; the (k + kp) selected indices (int) follow
-};
-
-__host__ __device__ inline Layout make_layout(const Dims& d) {
-  Layout L;
-  int o = 0;
-  auto take = [&o](int n) { int r = o; o += n; return r; };
-  const int pp = d.npair + d.nbpair;
-  L.q = take(d.nq); L.v = take(d.nd); L.ctrl = take(d.nu);
-  L.kp = take(d.nd); L.kd = take(d.nd); L.tlim = take(d.nu);
-  L.xpos = take(3 * d.nb); L.xquat = take(4 * d.nb); L.com = take(3 * d.nb);
-  L.ic = take(6 * d.nb); L.io = take(6 * d.nb);
-  L.smom = take(3 * d.nb); L.sio = take(6 * d.nb); L.smass = take(d.nb);
-  L.s = take(6 * d.nd); L.fcrb = take(6 * d.nd);
-  L.mpd = take(d.nnz); L.mdyn = take(d.nnz);
-  L.dpd = take(d.nd); L.ddyn = take(d.nd); L.ipd = take(d.nd);
-  L.idyn = take(d.nd); L.bias = take(d.nd);
-  L.sq = take(6 * d.nd); L.cj = take(6 * d.nd);
-  L.fb = take(6 * d.nb);
-  L.pall = take(3 * d.ncp); L.phiall = take(d.ncp);
-  L.pphi = take(pp); L.pn = take(3 * pp); L.pp = take(3 * pp);
-  L.jf = take(d.c3 * d.nd); L.y = take(d.nd * d.c3); L.g = take(d.c3 * d.c3);
-  L.gid = take(d.c3); L.tgt = take(d.c3); L.bh = take(d.c3); L.mu = take(d.k);
-  L.selphi = take(d.k + d.kp);
-  L.qfb = take(d.nd); L.e = take(d.nd); L.rhs = take(d.nd);
-  L.x0 = take(d.nd); L.u = take(d.nd); L.vn = take(d.nd);
-  L.lam = take(d.c3);
-  L.total = o;
-  return L;
+// Bytes of one block's dynamic shared memory: l_total values of T, then
+// l_ints ints.
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(const Dims& d) {
+  return (size_t)d.l_total * sizeof(T) + (size_t)d.l_ints * sizeof(int);
 }
+
+// Factor item flags of substep.py (FA_*).
+#define FA_FIRST (1 << 13)
+#define FA_LAST (1 << 14)
+#define FA_FINAL (1 << 15)
+#define FA_SCALE (1 << 23)
 
 // ---------------------------------------------------------------------------
 // math for float and double (explicit, so the float build never promotes)
@@ -215,28 +242,87 @@ __device__ void warp_topk(T* val, int n, int kk, int* out_idx, T* out_val,
   }
 }
 
-// Solve (L^T D L) x = b in place by one warp (ldl_pallas.ldl_solve): the
-// leaves-first L^-T sweep, the diagonal scale, then the ancestor
-// substitution.  ``rows`` holds L in compressed ancestor-slot rows.
+// ---------------------------------------------------------------------------
+// the tree LDL^T by levels (physics/substep.py builds the item tables) and
+// the products with L^-1
+// ---------------------------------------------------------------------------
+
+// sum_{s < m} li[e0 + s] * b[idx[e0 + s]]: row k of L^-1 (e0 = anc_off[k],
+// idx = anc_idx) against b, or with col_slot/col_row a column of L^-1; four
+// partial sums so the loads of four terms overlap.
 template <typename T>
-__device__ void warp_ldl_solve(const T* rows, const T* invd, T* x,
-                               const int* anc_off, const int* anc_idx, int nd,
-                               int lane) {
-  for (int k = nd - 1; k >= 0; --k) {
-    const int base = anc_off[k], dk = anc_off[k + 1] - base;
-    const T xk = x[k];
-    for (int s = lane; s < dk; s += 32) x[anc_idx[base + s]] -= rows[base + s] * xk;
-    __syncwarp();
+__device__ inline T gather_dot(const T* li, const T* b,
+                               const int* __restrict__ slot,
+                               const int* __restrict__ idx, int e0, int m) {
+  T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
+  int i = e0;
+  const int end = e0 + m;
+  for (; i + 4 <= end; i += 4) {
+    p0 += li[slot ? __ldg(slot + i) : i] * b[__ldg(idx + i)];
+    p1 += li[slot ? __ldg(slot + i + 1) : i + 1] * b[__ldg(idx + i + 1)];
+    p2 += li[slot ? __ldg(slot + i + 2) : i + 2] * b[__ldg(idx + i + 2)];
+    p3 += li[slot ? __ldg(slot + i + 3) : i + 3] * b[__ldg(idx + i + 3)];
   }
-  for (int k = lane; k < nd; k += 32) x[k] *= invd[k];
-  __syncwarp();
-  for (int k = 0; k < nd; ++k) {
-    const int base = anc_off[k], dk = anc_off[k + 1] - base;
-    T acc = T(0);
-    for (int s = lane; s < dk; s += 32) acc += rows[base + s] * x[anc_idx[base + s]];
-    acc = warp_sum(acc);
-    if (lane == 0) x[k] -= acc;
-    __syncwarp();
+  for (; i < end; ++i) p0 += li[slot ? __ldg(slot + i) : i] * b[__ldg(idx + i)];
+  return (p0 + p1) + (p2 + p3);
+}
+
+// The whole block: both systems' tree LDL^T in place (ldl_pallas.ldl_factor
+// by elimination-tree levels).  mpd/mdyn hold the compressed rows, dpd/ddyn
+// the diagonals; ipd/idyn hold 1/D of the leaves on entry and of every dof
+// on return.  Pass p updates every entry of the rows above the dofs of
+// height p, each entry gathering over those dofs (target -= (rows[e1] *
+// invd[k]) * rows[e2]), stores 1/D of the dofs whose diagonal got its last
+// update, and scales the rows of height p-1 to L's rows; one barrier per
+// pass.  Each thread's items stream through a queue loaded three rows
+// ahead, across pass boundaries.
+template <typename T>
+__device__ void block_factor(T* mpd, T* mdyn, T* dpd, T* ddyn, T* ipd,
+                             T* idyn, const int* __restrict__ ta,
+                             const int* __restrict__ tb,
+                             const int* __restrict__ row_off, int npass,
+                             int nnz, int tid) {
+  const int nrow = __ldg(row_off + npass);
+  int qa[3], qb[3];
+#pragma unroll
+  for (int u = 0; u < 3; ++u) {
+    qa[u] = u < nrow ? __ldg(ta + (size_t)u * NT + tid) : -1;
+    qb[u] = u < nrow ? __ldg(tb + (size_t)u * NT + tid) : 0;
+  }
+  int r = 0, r1n = __ldg(row_off + 1);
+  for (int p = 0; p < npass; ++p) {
+    const int r1 = r1n;
+    if (p + 1 < npass) r1n = __ldg(row_off + p + 2);
+    T acc0 = T(0), acc1 = T(0);
+    for (; r < r1; ++r) {
+      const int a = qa[0], b = qb[0];
+      qa[0] = qa[1]; qb[0] = qb[1];
+      qa[1] = qa[2]; qb[1] = qb[2];
+      qa[2] = r + 3 < nrow ? __ldg(ta + (size_t)(r + 3) * NT + tid) : -1;
+      qb[2] = r + 3 < nrow ? __ldg(tb + (size_t)(r + 3) * NT + tid) : 0;
+      if (a < 0) continue;
+      const int tgt = a & 0x1fff, kk = (a >> 16) & 0x7f;
+      if (a & FA_SCALE) {
+        mpd[tgt] *= ipd[kk];
+        mdyn[tgt] *= idyn[kk];
+        continue;
+      }
+      const int e1 = b & 0xffff, e2 = b >> 16;
+      T* p0 = tgt < nnz ? mpd + tgt : dpd + (tgt - nnz);
+      T* p1 = tgt < nnz ? mdyn + tgt : ddyn + (tgt - nnz);
+      if (a & FA_FIRST) { acc0 = *p0; acc1 = *p1; }
+      acc0 -= (mpd[e1] * ipd[kk]) * mpd[e2];
+      acc1 -= (mdyn[e1] * idyn[kk]) * mdyn[e2];
+      if (a & FA_LAST) {
+        *p0 = acc0;
+        *p1 = acc1;
+        if (a & FA_FINAL) {
+          ipd[tgt - nnz] = T(1) / xmax(acc0, T(1e-12));
+          idyn[tgt - nnz] = T(1) / xmax(acc1, T(1e-12));
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -244,23 +330,52 @@ __device__ void warp_ldl_solve(const T* rows, const T* invd, T* x,
 // the kernel
 // ---------------------------------------------------------------------------
 
+// Offsets of the block's shared arrays (elements of T; ints after l_total).
+struct Layout {
+  int q, v, mpd, mdyn, ipd, idyn, bias, lidyn, y, tgt, mu;
+  int xpos, xquat, s, pall, phiall, pphi, pn, pp, selphi;
+  int com, ic, io, smom, sio, smass, sq, cj, fcrb, fb;
+  int dpd, ddyn, lipd, abase, jt, g, gid, rhs, z, u, w, lam;
+};
+
+__device__ inline Layout layout_of(const Dims& d) {
+  Layout L;
+  L.q = d.l_q; L.v = d.l_v; L.mpd = d.l_mpd; L.mdyn = d.l_mdyn;
+  L.ipd = d.l_ipd; L.idyn = d.l_idyn; L.bias = d.l_bias;
+  L.lidyn = d.l_lidyn; L.lipd = d.l_lipd; L.abase = d.l_abase; L.jt = d.l_jt;
+  L.y = d.l_y;
+  L.tgt = d.l_tgt; L.mu = d.l_mu; L.xpos = d.l_xpos; L.xquat = d.l_xquat;
+  L.s = d.l_s; L.pall = d.l_pall; L.phiall = d.l_phiall; L.pphi = d.l_pphi;
+  L.pn = d.l_pn; L.pp = d.l_pp; L.selphi = d.l_selphi; L.com = d.l_com;
+  L.ic = d.l_ic; L.io = d.l_io; L.smom = d.l_smom; L.sio = d.l_sio;
+  L.smass = d.l_smass; L.sq = d.l_sq; L.cj = d.l_cj; L.fcrb = d.l_fcrb;
+  L.fb = d.l_fb; L.dpd = d.l_dpd; L.ddyn = d.l_ddyn; L.g = d.l_g;
+  L.gid = d.l_gid; L.rhs = d.l_rhs; L.z = d.l_z; L.u = d.l_u; L.w = d.l_w;
+  L.lam = d.l_lam;
+  return L;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(NT)
-substep_kernel(const Dims d, const int* __restrict__ itab,
-               const T* __restrict__ ftab, const T* __restrict__ qpos,
-               const T* __restrict__ qvel, const T* __restrict__ ctrl,
-               const T* __restrict__ jkp, const T* __restrict__ jkd,
-               const T* __restrict__ tlim, T* __restrict__ qpos_out,
-               T* __restrict__ qvel_out) {
+__device__ __forceinline__ void substep_body(
+    const Dims& d, const int* __restrict__ itab, const T* __restrict__ ftab,
+    const T* __restrict__ qpos, const T* __restrict__ qvel,
+    const T* __restrict__ ctrl, const T* __restrict__ jkp,
+    const T* __restrict__ jkd, const T* __restrict__ tlim,
+    T* __restrict__ qpos_out, T* __restrict__ qvel_out,
+    long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const Layout L = make_layout(d);
-  int* sel = reinterpret_cast<int*>(sm + L.total);  // k floor, kp pair idx
+  const Layout L = layout_of(d);
+  int* ism = reinterpret_cast<int*>(sm + d.l_total);
+  int* sel = ism + d.l_sel;              // k floor, kp pair candidates
+  int* act = ism + d.l_act;              // active contact rows, ascending
+  int* nact_s = ism + d.l_nact;
+  int* amask_s = ism + d.l_amask;
 
   const int env = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int nb = d.nb, nd = d.nd, nq = d.nq, nu = d.nu, k = d.k, kp = d.kp;
-  const int c3 = d.c3, pp = d.npair + d.nbpair;
+  const int c3 = d.c3, pp = d.npair + d.nbpair, nnz = d.nnz;
 
   const int* parent = itab + d.i_parent;
   const int* dof_body = itab + d.i_dof_body;
@@ -288,29 +403,48 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
   const T klim = scal[4], blim = scal[5], relax = scal[6];
 
   T* q = sm + L.q;     T* v = sm + L.v;
-  T* kpf = sm + L.kp;  T* kdf = sm + L.kd;
   T* xpos = sm + L.xpos; T* xquat = sm + L.xquat; T* com = sm + L.com;
   T* ic = sm + L.ic; T* io = sm + L.io;
   T* s = sm + L.s;     T* fcrb = sm + L.fcrb;
   T* mpd = sm + L.mpd; T* mdyn = sm + L.mdyn;
   T* dpd = sm + L.dpd; T* ddyn = sm + L.ddyn;
   T* ipd = sm + L.ipd; T* idyn = sm + L.idyn; T* bias = sm + L.bias;
-  T* jf = sm + L.jf;   T* Y = sm + L.y;       T* G = sm + L.g;
+  T* Y = sm + L.y;     T* G = sm + L.g;
   T* gid = sm + L.gid; T* tgt = sm + L.tgt;   T* mu = sm + L.mu;
+  T* rhs = sm + L.rhs; T* z = sm + L.z; T* u = sm + L.u; T* w = sm + L.w;
+  T* lipd = sm + L.lipd; T* lidyn = sm + L.lidyn;
+  const int* col_off = itab + d.i_col_off;
+  const int* col_slot = itab + d.i_col_slot;
+  const int* col_row = itab + d.i_col_row;
   T* lam = sm + L.lam;
 
-  // ---- load the lane's state, controls and gains -------------------------
+#ifdef EGOPOSE_STAGE_CLOCKS
+  long long clk[N_STAGES] = {};
+  long long clk_last = clock64();
+#endif
+  // ---- the lane's state; thread dd keeps dof dd's floats in registers --
   for (int i = tid; i < nq; i += NT) q[i] = qpos[(size_t)env * nq + i];
-  for (int i = tid; i < nd; i += NT) {
-    v[i] = qvel[(size_t)env * nd + i];
-    kpf[i] = i < 6 ? T(0) : jkp[(size_t)env * nu + i - 6];
-    kdf[i] = i < 6 ? T(0) : jkd[(size_t)env * nu + i - 6];
+  const bool owner = tid < nd, hinge = owner && tid >= 6;
+  const int jh = tid - 6;                 // actuator / joint of a hinge dof
+  T kp_r = T(0), kd_r = T(0), ctrl_r = T(0), tlim_r = T(0), gear_r = T(0);
+  T lo_r = T(0), hi_r = T(0), lim_r = T(0), damp_r = T(0), stiff_r = T(0);
+  if (owner) {
+    v[tid] = qvel[(size_t)env * nd + tid];
+    damp_r = ftab[d.f_damping + tid];
+    stiff_r = ftab[d.f_stiffness + tid];
   }
-  for (int i = tid; i < nu; i += NT) {
-    sm[L.ctrl + i] = ctrl[(size_t)env * nu + i];
-    sm[L.tlim + i] = tlim[(size_t)env * nu + i];
+  if (hinge) {
+    kp_r = jkp[(size_t)env * nu + jh];
+    kd_r = jkd[(size_t)env * nu + jh];
+    ctrl_r = ctrl[(size_t)env * nu + jh];
+    tlim_r = tlim[(size_t)env * nu + jh];
+    gear_r = ftab[d.f_gear + jh];
+    lo_r = ftab[d.f_lo + jh];
+    hi_r = ftab[d.f_hi + jh];
+    lim_r = ftab[d.f_limited + jh];
   }
   __syncthreads();
+  STAMP(ST_LOAD);
 
   const int R = d.prep_refresh;
   const int n_groups = d.n_frames / R, rem = d.n_frames % R;
@@ -374,105 +508,8 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
       }
       __syncthreads();
     }
-    // ---- body coms and world inertias (engine.crba) ---------------------
-    for (int b = tid; b < nb; b += NT) {
-      const T* xq = xquat + 4 * b;
-      T tmp[3];
-      qrot(xq, ftab + d.f_body_ipos + 3 * b, tmp);
-      T* c = com + 3 * b;
-      for (int j = 0; j < 3; ++j) c[j] = xpos[3 * b + j] + tmp[j];
-      const T w = xq[0], x = xq[1], y = xq[2], z = xq[3];
-      T Rm[9] = {1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
-                 2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
-                 2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)};
-      const T* I = ftab + d.f_inertia + 9 * b;
-      T RI[9];  // R @ I
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-          RI[3 * i + j] = Rm[3 * i] * I[j] + Rm[3 * i + 1] * I[3 + j] + Rm[3 * i + 2] * I[6 + j];
-      const T m = ftab[d.f_mass + b];
-      const T c2 = c[0] * c[0] + c[1] * c[1] + c[2] * c[2];
-      for (int i = 0; i < 3; ++i)
-        for (int l = i; l < 3; ++l) {
-          const T v_ic = RI[3 * i] * Rm[3 * l] + RI[3 * i + 1] * Rm[3 * l + 1] + RI[3 * i + 2] * Rm[3 * l + 2];
-          ic[6 * b + sym(i, l)] = v_ic;
-          io[6 * b + sym(i, l)] = v_ic + m * ((i == l ? c2 : T(0)) - c[i] * c[l]);
-        }
-    }
-    for (int dd = tid; dd < nd; dd += NT)            // s q-dot rows (RNEA)
-      for (int j = 0; j < 6; ++j) sm[L.sq + 6 * dd + j] = s[6 * dd + j] * v[dd];
-    __syncthreads();
+    STAMP(ST_FK);
 
-    // ---- subtree sums (CRBA composites) and S-dot q-dot (RNEA) ---------
-    for (int b = tid; b < nb; b += NT) {
-      T ms = T(0), mom[3] = {T(0), T(0), T(0)}, cio[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-      for (int i = desc_off[b]; i < desc_off[b + 1]; ++i) {
-        const int c = desc_idx[i];
-        const T m = ftab[d.f_mass + c];
-        ms += m;
-        for (int j = 0; j < 3; ++j) mom[j] += m * com[3 * c + j];
-        for (int j = 0; j < 6; ++j) cio[j] += io[6 * c + j];
-      }
-      sm[L.smass + b] = ms;
-      for (int j = 0; j < 3; ++j) sm[L.smom + 3 * b + j] = mom[j];
-      for (int j = 0; j < 6; ++j) sm[L.sio + 6 * b + j] = cio[j];
-    }
-    for (int dd = tid; dd < nd; dd += NT) {
-      T vf[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-      for (int i = vp_off[dd]; i < vp_off[dd + 1]; ++i)
-        for (int j = 0; j < 6; ++j) vf[j] += sm[L.sq + 6 * vp_idx[i] + j];
-      const T* b = sm + L.sq + 6 * dd;
-      T t1[3], t2[3], t3[3];
-      cross3(vf, b, t1);                 // wa x wb
-      cross3(vf, b + 3, t2);             // wa x vb
-      cross3(vf + 3, b, t3);             // va x wb
-      T* o = sm + L.cj + 6 * dd;
-      for (int j = 0; j < 3; ++j) { o[j] = t1[j]; o[3 + j] = t2[j] + t3[j]; }
-    }
-    __syncthreads();
-
-    // ---- composite force rows (CRBA) and body forces (RNEA) ------------
-    for (int dd = tid; dd < nd; dd += NT) {
-      const int b = dof_body[dd];
-      const T* w = s + 6 * dd;
-      const T* vo = w + 3;
-      const T cm = sm[L.smass + b];
-      const T* cmom = sm + L.smom + 3 * b;
-      const T* cio = sm + L.sio + 6 * b;
-      T t[3], n[3], t2[3];
-      cross3(w, cmom, t);
-      T* f = fcrb + 6 * dd;
-      for (int j = 0; j < 3; ++j) f[3 + j] = cm * vo[j] + t[j];
-      sym_mv(cio, w, n);
-      cross3(cmom, vo, t2);
-      for (int j = 0; j < 3; ++j) f[j] = n[j] + t2[j];
-    }
-    for (int b = tid; b < nb; b += NT) {
-      const T* grav = ftab + d.f_gravity;
-      T vb[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-      T ab[6] = {T(0), T(0), T(0), -grav[0], -grav[1], -grav[2]};
-      T sum_cj[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-      for (int i = path_off[b]; i < path_off[b + 1]; ++i) {
-        const int e = path_idx[i];
-        for (int j = 0; j < 6; ++j) {
-          vb[j] += sm[L.sq + 6 * e + j];
-          sum_cj[j] += sm[L.cj + 6 * e + j];
-        }
-      }
-      for (int j = 0; j < 6; ++j) ab[j] += sum_cj[j];
-      const T m = ftab[d.f_mass + b];
-      T iv[6], ia[6], t1[3], t2[3], t3[3];
-      apply_inertia(m, com + 3 * b, ic + 6 * b, vb, iv);
-      apply_inertia(m, com + 3 * b, ic + 6 * b, ab, ia);
-      cross3(vb, iv, t1);                // w x n
-      cross3(vb + 3, iv + 3, t2);        // vl x fl
-      cross3(vb, iv + 3, t3);            // w x fl
-      T* f = sm + L.fb + 6 * b;
-      for (int j = 0; j < 3; ++j) {
-        f[j] = ia[j] + (t1[j] + t2[j]);
-        f[3 + j] = ia[3 + j] + t3[j];
-      }
-    }
     // ---- floor candidates --------------------------------------------
     for (int i = tid; i < d.ncp; i += NT) {
       const int b = cp_body[i];
@@ -604,29 +641,27 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
       }
     }
     __syncthreads();
+    STAMP(ST_NARROW);
 
-    // ---- compressed mass matrix, bias, top-K selections ----------------
-    for (int e = tid; e < d.nnz; e += NT) {
-      const T val = dot6(fcrb + 6 * ent_row[e], s + 6 * anc_idx[e]);
-      mpd[e] = val;
-      mdyn[e] = val;
-    }
-    for (int dd = tid; dd < nd; dd += NT) {
-      const T dg = dot6(fcrb + 6 * dd, s + 6 * dd) + ftab[d.f_armature + dd];
-      dpd[dd] = dg + dt * kdf[dd];
-      ddyn[dd] = dg + dt * ftab[d.f_damping + dd];
-      T ft[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-      const int b = dof_body[dd];
-      for (int i = desc_off[b]; i < desc_off[b + 1]; ++i)
-        for (int j = 0; j < 6; ++j) ft[j] += sm[L.fb + 6 * desc_idx[i] + j];
-      bias[dd] = dot6(s + 6 * dd, ft);
-    }
+    // ---- top-K selections (engine.top_k_desc), the active contact rows --
     if (warp == 0) warp_topk(sm + L.phiall, d.ncp, k, sel, sm + L.selphi, lane);
     if (warp == 1 && kp > 0)
       warp_topk(sm + L.pphi, pp, kp, sel + k, sm + L.selphi + k, lane);
     __syncthreads();
-
-    // ---- contact Jacobian rows, targets, friction (engine.contact_blocks)
+    if (tid == 0) {        // rows in block order: tangents, normals, pairs
+      int n = 0;
+      unsigned mask = 0u;
+      for (int r = 0; r < c3; ++r) {
+        const T ph = sm[L.selphi + (r < 3 * k ? r % k : r - 2 * k)];
+        if (ph > -margin) {
+          act[n++] = r;
+          mask |= 1u << r;
+        }
+      }
+      *nact_s = n;
+      *amask_s = (int)mask;
+    }
+    // ---- contact Jacobian rows as Y = J^T (engine.contact_blocks) -------
     for (int idx = tid; idx < c3 * nd; idx += NT) {
       const int r = idx / nd, dd = idx % nd;
       const int bd = dof_body[dd];
@@ -637,9 +672,9 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
         const T* p = sm + L.pall + 3 * pt;
         T cr[3];
         cross3(sd, p, cr);
-        const T act = sm[L.selphi + kk] > -margin ? T(1) : T(0);
+        const T on = sm[L.selphi + kk] > -margin ? T(1) : T(0);
         const T msk = banc[cp_body[pt] * nb + bd] ? T(1) : T(0);
-        val = (sd[3 + comp] + cr[comp]) * (act * msk);
+        val = (sd[3 + comp] + cr[comp]) * (on * msk);
       } else {
         const int j = r - 3 * k, pi = sel[k + j];
         const T* n = sm + L.pn + 3 * pi;
@@ -650,68 +685,218 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
         if (pi < d.npair) { b1 = p_b1[pi]; b2 = p_b2[pi]; }
         else { b1 = bp_seg[pi - d.npair]; b2 = bp_box[pi - d.npair]; }
         const T sgn = T(banc[b1 * nb + bd] - banc[b2 * nb + bd]);
-        const T act = sm[L.selphi + k + j] > -margin ? T(1) : T(0);
+        const T on = sm[L.selphi + k + j] > -margin ? T(1) : T(0);
         const T row = (sd[3] * n[0] + sd[4] * n[1] + sd[5] * n[2])
                       + (sd[0] * pxn[0] + sd[1] * pxn[1] + sd[2] * pxn[2]);
-        val = row * (act * sgn);
+        val = row * (on * sgn);
       }
-      jf[r * nd + dd] = val;
-      Y[dd * c3 + r] = val;              // L^-T sweep input (J^T)
+      Y[dd * c3 + r] = val;
     }
     for (int r = tid; r < c3; r += NT) {
       T tg = T(0);
       if (r >= 2 * k) {
         const T ph = sm[L.selphi + r - 2 * k];   // floor normals, then pairs
-        const T act = ph > -margin ? T(1) : T(0);
-        tg = xmin(beta * xmax(ph - slop, T(0)) / dt, T(1)) * act;
+        const T on = ph > -margin ? T(1) : T(0);
+        tg = xmin(beta * xmax(ph - slop, T(0)) / dt, T(1)) * on;
       }
       tgt[r] = tg;
       if (r < k) mu[r] = ftab[d.f_cp_mu + sel[r]];
     }
     __syncthreads();
+    STAMP(ST_SELECT);
+    const int nact = *nact_s;
+    const unsigned amask = (unsigned)*amask_s;
 
-    // ---- sparse tree LDL^T of both systems (ldl_pallas.ldl_factor) -----
-    for (int kk = nd - 1; kk >= 0; --kk) {
-      const int base = anc_off[kk], dk = anc_off[kk + 1] - base;
-      for (int idx = tid; idx < 2 * dk; idx += NT) {
-        const bool dyn = idx >= dk;
-        const int sl = dyn ? idx - dk : idx;
-        T* M = dyn ? mdyn : mpd;
-        T* D = dyn ? ddyn : dpd;
-        const T inv = T(1) / xmax(D[kk], T(1e-12));
-        const T row_s = M[base + sl];
-        const T tmp_s = row_s * inv;
-        const int j = anc_idx[base + sl];
-        D[j] -= tmp_s * row_s;
-        const int jb = anc_off[j];       // anc[j] == anc[kk][:sl]
-        for (int t = 0; t < sl; ++t) M[jb + t] -= tmp_s * M[base + t];
+    // ---- body coms and world inertias (engine.crba) ---------------------
+    for (int b = tid; b < nb; b += NT) {
+      const T* xq = xquat + 4 * b;
+      T tmp[3];
+      qrot(xq, ftab + d.f_body_ipos + 3 * b, tmp);
+      T* c = com + 3 * b;
+      for (int j = 0; j < 3; ++j) c[j] = xpos[3 * b + j] + tmp[j];
+      const T w = xq[0], x = xq[1], y = xq[2], z = xq[3];
+      T Rm[9] = {1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                 2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                 2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)};
+      const T* I = ftab + d.f_inertia + 9 * b;
+      T RI[9];  // R @ I
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+          RI[3 * i + j] = Rm[3 * i] * I[j] + Rm[3 * i + 1] * I[3 + j] + Rm[3 * i + 2] * I[6 + j];
+      const T m = ftab[d.f_mass + b];
+      const T c2 = c[0] * c[0] + c[1] * c[1] + c[2] * c[2];
+      for (int i = 0; i < 3; ++i)
+        for (int l = i; l < 3; ++l) {
+          const T v_ic = RI[3 * i] * Rm[3 * l] + RI[3 * i + 1] * Rm[3 * l + 1] + RI[3 * i + 2] * Rm[3 * l + 2];
+          ic[6 * b + sym(i, l)] = v_ic;
+          io[6 * b + sym(i, l)] = v_ic + m * ((i == l ? c2 : T(0)) - c[i] * c[l]);
+        }
+    }
+    for (int dd = tid; dd < nd; dd += NT)            // s q-dot rows (RNEA)
+      for (int j = 0; j < 6; ++j) sm[L.sq + 6 * dd + j] = s[6 * dd + j] * v[dd];
+    __syncthreads();
+
+    // ---- subtree sums (CRBA composites) and S-dot q-dot (RNEA) ---------
+    for (int b = tid; b < nb; b += NT) {
+      T ms = T(0), mom[3] = {T(0), T(0), T(0)}, cio[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      for (int i = desc_off[b]; i < desc_off[b + 1]; ++i) {
+        const int c = desc_idx[i];
+        const T m = ftab[d.f_mass + c];
+        ms += m;
+        for (int j = 0; j < 3; ++j) mom[j] += m * com[3 * c + j];
+        for (int j = 0; j < 6; ++j) cio[j] += io[6 * c + j];
       }
-      __syncthreads();
-      // scale row kk to L's row; iteration kk-1 touches rows < kk only
-      for (int idx = tid; idx < 2 * dk + 2; idx += NT) {
-        const bool dyn = idx >= dk + 1;
-        const int sl = dyn ? idx - dk - 1 : idx;
-        const T inv = T(1) / xmax(dyn ? ddyn[kk] : dpd[kk], T(1e-12));
-        if (sl == dk) (dyn ? idyn : ipd)[kk] = inv;
-        else (dyn ? mdyn : mpd)[base + sl] *= inv;
+      sm[L.smass + b] = ms;
+      for (int j = 0; j < 3; ++j) sm[L.smom + 3 * b + j] = mom[j];
+      for (int j = 0; j < 6; ++j) sm[L.sio + 6 * b + j] = cio[j];
+    }
+    for (int dd = tid; dd < nd; dd += NT) {
+      T vf[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      for (int i = vp_off[dd]; i < vp_off[dd + 1]; ++i)
+        for (int j = 0; j < 6; ++j) vf[j] += sm[L.sq + 6 * vp_idx[i] + j];
+      const T* b = sm + L.sq + 6 * dd;
+      T t1[3], t2[3], t3[3];
+      cross3(vf, b, t1);                 // wa x wb
+      cross3(vf, b + 3, t2);             // wa x vb
+      cross3(vf + 3, b, t3);             // va x wb
+      T* o = sm + L.cj + 6 * dd;
+      for (int j = 0; j < 3; ++j) { o[j] = t1[j]; o[3 + j] = t2[j] + t3[j]; }
+    }
+    __syncthreads();
+
+    // ---- composite force rows (CRBA) and body forces (RNEA) ------------
+    for (int dd = tid; dd < nd; dd += NT) {
+      const int b = dof_body[dd];
+      const T* w = s + 6 * dd;
+      const T* vo = w + 3;
+      const T cm = sm[L.smass + b];
+      const T* cmom = sm + L.smom + 3 * b;
+      const T* cio = sm + L.sio + 6 * b;
+      T t[3], n[3], t2[3];
+      cross3(w, cmom, t);
+      T* f = fcrb + 6 * dd;
+      for (int j = 0; j < 3; ++j) f[3 + j] = cm * vo[j] + t[j];
+      sym_mv(cio, w, n);
+      cross3(cmom, vo, t2);
+      for (int j = 0; j < 3; ++j) f[j] = n[j] + t2[j];
+    }
+    for (int b = tid; b < nb; b += NT) {
+      const T* grav = ftab + d.f_gravity;
+      T vb[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      T ab[6] = {T(0), T(0), T(0), -grav[0], -grav[1], -grav[2]};
+      T sum_cj[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      for (int i = path_off[b]; i < path_off[b + 1]; ++i) {
+        const int e = path_idx[i];
+        for (int j = 0; j < 6; ++j) {
+          vb[j] += sm[L.sq + 6 * e + j];
+          sum_cj[j] += sm[L.cj + 6 * e + j];
+        }
+      }
+      for (int j = 0; j < 6; ++j) ab[j] += sum_cj[j];
+      const T m = ftab[d.f_mass + b];
+      T iv[6], ia[6], t1[3], t2[3], t3[3];
+      apply_inertia(m, com + 3 * b, ic + 6 * b, vb, iv);
+      apply_inertia(m, com + 3 * b, ic + 6 * b, ab, ia);
+      cross3(vb, iv, t1);                // w x n
+      cross3(vb + 3, iv + 3, t2);        // vl x fl
+      cross3(vb, iv + 3, t3);            // w x fl
+      T* f = sm + L.fb + 6 * b;
+      for (int j = 0; j < 3; ++j) {
+        f[j] = ia[j] + (t1[j] + t2[j]);
+        f[3 + j] = ia[3 + j] + t3[j];
       }
     }
     __syncthreads();
 
-    // ---- Y = L^-T J^T (one thread per contact column) ------------------
-    for (int c = tid; c < c3; c += NT) {
-      for (int kk = nd - 1; kk >= 0; --kk) {
-        const T yk = Y[kk * c3 + c];
-        if (yk == T(0)) continue;
-        for (int i = anc_off[kk]; i < anc_off[kk + 1]; ++i)
-          Y[anc_idx[i] * c3 + c] -= mdyn[i] * yk;
+    // ---- compressed mass matrix, diagonals, bias (engine.crba, bias) ----
+    for (int e = tid; e < nnz; e += NT) {
+      const T val = dot6(fcrb + 6 * ent_row[e], s + 6 * anc_idx[e]);
+      mpd[e] = val;
+      mdyn[e] = val;
+    }
+    if (owner) {
+      const int dd = tid;
+      const T dg = dot6(fcrb + 6 * dd, s + 6 * dd) + ftab[d.f_armature + dd];
+      dpd[dd] = dg + dt * kd_r;
+      ddyn[dd] = dg + dt * damp_r;
+      if (itab[d.i_height + dd] == 0) {        // leaves: D is final
+        ipd[dd] = T(1) / xmax(dpd[dd], T(1e-12));
+        idyn[dd] = T(1) / xmax(ddyn[dd], T(1e-12));
+      }
+      T ft[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      const int b = dof_body[dd];
+      for (int i = desc_off[b]; i < desc_off[b + 1]; ++i)
+        for (int j = 0; j < 6; ++j) ft[j] += sm[L.fb + 6 * desc_idx[i] + j];
+      bias[dd] = dot6(s + 6 * dd, ft);
+    }
+    __syncthreads();
+    STAMP(ST_DYNAMICS);
+
+    // ---- tree LDL^T of both systems, by levels -------------------------
+    block_factor(mpd, mdyn, dpd, ddyn, ipd, idyn, itab + d.i_fac_a,
+                 itab + d.i_fac_b, itab + d.i_fac_row, d.n_fac, nnz, tid);
+    STAMP(ST_FACTOR);
+
+    // ---- L^-1 of both factors in L's slots, one row per thread, from
+    // L^-1 L = I: Linv[k][s] = -(L[k][s] + sum_{s<t<depth k} Linv[k][t]
+    // L[anc[k][t]][s]) for s = depth k - 1 down to 0 (slot s of row
+    // anc[k][t] is ancestor anc[k][s]: the lists nest).  A row needs only
+    // itself and L, so all rows run at once.  abase[e] = anc_off[anc_idx[e]]
+    // is staged in shared memory (ints in a prep-only span).
+    int* abase = reinterpret_cast<int*>(sm + L.abase);
+    for (int e = tid; e < nnz; e += NT) abase[e] = itab[d.i_anc_base + e];
+    __syncthreads();
+    for (int idx = tid; idx < 2 * nd; idx += NT) {
+      const bool dyn = idx >= nd;
+      const int kk = dyn ? idx - nd : idx;
+      const T* Lr = dyn ? mdyn : mpd;
+      T* Li = dyn ? lidyn : lipd;
+      const int base = anc_off[kk], dl = anc_off[kk + 1] - base;
+      for (int sl = dl - 1; sl >= 0; --sl) {
+        T p0 = Lr[base + sl], p1 = T(0), p2 = T(0), p3 = T(0);
+        int t = sl + 1;
+        for (; t + 4 <= dl; t += 4) {
+          p0 += Li[base + t] * Lr[abase[base + t] + sl];
+          p1 += Li[base + t + 1] * Lr[abase[base + t + 1] + sl];
+          p2 += Li[base + t + 2] * Lr[abase[base + t + 2] + sl];
+          p3 += Li[base + t + 3] * Lr[abase[base + t + 3] + sl];
+        }
+        for (; t < dl; ++t) p0 += Li[base + t] * Lr[abase[base + t] + sl];
+        Li[base + sl] = -((p0 + p1) + (p2 + p3));
       }
     }
     __syncthreads();
-    // ---- Delassus G = Y^T D^-1 Y (symmetric) + row-sum preconditioner --
-    for (int idx = tid; idx < c3 * c3; idx += NT) {
-      const int a = idx / c3, b = idx % c3;
-      if (b > a) continue;
+    for (int e = tid; e < nnz; e += NT) mpd[e] = lipd[e];   // L_pd^-1
+    __syncthreads();
+    STAMP(ST_INVERSE);
+
+    // ---- Y = L^-T J^T = (L_dyn^-1)^T J^T on the active columns: one
+    // gather over a column of L^-1 per (dof, column), from a copy of J^T
+    T* jt = sm + L.jt;
+    for (int e = tid; e < nd * c3; e += NT) jt[e] = Y[e];
+    __syncthreads();
+    for (int idx = tid; idx < nd * nact; idx += NT) {
+      const int j = idx / nact, c = act[idx % nact];
+      const int i0 = col_off[j], m = col_off[j + 1] - i0;
+      T p0 = jt[j * c3 + c], p1 = T(0), p2 = T(0), p3 = T(0);
+      int i = i0;
+      for (; i + 4 <= i0 + m; i += 4) {
+        p0 += lidyn[__ldg(col_slot + i)] * jt[__ldg(col_row + i) * c3 + c];
+        p1 += lidyn[__ldg(col_slot + i + 1)] * jt[__ldg(col_row + i + 1) * c3 + c];
+        p2 += lidyn[__ldg(col_slot + i + 2)] * jt[__ldg(col_row + i + 2) * c3 + c];
+        p3 += lidyn[__ldg(col_slot + i + 3)] * jt[__ldg(col_row + i + 3) * c3 + c];
+      }
+      for (; i < i0 + m; ++i)
+        p0 += lidyn[__ldg(col_slot + i)] * jt[__ldg(col_row + i) * c3 + c];
+      Y[j * c3 + c] = (p0 + p1) + (p2 + p3);
+    }
+    __syncthreads();
+    STAMP(ST_Y);
+    // ---- Delassus G = Y^T D^-1 Y on the active rows + row-sum scale ----
+    for (int idx = tid; idx < nact * nact; idx += NT) {
+      const int ai = idx / nact, bi = idx % nact;
+      if (bi > ai) continue;
+      const int a = act[ai], b = act[bi];
       T acc = T(0);
       for (int dd = 0; dd < nd; ++dd)
         acc += (idyn[dd] * Y[dd * c3 + a]) * Y[dd * c3 + b];
@@ -719,71 +904,103 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
       G[b * c3 + a] = acc;
     }
     __syncthreads();
-    for (int a = tid; a < c3; a += NT) {
+    for (int ai = tid; ai < nact; ai += NT) {
+      const int a = act[ai];
       T acc = T(0);
-      for (int b = 0; b < c3; ++b) acc += xabs(G[a * c3 + b]);
+      for (int bi = 0; bi < nact; ++bi) acc += xabs(G[a * c3 + act[bi]]);
       gid[a] = relax / (acc + T(1e-9));
     }
     __syncthreads();
+    STAMP(ST_DELASSUS);
 
     // ================= substeps against the frozen prep ==================
+    const bool live = lane < c3 && ((amask >> lane) & 1u);
     for (int sub = 0; sub < nsub; ++sub) {
-      // joint limits, passive forces, stable-PD error and rhs
-      for (int dd = tid; dd < nd; dd += NT) {
-        T qfb = -bias[dd] - ftab[d.f_damping + dd] * v[dd];
-        T e = T(0);
-        if (dd >= 6) {
-          const int j = dd - 6;
+      // joint limits, passive forces, stable-PD error and rhs; w = L v
+      T qfb_r = T(0), e_r = T(0);
+      if (owner) {
+        const int dd = tid;
+        qfb_r = -bias[dd] - damp_r * v[dd];
+        if (hinge) {
           const T qj = q[dd + 1], dqj = v[dd];
-          const T below = xmax(ftab[d.f_lo + j] - qj, T(0));
-          const T above = xmax(qj - ftab[d.f_hi + j], T(0));
+          const T below = xmax(lo_r - qj, T(0));
+          const T above = xmax(qj - hi_r, T(0));
           const T viol = (below > T(0) || above > T(0)) ? T(1) : T(0);
-          const T taul = (klim * (below - above) - viol * blim * dqj) * ftab[d.f_limited + j];
-          qfb += taul - ftab[d.f_stiffness + dd] * qj;
-          e = qj - sm[L.ctrl + j];
+          const T taul = (klim * (below - above) - viol * blim * dqj) * lim_r;
+          qfb_r += taul - stiff_r * qj;
+          e_r = qj - ctrl_r;
         }
-        sm[L.qfb + dd] = qfb;
-        sm[L.e + dd] = e;
-        sm[L.rhs + dd] = -bias[dd] - kpf[dd] * e - kdf[dd] * v[dd];
+        rhs[dd] = -bias[dd] - kp_r * e_r - kd_r * v[dd];
       }
+      // w = L_dyn v on the warps that own no dof (threads 64.. for nd <= 64)
+      for (int dd = tid - 64; dd >= 0 && dd < nd; dd += NT - 64)
+        w[dd] = v[dd] + gather_dot(mdyn, v, (const int*)nullptr, anc_idx,
+                                   anc_off[dd], anc_off[dd + 1] - anc_off[dd]);
       __syncthreads();
-      if (warp == 0) warp_ldl_solve(mpd, ipd, sm + L.rhs, anc_off, anc_idx, nd, lane);
+      // PD solve, each dof a gather over L_pd^-1: z = D^-1 L^-T rhs, then
+      // qacc = L^-1 z; the clamped torque -> dynamics rhs (times dt) in rhs
+      if (owner)
+        z[tid] = ipd[tid] * (rhs[tid] + gather_dot(mpd, rhs, col_slot, col_row,
+                                                   col_off[tid], col_off[tid + 1] - col_off[tid]));
       __syncthreads();
-      // clamped PD torque -> dynamics rhs (times dt)
-      for (int dd = tid; dd < nd; dd += NT) {
-        T qf = sm[L.qfb + dd];
-        if (dd >= 6) {
-          const int j = dd - 6;
-          T tq = -kpf[dd] * sm[L.e + dd] - kdf[dd] * (v[dd] + dt * sm[L.rhs + dd]);
-          const T lim = sm[L.tlim + j];
-          tq = xmin(xmax(tq, -lim), lim);
-          qf += tq * ftab[d.f_gear + j];
+      T qacc = T(0);
+      if (owner)
+        qacc = z[tid] + gather_dot(mpd, z, (const int*)nullptr, anc_idx, anc_off[tid],
+                                   anc_off[tid + 1] - anc_off[tid]);
+      STAMP(ST_PD);
+      if (owner) {
+        T qf = qfb_r;
+        if (hinge) {
+          T tq = -kp_r * e_r - kd_r * (v[tid] + dt * qacc);
+          tq = xmin(xmax(tq, -tlim_r), tlim_r);
+          qf += tq * gear_r;
         }
-        sm[L.x0 + dd] = qf * dt;
+        rhs[tid] = qf * dt;
       }
       __syncthreads();
-      if (warp == 0) warp_ldl_solve(mdyn, idyn, sm + L.x0, anc_off, anc_idx, nd, lane);
-      __syncthreads();
-      // velocity residual of the contact rows at v_pred = v + qacc dt
-      for (int r = tid; r < c3; r += NT) {
-        T acc = T(0);
-        for (int dd = 0; dd < nd; ++dd) acc += jf[r * nd + dd] * (v[dd] + sm[L.x0 + dd]);
-        sm[L.bh + r] = acc - tgt[r];
+      STAMP(ST_TORQUE);
+      // u = D^-1 L^-T (dt qfrc) over L_dyn^-1's columns
+      if (owner) {
+        u[tid] = idyn[tid] * (rhs[tid] + gather_dot(lidyn, rhs, col_slot, col_row,
+                                                    col_off[tid], col_off[tid + 1] - col_off[tid]));
+        w[tid] += u[tid];          // L v + u, the residual's vector
       }
       __syncthreads();
-      // projected-Jacobi sweep, one lane per contact row
+      STAMP(ST_DYN_SOLVE);
+      // contact residual J v_pred - target = Y^T (L v + u) - target
+      T bh_r = T(0);
+      if (warp == 0 && live) {   // four partial sums: loads overlap
+        T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
+        int dd = 0;
+        for (; dd + 4 <= nd; dd += 4) {
+          a0 += Y[dd * c3 + lane] * w[dd];
+          a1 += Y[(dd + 1) * c3 + lane] * w[dd + 1];
+          a2 += Y[(dd + 2) * c3 + lane] * w[dd + 2];
+          a3 += Y[(dd + 3) * c3 + lane] * w[dd + 3];
+        }
+        for (; dd < nd; ++dd) a0 += Y[dd * c3 + lane] * w[dd];
+        bh_r = ((a0 + a1) + (a2 + a3)) - tgt[lane];
+      }
+      STAMP(ST_RESIDUAL);
+      // projected-Jacobi sweep, one lane per contact row, G read by column
       if (warp == 0) {
         const int r = lane;
-        const bool live = r < c3;
         T lr = T(0);
-        if (live) lam[r] = T(0);
+        if (r < c3) lam[r] = T(0);
         __syncwarp();
         const int src = r < k ? 2 * k + r : (r < 2 * k ? r + k : r);
         for (int it = 0; it < d.iters; ++it) {
           T g = T(0);
-          if (live) {
-            for (int j = 0; j < c3; ++j) g += G[r * c3 + j] * lam[j];
-            g += sm[L.bh + r];
+          if (live) {              // two partial sums: loads overlap
+            T g1 = T(0);
+            int ci = 0;
+            for (; ci + 2 <= nact; ci += 2) {
+              const int j0 = act[ci], j1 = act[ci + 1];
+              g += G[j0 * c3 + r] * lam[j0];
+              g1 += G[j1 * c3 + r] * lam[j1];
+            }
+            if (ci < nact) g += G[act[ci] * c3 + r] * lam[act[ci]];
+            g = (g + g1) + bh_r;
           }
           T ln = live ? lr - g * gid[r] : T(0);
           const T nv = __shfl_sync(0xffffffffu, ln, src < 32 ? src : 0);
@@ -799,32 +1016,25 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
         }
       }
       __syncthreads();
-      for (int dd = tid; dd < nd; dd += NT) {
+      STAMP(ST_SWEEP);
+      // v_new = v + L^-1 D^-1 (z' + Y lam), z' = L^-T (dt qfrc): u += D^-1 Y lam,
+      // then a gather over L_dyn^-1's row into z
+      if (owner) {
         T acc = T(0);
-        for (int c = 0; c < c3; ++c) acc += Y[dd * c3 + c] * lam[c];
-        sm[L.u + dd] = acc;
-      }
-      __syncthreads();
-      // L^-1 D^-1 (Y lam): the forward half of the solve only
-      if (warp == 0) {
-        T* x = sm + L.u;
-        for (int kk = lane; kk < nd; kk += 32) x[kk] *= idyn[kk];
-        __syncwarp();
-        for (int kk = 0; kk < nd; ++kk) {
-          const int base = anc_off[kk], dk = anc_off[kk + 1] - base;
-          T acc = T(0);
-          for (int sl = lane; sl < dk; sl += 32) acc += mdyn[base + sl] * x[anc_idx[base + sl]];
-          acc = warp_sum(acc);
-          if (lane == 0) x[kk] -= acc;
-          __syncwarp();
+        for (int ci = 0; ci < nact; ++ci) {
+          const int c = act[ci];
+          acc += Y[tid * c3 + c] * lam[c];
         }
+        u[tid] += idyn[tid] * acc;
       }
       __syncthreads();
-      for (int dd = tid; dd < nd; dd += NT)
-        sm[L.vn + dd] = v[dd] + sm[L.x0 + dd] + sm[L.u + dd];
+      if (owner)
+        z[tid] = v[tid] + u[tid] + gather_dot(lidyn, u, (const int*)nullptr, anc_idx,
+                                              anc_off[tid], anc_off[tid + 1] - anc_off[tid]);
       __syncthreads();
+      STAMP(ST_VELOCITY);
       // semi-implicit integration (engine.integrate / quat_integrate)
-      const T* vn = sm + L.vn;
+      const T* vn = z;
       if (tid == 0) {
         for (int j = 0; j < 3; ++j) q[j] += dt * vn[j];
         const T ew[3] = {vn[3] * dt, vn[4] * dt, vn[5] * dt};
@@ -840,37 +1050,81 @@ substep_kernel(const Dims d, const int* __restrict__ itab,
         const T nn = xmax(xsqrt(nq4[0] * nq4[0] + nq4[1] * nq4[1] + nq4[2] * nq4[2] + nq4[3] * nq4[3]), T(1e-12));
         for (int j = 0; j < 4; ++j) q[3 + j] = nq4[j] / nn;
       }
-      for (int dd = tid; dd < nd; dd += NT) {
-        if (dd >= 6) q[dd + 1] += dt * vn[dd];
-        v[dd] = vn[dd];
+      if (owner) {
+        if (hinge) q[tid + 1] += dt * vn[tid];
+        v[tid] = vn[tid];
       }
       __syncthreads();
+      STAMP(ST_INTEGRATE);
     }
   }
 
   for (int i = tid; i < nq; i += NT) qpos_out[(size_t)env * nq + i] = q[i];
-  for (int i = tid; i < nd; i += NT) qvel_out[(size_t)env * nd + i] = v[i];
+  if (owner) qvel_out[(size_t)env * nd + tid] = v[tid];
+#ifdef EGOPOSE_STAGE_CLOCKS
+  STAMP(ST_STORE);
+  if (tid == 0)
+    for (int i = 0; i < N_STAGES; ++i) clocks[(size_t)env * N_STAGES + i] = clk[i];
+#endif
+}
+
+// Float: at most 64 registers a thread, so 8 blocks of 128 fit an SM's
+// 65,536; double: 4 blocks (its 45 KB block allows 4 per SM anyway).
+__global__ void __launch_bounds__(NT, 8)
+substep_kernel(const Dims d, const int* __restrict__ itab,
+               const float* __restrict__ ftab, const float* __restrict__ qpos,
+               const float* __restrict__ qvel, const float* __restrict__ ctrl,
+               const float* __restrict__ jkp, const float* __restrict__ jkd,
+               const float* __restrict__ tlim, float* __restrict__ qpos_out,
+               float* __restrict__ qvel_out, long long* __restrict__ clocks) {
+  substep_body<float>(d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim,
+                      qpos_out, qvel_out, clocks);
+}
+
+__global__ void __launch_bounds__(NT, 4)
+substep_kernel(const Dims d, const int* __restrict__ itab,
+               const double* __restrict__ ftab, const double* __restrict__ qpos,
+               const double* __restrict__ qvel, const double* __restrict__ ctrl,
+               const double* __restrict__ jkp, const double* __restrict__ jkd,
+               const double* __restrict__ tlim, double* __restrict__ qpos_out,
+               double* __restrict__ qvel_out, long long* __restrict__ clocks) {
+  substep_body<double>(d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim,
+                       qpos_out, qvel_out, clocks);
+}
+
+template <typename T>
+using KernelFn = void (*)(const Dims, const int*, const T*, const T*,
+                          const T*, const T*, const T*, const T*, const T*,
+                          T*, T*, long long*);
+
+// Opt the kernel in to the block's shared memory; 0, -1 (dims mismatch),
+// -2 (more than a block may use) or a CUDA error code.
+template <typename T>
+static int prepare(const int* dims_host, int ndims, Dims* d, size_t* bytes) {
+  if (ndims * (int)sizeof(int) != (int)sizeof(Dims)) return -1;
+  memcpy(d, dims_host, sizeof(Dims));
+  *bytes = smem_bytes<T>(*d);
+  int dev = 0, max_optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (*bytes > (size_t)max_optin) return -2;
+  return (int)cudaFuncSetAttribute(static_cast<KernelFn<T>>(substep_kernel),
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)*bytes);
 }
 
 template <typename T>
 static int launch(const int* dims_host, int ndims, const int* itab,
                   const T* ftab, const T* qpos, const T* qvel, const T* ctrl,
                   const T* jkp, const T* jkd, const T* tlim, T* qpos_out,
-                  T* qvel_out, int batch, void* stream) {
-  if (ndims * (int)sizeof(int) != (int)sizeof(Dims)) return -1;
+                  T* qvel_out, long long* clocks, int batch, void* stream) {
   Dims d;
-  memcpy(&d, dims_host, sizeof(Dims));
-  const Layout L = make_layout(d);
-  const size_t bytes = (size_t)L.total * sizeof(T) + (size_t)(d.k + d.kp) * sizeof(int);
-  int dev = 0, max_optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (bytes > (size_t)max_optin) return -2;
-  cudaError_t err = cudaFuncSetAttribute(
-      substep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  substep_kernel<T><<<batch, NT, bytes, (cudaStream_t)stream>>>(
-      d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim, qpos_out, qvel_out);
+  size_t bytes = 0;
+  const int err = prepare<T>(dims_host, ndims, &d, &bytes);
+  if (err != 0) return err;
+  substep_kernel<<<batch, NT, bytes, (cudaStream_t)stream>>>(
+      d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim, qpos_out, qvel_out,
+      clocks);
   return (int)cudaGetLastError();
 }
 
@@ -883,7 +1137,7 @@ extern "C" int egopose_substep_f32(
   return launch<T>(dims, ndims, (const int*)itab, (const T*)ftab,
                    (const T*)qpos, (const T*)qvel, (const T*)ctrl,
                    (const T*)jkp, (const T*)jkd, (const T*)tlim,
-                   (T*)qpos_out, (T*)qvel_out, batch, stream);
+                   (T*)qpos_out, (T*)qvel_out, nullptr, batch, stream);
 }
 
 extern "C" int egopose_substep_f64(
@@ -895,5 +1149,47 @@ extern "C" int egopose_substep_f64(
   return launch<T>(dims, ndims, (const int*)itab, (const T*)ftab,
                    (const T*)qpos, (const T*)qvel, (const T*)ctrl,
                    (const T*)jkp, (const T*)jkd, (const T*)tlim,
-                   (T*)qpos_out, (T*)qvel_out, batch, stream);
+                   (T*)qpos_out, (T*)qvel_out, nullptr, batch, stream);
 }
+
+// Resources of the kernel for dtype (0 float, 1 double) at these dims:
+// out[0] blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// out[1] registers per thread, out[2] dynamic shared bytes per block,
+// out[3] local (spill) bytes per thread.
+template <typename T>
+static int occupancy(const int* dims_host, int ndims, int* out) {
+  Dims d;
+  size_t bytes = 0;
+  int err = prepare<T>(dims_host, ndims, &d, &bytes);
+  if (err != 0) return err;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, static_cast<KernelFn<T>>(substep_kernel));
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], static_cast<KernelFn<T>>(substep_kernel), NT, bytes);
+  out[1] = attr.numRegs;
+  out[2] = (int)bytes;
+  out[3] = (int)attr.localSizeBytes;
+  return (int)e;
+}
+
+extern "C" int egopose_substep_occupancy(const int* dims, int ndims, int f64,
+                                         int* out) {
+  return f64 ? occupancy<double>(dims, ndims, out)
+             : occupancy<float>(dims, ndims, out);
+}
+
+#ifdef EGOPOSE_STAGE_CLOCKS
+extern "C" int egopose_substep_clocks_f32(
+    const int* dims, int ndims, const void* itab, const void* ftab,
+    const void* qpos, const void* qvel, const void* ctrl, const void* jkp,
+    const void* jkd, const void* tlim, void* qpos_out, void* qvel_out,
+    void* clocks, int batch, void* stream) {
+  typedef float T;
+  return launch<T>(dims, ndims, (const int*)itab, (const T*)ftab,
+                   (const T*)qpos, (const T*)qvel, (const T*)ctrl,
+                   (const T*)jkp, (const T*)jkd, (const T*)tlim,
+                   (T*)qpos_out, (T*)qvel_out, (long long*)clocks, batch,
+                   stream);
+}
+#endif

@@ -2,18 +2,18 @@
 and their plain versions.
 
 Port of egopose_tpu/physics/linalg_pallas.py, each Pallas kernel a
-hand-written CUDA C++ kernel, one thread block per system:
+hand-written CUDA C++ kernel:
 
 - K2, ``_cho_solve_kernel_blocked`` (launched by ``_batched_spd_solve_tpu``
   from the ``custom_vmap`` rule of ``spd_solve``): the dense SPD solve, in
-  ``csrc/spd_solve.cu``;
+  ``csrc/spd_solve.cu``, one warp per system;
 - K3, ``_fused_contact_kernel`` (``_fused_contact_tpu``): factor, solve
   [dt qfrc | J^T], Delassus operator and projected-Jacobi sweep -> v_new,
   in ``csrc/fused_contact.cu``;
 - K4, ``_pd_fused_kernel`` (``_pd_fused_tpu``): one stable-PD substep's
   PD solve, torque clamp, dynamics solve and sweep -> v_new, in the same
-  file.  K2, K3 and K4 share the factor and substitutions of
-  ``csrc/cholesky.cuh``.
+  file, one thread block per system.  K3 and K4 share the factor and
+  substitutions of ``csrc/cholesky.cuh``.
 
 ``spd_solve``, ``fused_contact`` and ``pd_fused`` dispatch on the tensors'
 device: a CUDA batch launches the kernel, a CPU batch runs the plain
@@ -116,7 +116,8 @@ _SIGNATURES = {
 
 
 def _kernel(source: str, name: str, dtype: torch.dtype):
-    """The C entry ``name`` of ``source`` for ``dtype``, built at first use."""
+    """The C entry ``name`` of ``source`` for ``dtype`` (None: an entry
+    without a dtype suffix), built at first use."""
     if source not in _libs:
         lib = ctypes.CDLL(nvcc.build(source))
         for stem, argtypes in _SIGNATURES[source].items():
@@ -125,8 +126,23 @@ def _kernel(source: str, name: str, dtype: torch.dtype):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
         _libs[source] = lib
+    if dtype is None:
+        return getattr(_libs[source], name)
     sfx = "_f64" if dtype == torch.float64 else "_f32"
     return getattr(_libs[source], name + sfx)
+
+
+def spd_solve_occupancy(n: int, r: int, dtype) -> dict:
+    """K2's resources on the current card for (n, r): blocks per SM,
+    registers per thread, shared bytes per block, spill bytes, systems
+    per block."""
+    fn = _kernel("spd_solve.cu", "egopose_spd_solve_occupancy", None)
+    fn.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * 5)()
+    _raise_on(fn(n, r, int(dtype == torch.float64), out), "spd_solve")
+    return dict(blocks_per_sm=out[0], registers=out[1], shared_bytes=out[2],
+                local_bytes=out[3], systems_per_block=out[4])
 
 
 def _check(what: str, shapes):

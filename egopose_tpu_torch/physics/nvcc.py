@@ -3,7 +3,10 @@
 Each source compiles on its own into a shared library with a plain C
 interface (loaded with ctypes by its wrapper module), named by a hash of the
 flags, the source and every header under ``csrc/`` (``*.cuh``), so an edited
-source or header never loads a stale library.
+source or header never loads a stale library.  A target is a source name or
+a ``(source, defines)`` pair: the same source built with preprocessor
+defines (``-D``) is a library of its own, as the stage-clock build of
+``substep.cu`` is.
 Output goes to the git-ignored ``egopose_tpu_torch/_build/``.
 ``build_all`` starts one nvcc per source at once and waits for all.
 """
@@ -33,29 +36,39 @@ def _nvcc() -> str:
                        "the kernels under csrc/")
 
 
-def library_path(source: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _split(target):
+    """A target -> (source, defines)."""
+    return (target, ()) if isinstance(target, str) else \
+        (target[0], tuple(target[1]))
+
+
+def library_path(target) -> str:
+    source, defines = _split(target)
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    h = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for name in [source] + headers:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
-    stem = os.path.splitext(source)[0]
+    stem = "_".join([os.path.splitext(source)[0]]
+                    + [d.lower() for d in defines])
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(sources=SOURCES, verbose: bool = False) -> list:
-    """Compile every source whose library is missing, all nvcc processes
+    """Compile every target whose library is missing, all nvcc processes
     at once; returns the libraries' paths in the order of ``sources``.
     With ``verbose`` prints ptxas's register / shared-memory report."""
     outs = [library_path(s) for s in sources]
     procs = []
-    for src, out in zip(sources, outs):
+    for target, out in zip(sources, outs):
         if os.path.exists(out):
             continue
+        src, defines = _split(target)
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-               os.path.join(CSRC, src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *[f"-D{d}" for d in defines],
+               "-Xptxas", "-v", "-o", tmp, os.path.join(CSRC, src)]
         procs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -72,5 +85,5 @@ def build_all(sources=SOURCES, verbose: bool = False) -> list:
     return outs
 
 
-def build(source: str, verbose: bool = False) -> str:
-    return build_all((source,), verbose)[0]
+def build(target, verbose: bool = False) -> str:
+    return build_all((target,), verbose)[0]

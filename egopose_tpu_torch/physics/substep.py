@@ -6,8 +6,14 @@ CUDA C++ kernel in ``csrc/substep.cu``, one thread block per environment,
 running all ``n_frames`` substeps of one 30 Hz control step with the lane's
 working set in shared memory.  This module builds the kernel's per-model
 tables (the counterpart of ``_build_static`` / ``_packed_consts`` /
-``_packed_pair_consts`` and of ldl_pallas's ancestor lists), compiles the
-kernel with nvcc at first use, and launches it through ctypes.
+``_packed_pair_consts`` and of ldl_pallas's ancestor lists), the level
+schedule of its tree LDL^T (``factor_schedule``) and the tables of its
+products with L^-1 (``inverse_tables``) and
+its shared-memory layout (``smem_layout``, arrays overlaid where their live
+stages do not overlap), compiles the kernel with nvcc at first use, and
+launches it through ctypes.  ``occupancy`` reads the kernel's registers
+and blocks per SM on the card; ``pd_control_step_cuda(..., clocks=...)``
+runs its stage-clock build.
 
 Dispatch (engine.pd_control_step, the counterpart of make_substep_step):
 with ``ContactParams.substep_resident`` (the default) a CUDA batch runs the
@@ -28,6 +34,64 @@ from .model import PhysicsModel
 # Launch count of the kernel: incremented once per launch, nowhere else.
 launches = 0
 
+# Arrays of one block's shared memory (csrc/substep.cu), in allocation
+# order: (name, size, first stage, last stage) with the size a function of
+# the dims and the stages those of LIVE_STAGES.  smem_layout places each
+# array at the lowest offset that overlaps no array live at the same time.
+LIVE_STAGES = ("load fk narrowphase select dynamics mass factor inverse y "
+               "delassus substeps").split()
+SMEM_ARRAYS = (
+    ("q", lambda d: d["nq"], "load", "substeps"),
+    ("v", lambda d: d["nd"], "load", "substeps"),
+    ("mpd", lambda d: d["nnz"], "mass", "substeps"),
+    ("mdyn", lambda d: d["nnz"], "mass", "substeps"),
+    ("ipd", lambda d: d["nd"], "mass", "substeps"),
+    ("idyn", lambda d: d["nd"], "mass", "substeps"),
+    ("bias", lambda d: d["nd"], "mass", "substeps"),
+    ("lidyn", lambda d: d["nnz"], "inverse", "substeps"),
+    ("y", lambda d: d["nd"] * d["c3"], "select", "substeps"),
+    ("tgt", lambda d: d["c3"], "select", "substeps"),
+    ("mu", lambda d: d["k"], "select", "substeps"),
+    ("xpos", lambda d: 3 * d["nb"], "fk", "mass"),
+    ("xquat", lambda d: 4 * d["nb"], "fk", "mass"),
+    ("s", lambda d: 6 * d["nd"], "fk", "mass"),
+    ("pall", lambda d: 3 * d["ncp"], "narrowphase", "select"),
+    ("phiall", lambda d: d["ncp"], "narrowphase", "select"),
+    ("pphi", lambda d: d["npair"] + d["nbpair"], "narrowphase", "select"),
+    ("pn", lambda d: 3 * (d["npair"] + d["nbpair"]), "narrowphase",
+     "select"),
+    ("pp", lambda d: 3 * (d["npair"] + d["nbpair"]), "narrowphase",
+     "select"),
+    ("selphi", lambda d: d["k"] + d["kp"], "narrowphase", "select"),
+    ("com", lambda d: 3 * d["nb"], "dynamics", "mass"),
+    ("ic", lambda d: 6 * d["nb"], "dynamics", "mass"),
+    ("io", lambda d: 6 * d["nb"], "dynamics", "dynamics"),
+    ("smom", lambda d: 3 * d["nb"], "dynamics", "mass"),
+    ("sio", lambda d: 6 * d["nb"], "dynamics", "mass"),
+    ("smass", lambda d: d["nb"], "dynamics", "mass"),
+    ("sq", lambda d: 6 * d["nd"], "dynamics", "mass"),
+    ("cj", lambda d: 6 * d["nd"], "dynamics", "mass"),
+    ("fcrb", lambda d: 6 * d["nd"], "dynamics", "mass"),
+    ("fb", lambda d: 6 * d["nb"], "dynamics", "mass"),
+    ("dpd", lambda d: d["nd"], "mass", "factor"),
+    ("ddyn", lambda d: d["nd"], "mass", "factor"),
+    ("lipd", lambda d: d["nnz"], "inverse", "inverse"),
+    ("abase", lambda d: d["nnz"], "inverse", "inverse"),     # ints
+    ("jt", lambda d: d["nd"] * d["c3"], "y", "y"),
+    ("g", lambda d: d["c3"] * d["c3"], "delassus", "substeps"),
+    ("gid", lambda d: d["c3"], "delassus", "substeps"),
+    ("rhs", lambda d: d["nd"], "substeps", "substeps"),
+    ("z", lambda d: d["nd"], "substeps", "substeps"),
+    ("u", lambda d: d["nd"], "substeps", "substeps"),
+    ("w", lambda d: d["nd"], "substeps", "substeps"),
+    ("lam", lambda d: d["c3"], "substeps", "substeps"),
+)
+# int arrays after the float ones: the selected floor and pair candidates,
+# the active contact rows, their count and their bit mask
+SMEM_INTS = (("sel", lambda d: d["k"] + d["kp"]),
+             ("act", lambda d: d["c3"]), ("nact", lambda d: 1),
+             ("amask", lambda d: 1))
+
 # Field order of the ``Dims`` struct in csrc/substep.cu (ints only).
 DIM_FIELDS = (
     "nb nd nq nu ncp npair nbpair k kp c3 nnz nlevel "
@@ -36,13 +100,23 @@ DIM_FIELDS = (
     "i_path_off i_path_idx i_vp_off i_vp_idx i_desc_off i_desc_idx "
     "i_anc_off i_anc_idx i_ent_row i_banc i_cp_body "
     "i_p_b1 i_p_b2 i_bp_seg i_bp_box "
+    "i_height i_fac_a i_fac_b i_fac_row i_col_off i_col_slot i_col_row "
+    "i_anc_base n_fac "
     "f_body_pos f_body_ipos f_mass f_inertia f_axis f_anchor "
     "f_armature f_damping f_stiffness f_lo f_hi f_limited f_gear "
     "f_gravity f_cp_local f_cp_radius f_cp_mu "
     "f_p_a1 f_p_b1 f_p_a2 f_p_b2 f_p_rsum f_p_rdiff "
-    "f_bp_a f_bp_b f_bp_rseg f_bp_pos f_bp_quat f_bp_half f_scal").split()
+    "f_bp_a f_bp_b f_bp_rseg f_bp_pos f_bp_quat f_bp_half f_scal").split() \
+    + ["l_" + a[0] for a in SMEM_ARRAYS] + ["l_" + a[0] for a in SMEM_INTS] \
+    + ["l_total", "l_ints"]
 
+NT = 128              # threads per block (csrc/substep.cu)
 MAX_ROWS = 32         # contact rows: the kernel's sweep runs in one warp
+
+# Stages of the stage-clock build (enum Stage in csrc/substep.cu), in order.
+STAGES = ("load fk dynamics narrowphase select factor inverse y delassus pd "
+          "torque dyn_solve residual sweep velocity integrate store").split()
+CLOCKS_DEFINE = "EGOPOSE_STAGE_CLOCKS"
 
 
 def reset_launches():
@@ -71,6 +145,144 @@ def dof_anc_lists(anc_mask: np.ndarray) -> tuple:
     n = anc_mask.shape[0]
     return tuple(tuple(int(j) for j in range(d)
                        if anc_mask[d, j] or anc_mask[j, d]) for d in range(n))
+
+
+def smem_layout(dims: dict) -> dict:
+    """Offsets of the block's shared arrays (SMEM_ARRAYS, in elements of
+    the float type; SMEM_INTS, in ints after them) as ``l_<name>``, plus
+    ``l_total`` floats and ``l_ints`` ints.  First fit: each array goes at
+    the lowest offset where it overlaps no placed array whose stages
+    overlap its own, so arrays live only in the prep share bytes with the
+    substeps' arrays."""
+    stage = {n: i for i, n in enumerate(LIVE_STAGES)}
+    placed, out = [], {}
+    for name, size, first, last in SMEM_ARRAYS:
+        n, lo, hi = size(dims), stage[first], stage[last]
+        busy = sorted((o, o + sz) for o, sz, a, b in placed
+                      if a <= hi and lo <= b)
+        off = 0
+        for a, b in busy:
+            if off + n <= a:
+                break
+            off = max(off, b)
+        placed.append((off, n, lo, hi))
+        out["l_" + name] = off
+    out["l_total"] = max(o + n for o, n, _, _ in placed)
+    off = 0
+    for name, size in SMEM_INTS:
+        out["l_" + name] = off
+        off += size(dims)
+    out["l_ints"] = off
+    return out
+
+
+def smem_bytes(dims: dict, itemsize: int) -> int:
+    """Dynamic shared memory of one block for a float of ``itemsize``."""
+    return dims["l_total"] * itemsize + 4 * dims["l_ints"]
+
+
+# ---------------------------------------------------------------------------
+# the level schedule of the tree LDL^T and the tables of L^-1 (csrc/substep.cu)
+# ---------------------------------------------------------------------------
+#
+# Dof j is an ancestor of dof k in the elimination tree when j is in
+# anc[k]; the tree's parent of k is anc[k][-1].  ``height`` counts from the
+# leaves (0), ``depth`` from the root (depth[k] == len(anc[k])).  Dofs of
+# one height depend on none of each other in the factor.
+#
+# A factor item is two ints (a, b): a = target | first << 13 | last << 14 |
+# final << 15 | k << 16 | scale << 23, b = e1 | e2 << 16.  target < nnz is
+# the compressed slot, nnz + j the diagonal of dof j; the update is
+# target -= (rows[e1] * invd[k]) * rows[e2] (ldl_pallas.ldl_factor's);
+# ``final`` marks the last update of a diagonal, whose reciprocal the same
+# thread then stores; a ``scale`` item multiplies slot ``target`` of an
+# earlier level's row by invd[k].  NT items per table row.
+FA_FIRST, FA_LAST, FA_FINAL, FA_SCALE = 1 << 13, 1 << 14, 1 << 15, 1 << 23
+
+
+def tree_levels(anc: tuple):
+    """(height, depth) of every dof of the elimination tree."""
+    n = len(anc)
+    height = [0] * n
+    for k in range(n - 1, -1, -1):
+        if anc[k]:
+            p = anc[k][-1]
+            height[p] = max(height[p], height[k] + 1)
+    return height, [len(a) for a in anc]
+
+
+def _pack(levels, width, pad):
+    """Lay out each level's groups (lists of items that one lane runs in a
+    row) over ``width`` lanes, longest group first onto the least loaded
+    lane.  Returns (table (rows, width) of items, row offset per level)."""
+    rows, row_off = [], [0]
+    for groups in levels:
+        lanes = [[] for _ in range(width)]
+        for g in sorted(groups, key=len, reverse=True):
+            min(lanes, key=len).extend(g)
+        nrow = max((len(x) for x in lanes), default=0)
+        for r in range(nrow):
+            rows.append([x[r] if r < len(x) else pad for x in lanes])
+        row_off.append(len(rows))
+    return rows, row_off
+
+
+def inverse_tables(anc: tuple, anc_off) -> dict:
+    """Tables of the products with L^-1, which has L's compressed slots
+    (the tree factor has no fill, and a row's ancestor list holds all its
+    ancestors): ``col_off``/``col_slot``/``col_row`` the slots of each
+    column j (the entries (k, j) of L^-1 with j an ancestor of k) and
+    their rows k, for x <- L^-T b as one gather per dof, and ``anc_base``
+    the first slot of each slot's ancestor's row (anc_off[anc_idx[e]]),
+    for forming L^-1's rows."""
+    n = len(anc)
+    cols = [[] for _ in range(n)]
+    for k in range(n):
+        for sl, j in enumerate(anc[k]):
+            cols[j].append((int(anc_off[k]) + sl, k))
+    col_off, _ = _csr(cols)
+    flat = [e for c in cols for e in c]
+    return dict(col_off=col_off,
+                col_slot=np.array([e for e, _ in flat], np.int64),
+                col_row=np.array([k for _, k in flat], np.int64),
+                anc_base=np.array([anc_off[j] for a in anc for j in a],
+                                  np.int64))
+
+
+def factor_schedule(anc: tuple, anc_off, nnz: int):
+    """The factor's item tables (a, b) of shape (rows, NT) and the row
+    offset of each pass: pass h updates every entry of the rows above the
+    dofs of height h (gathering over those dofs), and scales the rows of
+    height h-1; one extra pass scales the top level's rows."""
+    height, depth = tree_levels(anc)
+    n, top = len(anc), max(height)
+    passes = []
+    for h in range(top + 2):
+        ks = [k for k in range(n) if height[k] == h]
+        groups = []
+        for j in sorted({j for k in ks for j in anc[k]}):
+            contrib = [k for k in ks if j in anc[k]]
+            dj = depth[j]
+            for t in range(dj + 1):            # t == dj: the diagonal
+                target = nnz + j if t == dj else int(anc_off[j]) + t
+                g = []
+                for i, k in enumerate(contrib):
+                    e1 = int(anc_off[k]) + dj
+                    e2 = int(anc_off[k]) + t
+                    a = target | k << 16 | (FA_FIRST if i == 0 else 0)
+                    if i == len(contrib) - 1:
+                        a |= FA_LAST
+                        if t == dj and height[j] == h + 1:
+                            a |= FA_FINAL
+                    g.append((a, e1 | e2 << 16))
+                groups.append(g)
+        for k in (x for x in range(n) if height[x] == h - 1):
+            groups.extend([[(int(anc_off[k]) + sl | k << 16 | FA_SCALE, 0)]
+                           for sl in range(depth[k])])
+        passes.append(groups)
+    rows, row_off = _pack(passes, NT, (-1, 0))
+    tab = np.array(rows, np.int64).reshape(-1, NT, 2)
+    return tab[..., 0], tab[..., 1], np.array(row_off, np.int64)
 
 
 def build_tables(m: PhysicsModel, params: engine.ContactParams):
@@ -120,6 +332,15 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
                 raise NotImplementedError("dof ancestor lists do not nest")
     anc_off, anc_idx = _csr(anc_lists)
     ent_row = np.repeat(np.arange(nd), np.diff(anc_off))
+    if nd > NT or len(anc_idx) + nd >= 1 << 13:
+        raise NotImplementedError(
+            f"the kernel's tables take at most {NT} dofs and "
+            f"{(1 << 13) - nd - 1} compressed slots, got {nd} and "
+            f"{len(anc_idx)}")
+    height, _ = tree_levels(anc_lists)
+    inv = inverse_tables(anc_lists, anc_off)
+    fac_a, fac_b, fac_row = factor_schedule(anc_lists, anc_off,
+                                            len(anc_idx))
     k = min(params.max_contacts, m.ncpoint)
     kp = min(params.max_pair_contacts, m.npair + m.nbpair)
     c3 = 3 * k + kp
@@ -139,7 +360,10 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
             ("p_b1", m.pair_body1.cpu().numpy()),
             ("p_b2", m.pair_body2.cpu().numpy()),
             ("bp_seg", m.bpair_body_seg.cpu().numpy()),
-            ("bp_box", m.bpair_body_box.cpu().numpy())]
+            ("bp_box", m.bpair_body_box.cpu().numpy()),
+            ("height", height),
+            ("fac_a", fac_a), ("fac_b", fac_b), ("fac_row", fac_row)] \
+        + list(inv.items())
     p = params
     floats = [("body_pos", f64(m.body_pos)), ("body_ipos", f64(m.body_ipos)),
               ("mass", f64(m.body_mass)), ("inertia", f64(m.body_inertia)),
@@ -165,7 +389,9 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
                                  p.klim, p.blim, p.relax]))]
     dims = dict(nb=nb, nd=nd, nq=nq, nu=nu, ncp=m.ncpoint, npair=m.npair,
                 nbpair=m.nbpair, k=k, kp=kp, c3=c3, nnz=len(anc_idx),
-                nlevel=len(lvl_off) - 1, iters=int(p.iters))
+                nlevel=len(lvl_off) - 1, iters=int(p.iters),
+                n_fac=len(fac_row) - 1)
+    dims.update(smem_layout(dims))
     itab, off = [], 0
     for name, a in ints:
         dims["i_" + name] = off
@@ -186,7 +412,8 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
 # build + bind
 # ---------------------------------------------------------------------------
 
-_lib = None
+_libs = {}
+_DIMS = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
 
 
 def build(verbose: bool = False) -> str:
@@ -195,17 +422,23 @@ def build(verbose: bool = False) -> str:
     return nvcc.build("substep.cu", verbose)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name in ("egopose_substep_f32", "egopose_substep_f64"):
+def _load(clocks: bool = False):
+    """The kernel's library; with ``clocks`` its stage-clock build."""
+    if clocks not in _libs:
+        lib = ctypes.CDLL(nvcc.build(("substep.cu", (CLOCKS_DEFINE,)))
+                          if clocks else build())
+        names = ("egopose_substep_clocks_f32",) if clocks else \
+            ("egopose_substep_f32", "egopose_substep_f64")
+        for name in names:
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int] \
-                + [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = _DIMS + [ctypes.c_void_p] * (11 if clocks else 10) \
+                + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        lib.egopose_substep_occupancy.argtypes = _DIMS + [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.egopose_substep_occupancy.restype = ctypes.c_int
+        _libs[clocks] = lib
+    return _libs[clocks]
 
 
 def _device_tables(m: PhysicsModel, params, device, dtype):
@@ -218,12 +451,37 @@ def _device_tables(m: PhysicsModel, params, device, dtype):
     return m.kernel_cache[key]
 
 
+def _dim_array(dims, n_frames, params):
+    dims = dict(dims, n_frames=int(n_frames),
+                prep_refresh=max(1, int(params.prep_refresh)))
+    return (ctypes.c_int * len(DIM_FIELDS))(
+        *[int(dims[f]) for f in DIM_FIELDS])
+
+
+def occupancy(m: PhysicsModel, dtype, n_frames: int = 15,
+              params: engine.ContactParams = engine.DEFAULT_CONTACT) -> dict:
+    """The kernel's resources on the current card for ``m``: blocks per
+    SM, registers per thread, shared bytes per block, spill bytes."""
+    dims, _, _ = build_tables(m, params)
+    out = (ctypes.c_int * 4)()
+    err = _load().egopose_substep_occupancy(
+        _dim_array(dims, n_frames, params), len(DIM_FIELDS),
+        int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: error {err}")
+    return dict(blocks_per_sm=out[0], registers=out[1], shared_bytes=out[2],
+                local_bytes=out[3])
+
+
 def pd_control_step_cuda(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, tlim,
                          n_frames: int,
-                         params: engine.ContactParams = engine.DEFAULT_CONTACT):
+                         params: engine.ContactParams = engine.DEFAULT_CONTACT,
+                         clocks=None):
     """Launch the kernel: qpos (B,nq), qvel (B,nd), ctrl/jkp/jkd/tlim
     (B,nu), all contiguous CUDA tensors of one float dtype -> (qpos',
-    qvel'), new tensors."""
+    qvel'), new tensors.  With ``clocks``, a (B, len(STAGES)) int64 CUDA
+    tensor, the stage-clock build runs instead (float32 only) and fills it
+    with each stage's cycles; it is not counted as a launch."""
     global launches
     bsz = qpos.shape[0]
     dtype = qpos.dtype
@@ -239,19 +497,27 @@ def pd_control_step_cuda(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, tlim,
                 f"({bsz}, {w}) on {qpos.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     dims, itab, ftab = _device_tables(m, params, qpos.device, dtype)
-    dims = dict(dims, n_frames=int(n_frames),
-                prep_refresh=max(1, int(params.prep_refresh)))
-    dim_arr = (ctypes.c_int * len(DIM_FIELDS))(
-        *[int(dims[f]) for f in DIM_FIELDS])
+    dim_arr = _dim_array(dims, n_frames, params)
     qpos_out = torch.empty_like(qpos)
     qvel_out = torch.empty_like(qvel)
+    ptrs = [itab.data_ptr(), ftab.data_ptr(), qpos.data_ptr(),
+            qvel.data_ptr(), ctrl.data_ptr(), jkp.data_ptr(), jkd.data_ptr(),
+            tlim.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr()]
+    stream = torch.cuda.current_stream(qpos.device).cuda_stream
+    if clocks is not None:
+        if dtype != torch.float32 or clocks.dtype != torch.int64 \
+                or tuple(clocks.shape) != (bsz, len(STAGES)) \
+                or clocks.device != qpos.device or not clocks.is_contiguous():
+            raise ValueError("clocks: a contiguous (B, len(STAGES)) int64 "
+                             "tensor beside float32 inputs")
+        err = _load(clocks=True).egopose_substep_clocks_f32(
+            dim_arr, len(DIM_FIELDS), *ptrs, clocks.data_ptr(), bsz, stream)
+        if err != 0:
+            raise RuntimeError(f"stage-clock launch failed: error {err}")
+        return qpos_out, qvel_out
     fn = _load().egopose_substep_f64 if dtype == torch.float64 \
         else _load().egopose_substep_f32
-    err = fn(dim_arr, len(DIM_FIELDS), itab.data_ptr(), ftab.data_ptr(),
-             qpos.data_ptr(), qvel.data_ptr(), ctrl.data_ptr(),
-             jkp.data_ptr(), jkd.data_ptr(), tlim.data_ptr(),
-             qpos_out.data_ptr(), qvel_out.data_ptr(), bsz,
-             torch.cuda.current_stream(qpos.device).cuda_stream)
+    err = fn(dim_arr, len(DIM_FIELDS), *ptrs, bsz, stream)
     if err != 0:
         raise RuntimeError(
             f"substep kernel launch failed: error {err} (a CUDA error code; "

@@ -62,6 +62,64 @@ def test_kernel_matches_plain_on_card(card, dtype, r):
         assert dv.pow(2).mean().sqrt() <= 1e-4
 
 
+def _k1_states(spec, bsz, seed, lift=0.0):
+    """Standing poses with random hinges and velocities: the feet touch the
+    floor (active floor rows) unless ``lift`` raises the root."""
+    rng = np.random.RandomState(seed)
+    q = np.zeros((bsz, spec.nq))
+    q[:, 2] = 0.935 + lift
+    q[:, 3] = 1.0
+    q[:, 7:] = rng.uniform(-0.3, 0.3, (bsz, spec.nq - 7))
+    v = rng.normal(0, 0.5, (bsz, spec.ndof))
+    ctrl = q[:, 7:] + rng.normal(0, 0.1, (bsz, spec.nu))
+    return q, v, ctrl
+
+
+def _hold_k1(card, dtype, bsz, r, seed, lift=0.0):
+    """One control step through K1 against the plain split path: f64
+    max-abs <= 1e-9, f32 RMS qpos <= 1e-6 and qvel <= 1e-4."""
+    from egopose_tpu_torch.physics import engine, model, substep
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    spec = parse_mjcf(XML)
+    m = model.build_model(spec, dtype=dtype, device=card)
+    q, v, ctrl = _k1_states(spec, bsz, seed, lift)
+    gains = [np.full(spec.nu, g) for g in (300.0, 30.0, 100.0)]
+    t = lambda x: torch.tensor(x, dtype=dtype, device=card)
+    params = engine.DEFAULT_CONTACT._replace(prep_refresh=r)
+    before = substep.launches
+    qk, vk = engine.pd_control_step(
+        m, t(q), t(v), t(ctrl), *map(t, gains), 15, params)
+    assert substep.launches == before + 1
+    qp, vp = engine.pd_control_step_split(m, t(q), t(v), t(ctrl),
+                                          *map(t, gains), 15, params)
+    torch.cuda.synchronize()
+    assert torch.isfinite(qk).all() and torch.isfinite(vk).all()
+    dq, dv = (qk - qp).double(), (vk - vp).double()
+    if dtype == torch.float64:
+        assert dq.abs().max() <= 1e-9 and dv.abs().max() <= 1e-9
+    else:
+        assert dq.pow(2).mean().sqrt() <= 1e-6
+        assert dv.pow(2).mean().sqrt() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("bsz", [1, 4, 1024])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_batches_and_cadences_on_card(card, dtype, bsz, r):
+    """B = 1 and 4 (the eval's latency shapes), 1024 (training's one-wave
+    batch) at prep-refresh R = 1, 2 (a remainder group) and 3."""
+    _hold_k1(card, dtype, bsz, r, seed=bsz + r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_without_active_contacts_on_card(card, dtype):
+    """Every lane 1 m above the floor: no contact row is active, so the
+    kernel skips every column of Y and every row of the sweep."""
+    _hold_k1(card, dtype, 8, 3, seed=9, lift=1.0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags,want", [
     (dict(prep_refresh=3), dict(k2=30)),
@@ -148,6 +206,32 @@ def test_spd_solve_matches_plain_on_card(card, dtype, r, bsz):
     torch.cuda.synchronize()
     assert x.shape == rhs.shape and x.dtype == dtype
     assert torch.isfinite(x).all()
+    if dtype == torch.float64:
+        assert (x - plain).abs().max() <= 1e-9 * plain.abs().max()
+    else:
+        ref = linalg.spd_solve_plain(a.double(), rhs.double())
+        err_k = (x.double() - ref).abs().max()
+        err_p = (plain.double() - ref).abs().max()
+        assert err_k <= 4 * err_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 25, 32, 33])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 58, 64, 100])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_spd_solve_sizes_on_card(card, dtype, n, r):
+    """Sizes around the warp's 32 lanes (rows in the factor, columns in the
+    substitutions) and beyond two passes (n = 100), 257 systems (four per
+    block, the last block holding one): the bars of
+    test_spd_solve_matches_plain_on_card."""
+    from egopose_tpu_torch.physics import linalg
+    a, rhs = _spd_systems(257, n, r, dtype, card, seed=n * 100 + r)
+    before = linalg.launches
+    x = linalg.spd_solve(a, rhs)
+    assert linalg.launches == before + 1
+    plain = linalg.spd_solve_plain(a, rhs)
+    torch.cuda.synchronize()
+    assert x.shape == rhs.shape and torch.isfinite(x).all()
     if dtype == torch.float64:
         assert (x - plain).abs().max() <= 1e-9 * plain.abs().max()
     else:
