@@ -6,8 +6,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
   device       card name (torch) and name + power limit (nvidia-smi)
   build        nvcc builds of every kernel source in csrc/ (K1 substep.cu,
-               K2 spd_solve.cu, K3 + K4 fused_contact.cu, K5 fk.cu), one
-               nvcc per source, started together
+               K2 spd_solve.cu, K3 + K4 fused_contact.cu, K5 fk.cu), the
+               stage-clock builds of K1 and of K3 + K4, and K4's one-warp
+               build, one nvcc per library, started together
   k1_vs_plain  the kernel against the plain split path on the card, one
                control step (15 substeps) at R=3 (B=1024, B=4) and R=2
                (remainder group), on contact-rich states drawn from a numpy
@@ -62,7 +63,13 @@ Phases, one JSON line each; any failure exits non-zero:
                (f64) and 1e-5 (f32); finite
   k3_time, k4_time, k5_time
                kernel and plain version timed with CUDA events at B=1024
-               and B=4, f32, with the bound of the same work on this card
+               and B=4, f32, with the bound of the same work on this card;
+               K3 and K4 also their resources as in k1_time (and systems
+               per block)
+  k34_stages   the stage-clock build of K3 and K4 (EGOPOSE_STAGE_CLOCKS:
+               lane 0 of each warp stamps clock64() after each stage) at
+               B=4 and B=1024, f32: the median over warps of each stage's
+               cycles in one launch, K4's PD and dynamics warps apart
   pd_fused_step
                one control step of engine.pd_control_step with
                ContactParams(substep_resident=False, pd_fused=True) on the
@@ -97,10 +104,10 @@ Phases, one JSON line each; any failure exits non-zero:
                plain version and times
 
 With ``--only a,b`` only the phases named run (the device and build
-phases always do).  ``--ab DIR`` instead times K1 and K2 of the checkout
+phases always do).  ``--ab DIR`` instead times K1 to K4 of the checkout
 in DIR (a parent commit, unpacked with git archive) and of this tree in
 turns, parent, tree, tree, parent (phase ``ab``), each run a subprocess of
-``--only k1_time,k2_time``.
+``--only k1_time,k2_time,k3_time,k4_time``.
 
 The last two lines are the card's name and power limit and then
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints no
@@ -723,10 +730,11 @@ def phase_fused_vs_plain(device, which):
 def phase_fused_time(device, which):
     import torch
     from egopose_tpu_torch.physics import engine, linalg
-    cuda, plain, work = {
+    cuda, plain, work, occupancy = {
         "k3": (linalg.fused_contact_cuda, linalg.fused_contact_plain,
-               k3_work),
-        "k4": (linalg.pd_fused_cuda, linalg.pd_fused_plain, k4_work)}[which]
+               k3_work, linalg.fused_contact_occupancy),
+        "k4": (linalg.pd_fused_cuda, linalg.pd_fused_plain, k4_work,
+               linalg.pd_fused_occupancy)}[which]
     params = engine.DEFAULT_CONTACT
     spec, m, gains = load_world(torch.float32, device)
     extra = (m.timestep, params.iters, params.relax)
@@ -742,8 +750,53 @@ def phase_fused_time(device, which):
                    plain_ms=time_ms(lambda: plain(*args, *extra)),
                    library_ms=None,
                    **bound(*work(bsz, n, c, k, params.iters, 4)))
+        occ = occupancy(n, c, k, torch.float32)
+        rec.update(resources(occ, bsz, occ["systems_per_block"]))
         emit(which + "_time", **rec)
         out[bsz] = rec
+    return out
+
+
+def phase_k34_stages(device):
+    """K3's and K4's stage-clock build at B=4 and B=1024 (f32, the k3_time /
+    k4_time systems): the median over warps of each stage's cycles in one
+    launch, after two warm-up launches; K4's PD warp and dynamics warp
+    apart."""
+    import torch
+    from egopose_tpu_torch.physics import engine, linalg
+    params = engine.DEFAULT_CONTACT
+    spec, m, gains = load_world(torch.float32, device)
+    extra = (m.timestep, params.iters, params.relax)
+    out = {}
+    for bsz in (4, 1024):
+        q, v, ctrl = contact_states(spec, m, bsz, 50 + bsz, torch.float32,
+                                    device)
+        for which, warps in (("k3", {"warp": slice(None)}),
+                             ("k4", {"pd_warp": slice(0, None, 2),
+                                     "dynamics_warp": slice(1, None, 2)})):
+            if which == "k3":
+                args, run = k3_systems(m, q, v, params), \
+                    linalg.fused_contact_cuda
+            else:
+                args, run = k4_systems(m, gains, q, v, ctrl, params), \
+                    linalg.pd_fused_cuda
+            clocks = torch.zeros(bsz * (1 if which == "k3" else 2),
+                                 len(linalg.FUSED_STAGES), dtype=torch.int64,
+                                 device=device)
+            for _ in range(3):
+                run(*args, *extra, clocks=clocks)
+            torch.cuda.synchronize()
+            cyc = linalg.fused_stage_cycles(clocks.cpu())
+            rec = dict(kernel=which, B=bsz, dtype="float32")
+            for who, rows in warps.items():
+                c = cyc[rows]
+                rec[who] = {
+                    name: float(c[:, i][c[:, i] > 0].median())
+                    for i, name in enumerate(linalg.FUSED_STAGES)
+                    if bool((c[:, i] > 0).any())}
+                rec[who + "_total"] = sum(rec[who].values())
+            emit("k34_stages", **rec)
+            out[(which, bsz)] = rec
     return out
 
 
@@ -1175,18 +1228,19 @@ def phase_rollout_torque_fused(device):
 
 
 def run_ab(parent_dir):
-    """K1's and K2's times of a parent checkout (``parent_dir``, holding
+    """K1's to K4's times of a parent checkout (``parent_dir``, holding
     its own chip_smoke.py) and of this tree in turns, parent, tree, tree,
-    parent: each a subprocess running ``--only k1_time,k2_time``, which
-    builds its own kernels.  Prints one ``ab`` line per run and one
-    summary line; returns 0 when every run passed."""
+    parent: each a subprocess running ``--only
+    k1_time,k2_time,k3_time,k4_time``, which builds its own kernels.
+    Prints one ``ab`` line per run and one summary line; returns 0 when
+    every run passed."""
     runs = []
     for who in ("parent", "tree", "tree", "parent"):
         root = parent_dir if who == "parent" else REPO
         out = subprocess.run(
             [sys.executable, os.path.join(root, "chip_smoke.py"), "--only",
-             "k1_time,k2_time"], cwd=root, capture_output=True, text=True,
-            timeout=900)
+             "k1_time,k2_time,k3_time,k4_time"], cwd=root,
+            capture_output=True, text=True, timeout=900)
         recs = [json.loads(x) for x in out.stdout.splitlines()
                 if x.startswith('{"phase": "k')]
         times = {f"{r['phase'][:2]}_B{r['B']}_ms": r["ms"] for r in recs}
@@ -1224,9 +1278,10 @@ def main():
          cuda=torch.version.cuda)
     from egopose_tpu_torch.physics import substep
     t0 = time.time()
-    libs = nvcc.build_all(nvcc.SOURCES + (("substep.cu",
-                                           (substep.CLOCKS_DEFINE,)),),
-                          verbose=True)
+    from egopose_tpu_torch.physics import linalg
+    libs = nvcc.build_all(nvcc.SOURCES + (
+        ("substep.cu", (substep.CLOCKS_DEFINE,)),
+        ("fused_contact.cu", (linalg.CLOCKS_DEFINE,))), verbose=True)
     emit("build", seconds=time.time() - t0,
          libraries=[os.path.relpath(lib, REPO) for lib in libs])
     errs = phase_k1_vs_plain(device) if want("k1_vs_plain") else {}
@@ -1244,6 +1299,8 @@ def main():
     times3 = phase_fused_time(device, "k3") if want("k3_time") else {}
     times4 = phase_fused_time(device, "k4") if want("k4_time") else {}
     times5 = phase_k5_time(device) if want("k5_time") else {}
+    if want("k34_stages"):
+        phase_k34_stages(device)
     steps = {}
     if want("pd_fused_step"):
         add_counts(steps, phase_pd_fused_step(device))

@@ -16,10 +16,11 @@
 // system, A (n x n, row stride n + 1), X (n x r) and the n reciprocal
 // diagonals of L live in dynamic shared memory: at n = 58, r = 25 that is
 // 19.5 KB in float, so four systems per block and 8 warps per SM, and
-// B = 1024 runs in one wave on the H100's 132 SMs.  The factor is
-// left-looking by column: lanes own rows (lane, lane + 32, ...) and form
-// L[i][j] from a dot over k < j with L[j][k] read as a broadcast; the odd
-// row stride puts the 32 rows a warp reads at once in 32 distinct banks.
+// B = 1024 runs in one wave on the H100's 132 SMs.  The factor
+// (cholesky.cuh's warp_cholesky, shared with K3 and K4) is left-looking by
+// column: lanes own rows (lane, lane + 32, ...) and form L[i][j] from a
+// dot over k < j with L[j][k] read as a broadcast; the odd row stride puts
+// the 32 rows a warp reads at once in 32 distinct banks.
 // Each column takes one reciprocal square root of max(pivot, 1e-12), as
 // 1 / sqrt (IEEE-rounded, so a 1 x 1 system loses no more than the plain
 // version), which is also 1 / L[j][j] for the substitutions; they multiply.  In the
@@ -36,9 +37,6 @@
 // full precision; a 58 x 58 system has no product worth a tensor core); no
 // library call.  No --use_fast_math: the 58-dof system is stiff.
 #include "cholesky.cuh"
-
-__device__ inline float xsqrt(float x) { return sqrtf(x); }
-__device__ inline double xsqrt(double x) { return sqrt(x); }
 
 #define MAX_SPB 4   // systems (warps) per block
 
@@ -65,37 +63,7 @@ spd_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
   for (int e = lane; e < n * r; e += 32) X[e] = bg[e];
   __syncwarp();
 
-  // factor, left-looking by column: L[i][j] = (A[i][j] - sum_k<j L[i][k]
-  // L[j][k]) * rsqrt(max(pivot, 1e-12)); the pivot row j is lane 0's.
-  for (int j = 0; j < n; ++j) {
-    const T* lj = A + j * lda;
-    T s0 = T(0), s1 = T(0);
-    const int i0 = j + lane, i1 = j + lane + 32;
-    const bool has0 = i0 < n, has1 = i1 < n;
-    if (has0) s0 = A[i0 * lda + j];
-    if (has1) s1 = A[i1 * lda + j];
-    for (int k = 0; k < j; ++k) {
-      const T ljk = lj[k];
-      if (has0) s0 -= A[i0 * lda + k] * ljk;
-      if (has1) s1 -= A[i1 * lda + k] * ljk;
-    }
-    for (int i = j + lane + 64; i < n; i += 32) {   // n > j + 64 only
-      T si = A[i * lda + j];
-      for (int k = 0; k < j; ++k) si -= A[i * lda + k] * lj[k];
-      A[i * lda + j] = si;                            // scaled below
-    }
-    // inv = rsqrt(max(pivot, 1e-12)), rounded as 1 / sqrt; L[j][j] =
-    // pivot * inv, which is sqrt(pivot) unless the floor applies
-    const T piv = __shfl_sync(0xffffffffu, s0, 0);
-    const T root = xsqrt(xmax(piv, T(1e-12)));
-    const T inv = T(1) / root;
-    __syncwarp();
-    if (has0) A[i0 * lda + j] = s0 * inv;
-    if (has1) A[i1 * lda + j] = s1 * inv;
-    for (int i = j + lane + 64; i < n; i += 32) A[i * lda + j] *= inv;
-    if (lane == 0) rdiag[j] = piv >= T(1e-12) ? inv : root / piv;
-    __syncwarp();
-  }
+  warp_cholesky(A, lda, rdiag, n, lane);   // cholesky.cuh
 
   // substitutions: lane c solves column c (c = lane, lane + 32, ...)
   for (int c = lane; c < r; c += 32) {
@@ -116,24 +84,11 @@ spd_solve_kernel(const T* __restrict__ a, const T* __restrict__ b,
   for (int e = lane; e < n * r; e += 32) xg[e] = X[e];
 }
 
-// Systems per block for (n, r): up to MAX_SPB while the block fits the
-// card's per-block shared memory; 0 when one system does not fit.
-template <typename T>
-static int systems_per_block(int n, int r) {
-  int dev = 0, max_optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t one = sys_values(n, r) * sizeof(T);
-  if (one > (size_t)max_optin) return 0;
-  const size_t fit = (size_t)max_optin / one;
-  return fit < MAX_SPB ? (int)fit : MAX_SPB;
-}
-
 template <typename T>
 static int launch(const T* a, const T* b, T* x, int batch, int n, int r,
                   void* stream) {
   if (batch < 1 || n < 1 || r < 1) return -1;
-  const int spb = systems_per_block<T>(n, r);
+  const int spb = systems_per_block(sys_values(n, r) * sizeof(T), MAX_SPB);
   if (spb == 0) return -2;
   const size_t bytes = spb * sys_values(n, r) * sizeof(T);
   const int err = opt_in_shared(spd_solve_kernel<T>, bytes);
@@ -163,21 +118,9 @@ extern "C" int egopose_spd_solve_f64(const void* a, const void* b, void* x,
 template <typename T>
 static int occupancy(int n, int r, int* out) {
   if (n < 1 || r < 1) return -1;
-  const int spb = systems_per_block<T>(n, r);
-  if (spb == 0) return -2;
-  const size_t bytes = spb * sys_values(n, r) * sizeof(T);
-  int err = opt_in_shared(spd_solve_kernel<T>, bytes);
-  if (err != 0) return err;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, spd_solve_kernel<T>);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], spd_solve_kernel<T>,
-                                                    32 * spb, bytes);
-  out[1] = attr.numRegs;
-  out[2] = (int)bytes;
-  out[3] = (int)attr.localSizeBytes;
-  out[4] = spb;
-  return (int)e;
+  const size_t one = sys_values(n, r) * sizeof(T);
+  return kernel_occupancy(spd_solve_kernel<T>,
+                          systems_per_block(one, MAX_SPB), 32, one, out);
 }
 
 extern "C" int egopose_spd_solve_occupancy(int n, int r, int f64, int* out) {

@@ -7,13 +7,15 @@ hand-written CUDA C++ kernel:
 - K2, ``_cho_solve_kernel_blocked`` (launched by ``_batched_spd_solve_tpu``
   from the ``custom_vmap`` rule of ``spd_solve``): the dense SPD solve, in
   ``csrc/spd_solve.cu``, one warp per system;
-- K3, ``_fused_contact_kernel`` (``_fused_contact_tpu``): factor, solve
-  [dt qfrc | J^T], Delassus operator and projected-Jacobi sweep -> v_new,
-  in ``csrc/fused_contact.cu``;
+- K3, ``_fused_contact_kernel`` (``_fused_contact_tpu``): factor, the
+  Delassus operator and the projected-Jacobi sweep -> v_new, in
+  ``csrc/fused_contact.cu``, one warp per system, solving forward only
+  (Z = L^-1 [dt qfrc | J^T], D = Z_c^T Z_c, one back substitution);
 - K4, ``_pd_fused_kernel`` (``_pd_fused_tpu``): one stable-PD substep's
   PD solve, torque clamp, dynamics solve and sweep -> v_new, in the same
-  file, one thread block per system.  K3 and K4 share the factor and
-  substitutions of ``csrc/cholesky.cuh``.
+  file, two warps per system that factor the PD and the dynamics systems
+  side by side.  K2, K3 and K4 share the one-warp factor of
+  ``csrc/cholesky.cuh``.
 
 ``spd_solve``, ``fused_contact`` and ``pd_fused`` dispatch on the tensors'
 device: a CUDA batch launches the kernel, a CPU batch runs the plain
@@ -106,6 +108,28 @@ def pd_fused_plain(mmat, kdd, rhspd, e, jkp, jkd, tlim, gear, qfb, qvel, jf,
 # the kernels
 # ---------------------------------------------------------------------------
 
+# K3's and K4's stage-clock build (``clocks=`` of their CUDA wrappers): per
+# warp, clock64() at the start and at the end of each stage it runs, in
+# the order of FUSED_STAGES (csrc/fused_contact.cu, ``ST_*``).
+CLOCKS_DEFINE = "EGOPOSE_STAGE_CLOCKS"
+FUSED_STAGES = ("start", "load", "factor", "gram", "wait", "z0", "prep",
+                "sweep", "velocity", "pd_factor", "pd_back", "torque")
+
+
+def fused_stage_cycles(clocks: torch.Tensor) -> torch.Tensor:
+    """Stamps (warps, len(FUSED_STAGES)) of the stage-clock build -> the
+    cycles of each stage per warp: a stage's stamp minus the warp's
+    previous stamp (its stages run one after another); 0 for a stage the
+    warp does not run and for ``start``."""
+    t = clocks.to(torch.float64)
+    ran = clocks != 0
+    order = torch.where(ran, t, torch.full_like(t, float("inf"))).argsort(1)
+    ts = t.gather(1, order)
+    prev = torch.cat([ts[:, :1], ts[:, :-1]], 1)
+    cyc = torch.where(ran.gather(1, order), ts - prev, torch.zeros_like(ts))
+    return torch.zeros_like(t).scatter(1, order, cyc)
+
+
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "spd_solve.cu": {"egopose_spd_solve": [_P] * 3 + [_I] * 3 + [_P]},
@@ -115,34 +139,58 @@ _SIGNATURES = {
 }
 
 
-def _kernel(source: str, name: str, dtype: torch.dtype):
-    """The C entry ``name`` of ``source`` for ``dtype`` (None: an entry
-    without a dtype suffix), built at first use."""
-    if source not in _libs:
-        lib = ctypes.CDLL(nvcc.build(source))
+def _kernel(source: str, name: str, dtype: torch.dtype, defines=()):
+    """The C entry ``name`` of ``source`` (built with ``defines``) for
+    ``dtype`` (None: an entry without a dtype suffix), built at first
+    use."""
+    key = (source, tuple(defines))
+    if key not in _libs:
+        lib = ctypes.CDLL(nvcc.build((source, tuple(defines))))
         for stem, argtypes in _SIGNATURES[source].items():
             for sfx in ("_f32", "_f64"):
                 fn = getattr(lib, stem + sfx)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-        _libs[source] = lib
+        _libs[key] = lib
     if dtype is None:
-        return getattr(_libs[source], name)
+        return getattr(_libs[key], name)
     sfx = "_f64" if dtype == torch.float64 else "_f32"
-    return getattr(_libs[source], name + sfx)
+    return getattr(_libs[key], name + sfx)
+
+
+_OCC_KEYS = ("blocks_per_sm", "registers", "shared_bytes", "local_bytes",
+             "systems_per_block", "warps_per_system")
+
+
+def _occupancy(source, name, sizes, dtype):
+    fn = _kernel(source, name, None)
+    fn.argtypes = [_I] * (len(sizes) + 1) + [ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * 6)(0, 0, 0, 0, 0, 1)
+    _raise_on(fn(*sizes, int(dtype == torch.float64), out), name)
+    return dict(zip(_OCC_KEYS, out))
 
 
 def spd_solve_occupancy(n: int, r: int, dtype) -> dict:
     """K2's resources on the current card for (n, r): blocks per SM,
     registers per thread, shared bytes per block, spill bytes, systems
-    per block."""
-    fn = _kernel("spd_solve.cu", "egopose_spd_solve_occupancy", None)
-    fn.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
-    fn.restype = _I
-    out = (_I * 5)()
-    _raise_on(fn(n, r, int(dtype == torch.float64), out), "spd_solve")
-    return dict(blocks_per_sm=out[0], registers=out[1], shared_bytes=out[2],
-                local_bytes=out[3], systems_per_block=out[4])
+    per block (one warp each)."""
+    return _occupancy("spd_solve.cu", "egopose_spd_solve_occupancy", (n, r),
+                      dtype)
+
+
+def fused_contact_occupancy(n: int, c: int, k: int, dtype) -> dict:
+    """K3's resources on the current card for (n, c, k), as
+    spd_solve_occupancy."""
+    return _occupancy("fused_contact.cu", "egopose_fused_contact_occupancy",
+                      (n, c, k), dtype)
+
+
+def pd_fused_occupancy(n: int, c: int, k: int, dtype) -> dict:
+    """K4's resources on the current card for (n, c, k), as
+    spd_solve_occupancy (two warps per system)."""
+    return _occupancy("fused_contact.cu", "egopose_pd_fused_occupancy",
+                      (n, c, k), dtype)
 
 
 def _check(what: str, shapes):
@@ -201,16 +249,37 @@ def spd_solve_cuda(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def fused_contact_cuda(a, qfrc, qvel, jf, target, mu, dt, iters, relax):
+def _fused_entry(name, dtype, clocks, warps):
+    """The C entry of K3 or K4; with ``clocks`` (an int64 CUDA tensor
+    (``warps``, len(FUSED_STAGES))), the stage-clock build's, writing its
+    stamps there."""
+    if clocks is None:
+        return _kernel("fused_contact.cu", name, dtype)
+    defines = (CLOCKS_DEFINE,)
+    if clocks.dtype != torch.int64 or not clocks.is_cuda \
+            or not clocks.is_contiguous() \
+            or tuple(clocks.shape) != (warps, len(FUSED_STAGES)):
+        raise ValueError(f"clocks: a contiguous ({warps}, "
+                         f"{len(FUSED_STAGES)}) int64 CUDA tensor")
+    fn = _kernel("fused_contact.cu", "egopose_fused_clocks", None, defines)
+    fn.argtypes = [_P]
+    fn.restype = _I
+    _raise_on(fn(clocks.data_ptr()), name)
+    return _kernel("fused_contact.cu", name, dtype, defines)
+
+
+def fused_contact_cuda(a, qfrc, qvel, jf, target, mu, dt, iters, relax,
+                       clocks=None):
     """Launch K3 (arguments as fused_contact_plain; contiguous CUDA tensors
-    of one float dtype) -> v_new (B,n), a new tensor."""
+    of one float dtype) -> v_new (B,n), a new tensor.  With ``clocks`` (B,
+    len(FUSED_STAGES)) int64, the stage-clock build, stamping there."""
     global fused_contact_launches
     bsz, n, c, k = _contact_sizes("fused_contact", jf, mu)
     _check("fused_contact", [(a, (bsz, n, n)), (qfrc, (bsz, n)),
                              (qvel, (bsz, n)), (jf, (bsz, c, n)),
                              (target, (bsz, c)), (mu, (bsz, k))])
     out = torch.empty_like(qvel)
-    fn = _kernel("fused_contact.cu", "egopose_fused_contact", a.dtype)
+    fn = _fused_entry("egopose_fused_contact", a.dtype, clocks, bsz)
     _raise_on(fn(a.data_ptr(), qfrc.data_ptr(), qvel.data_ptr(),
                  jf.data_ptr(), target.data_ptr(), mu.data_ptr(),
                  out.data_ptr(), bsz, n, c, k, int(iters), float(dt),
@@ -222,9 +291,11 @@ def fused_contact_cuda(a, qfrc, qvel, jf, target, mu, dt, iters, relax):
 
 
 def pd_fused_cuda(mmat, kdd, rhspd, e, jkp, jkd, tlim, gear, qfb, qvel, jf,
-                  target, mu, dt, iters, relax):
+                  target, mu, dt, iters, relax, clocks=None):
     """Launch K4 (arguments as pd_fused_plain; contiguous CUDA tensors of
-    one float dtype) -> v_new (B,n), a new tensor."""
+    one float dtype) -> v_new (B,n), a new tensor.  With ``clocks`` (2 B,
+    len(FUSED_STAGES)) int64 (row 2 b: the PD warp of system b, 2 b + 1
+    its dynamics warp), the stage-clock build, stamping there."""
     global pd_fused_launches
     bsz, n, c, k = _contact_sizes("pd_fused", jf, mu)
     vecs = (rhspd, e, jkp, jkd, tlim, gear, qfb, qvel)
@@ -232,7 +303,7 @@ def pd_fused_cuda(mmat, kdd, rhspd, e, jkp, jkd, tlim, gear, qfb, qvel, jf,
            + [(v, (bsz, n)) for v in vecs]
            + [(jf, (bsz, c, n)), (target, (bsz, c)), (mu, (bsz, k))])
     out = torch.empty_like(qvel)
-    fn = _kernel("fused_contact.cu", "egopose_pd_fused", mmat.dtype)
+    fn = _fused_entry("egopose_pd_fused", mmat.dtype, clocks, 2 * bsz)
     _raise_on(fn(mmat.data_ptr(), kdd.data_ptr(),
                  *[v.data_ptr() for v in vecs], jf.data_ptr(),
                  target.data_ptr(), mu.data_ptr(), out.data_ptr(), bsz, n, c,

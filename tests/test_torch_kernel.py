@@ -335,6 +335,148 @@ def test_pd_fused_matches_plain_on_card(card, dtype, bsz, c, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(24, 6), (33, 11), (48, 16), (6, 0),
+                                 (64, 16), (70, 0)])
+@pytest.mark.parametrize("bsz", [1, 5, 64, 1024])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_contact_sizes_on_card(card, dtype, bsz, c, k):
+    """K3 (one warp per system, four per block) at batches that leave the
+    last block partly filled, rows below, at and above the warp's 32 lanes
+    (two Z columns and two sweep rows per lane), more Z columns than the
+    two per lane that ride on the factor (c >= 64), and pair rows only
+    (k=0): the bars of _hold."""
+    from egopose_tpu_torch.physics import linalg
+    args = _contact_system(bsz, 58, c, k, dtype, card, seed=7 * bsz + c)
+    before = linalg.fused_contact_launches
+    got = linalg.fused_contact(*args, 1 / 450, 10, 1.0)
+    assert linalg.fused_contact_launches == before + 1
+    plain = linalg.fused_contact_plain(*args, 1 / 450, 10, 1.0)
+    ref = linalg.fused_contact_plain(*[x.double() for x in args], 1 / 450,
+                                     10, 1.0)
+    torch.cuda.synchronize()
+    _hold(got, plain, dtype, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(24, 6), (48, 16), (70, 20)])
+@pytest.mark.parametrize("bsz", [1, 5, 64, 1024])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pd_fused_sizes_on_card(card, dtype, bsz, c, k):
+    """K4 (two warps per system joined on a named barrier, four systems
+    per block) at batches that leave the last block partly filled, and
+    with more Z columns than the two per lane that ride on the factor
+    (c = 70): the bars of _hold."""
+    from egopose_tpu_torch.physics import linalg
+    args = _pd_system(bsz, 58, c, k, dtype, card, seed=7 * bsz + c)
+    before = linalg.pd_fused_launches
+    got = linalg.pd_fused(*args, 1 / 450, 10, 1.0)
+    assert linalg.pd_fused_launches == before + 1
+    plain = linalg.pd_fused_plain(*args, 1 / 450, 10, 1.0)
+    ref = linalg.pd_fused_plain(*[x.double() for x in args], 1 / 450, 10,
+                                1.0)
+    torch.cuda.synchronize()
+    _hold(got, plain, dtype, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k3", "k4"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_without_iterations_on_card(card, dtype, which):
+    """iters = 0: lam stays 0 and v_new is v_pred (B=5, c=24, k=6)."""
+    from egopose_tpu_torch.physics import linalg
+    make, cuda, plain = {
+        "k3": (_contact_system, linalg.fused_contact,
+               linalg.fused_contact_plain),
+        "k4": (_pd_system, linalg.pd_fused, linalg.pd_fused_plain)}[which]
+    args = make(5, 58, 24, 6, dtype, card, seed=11)
+    got = cuda(*args, 1 / 450, 0, 1.0)
+    want = plain(*args, 1 / 450, 0, 1.0)
+    ref = plain(*[x.double() for x in args], 1 / 450, 0, 1.0)
+    torch.cuda.synchronize()
+    _hold(got, want, dtype, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_occupancy_on_card(card, dtype):
+    """K3's and K4's resources, from the per-system layout the launcher
+    uses (csrc/fused_contact.cu, Sys<size_t>): one float64 system at c=48,
+    k=16 fits a block; at the humanoid's shape (n=58, c=24, k=6) a block
+    holds whole systems, K3 runs one warp per system and, in float32,
+    takes <= 24 KB per system and B=1024 in one wave; K4 two warps per
+    system."""
+    from egopose_tpu_torch.physics import linalg
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for occupancy, warps in ((linalg.fused_contact_occupancy, 1),
+                             (linalg.pd_fused_occupancy, 2)):
+        wide = occupancy(58, 48, 16, torch.float64)
+        assert wide["systems_per_block"] >= 1 and wide["blocks_per_sm"] >= 1
+        occ = occupancy(58, 24, 6, dtype)
+        assert occ["warps_per_system"] == warps
+        assert occ["blocks_per_sm"] >= 1
+        one, rest = divmod(occ["shared_bytes"], occ["systems_per_block"])
+        assert rest == 0
+        if warps == 1 and dtype == torch.float32:
+            assert one <= 24 * 1024
+            blocks = -(-1024 // occ["systems_per_block"])
+            assert blocks <= occ["blocks_per_sm"] * sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k3", "k4"])
+def test_fused_read_the_lower_triangle_on_card(card, which):
+    """K3 and K4 factor the lower triangle of A (M), as the plain version's
+    Cholesky does: garbage in the strict upper triangle changes nothing
+    (B=9, f64, K4's PD factor stored transposed in the upper half of its
+    square)."""
+    from egopose_tpu_torch.physics import linalg
+    make, cuda, plain = {
+        "k3": (_contact_system, linalg.fused_contact,
+               linalg.fused_contact_plain),
+        "k4": (_pd_system, linalg.pd_fused, linalg.pd_fused_plain)}[which]
+    args = list(make(9, 58, 24, 6, torch.float64, card, seed=13))
+    upper = torch.triu(torch.ones(58, 58, dtype=torch.bool, device=card), 1)
+    args[0] = torch.where(upper, args[0] + 1e3, args[0])
+    got = cuda(*args, 1 / 450, 10, 1.0)
+    want = plain(*args, 1 / 450, 10, 1.0)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-9 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k3", "k4"])
+def test_fused_stage_clocks_on_card(card, which):
+    """The stage-clock build (csrc/fused_contact.cu, EGOPOSE_STAGE_CLOCKS)
+    holds the bars of _hold, and stamps every stage of its warps: K3 load
+    to velocity; K4's PD warp load, pd_factor, pd_back, torque, its
+    dynamics warp load to velocity with the barrier wait and z0."""
+    from egopose_tpu_torch.physics import linalg
+    make, run, plain = {
+        "k3": (_contact_system, linalg.fused_contact_cuda,
+               linalg.fused_contact_plain),
+        "k4": (_pd_system, linalg.pd_fused_cuda, linalg.pd_fused_plain)}[which]
+    args = make(9, 58, 24, 6, torch.float32, card, seed=5)
+    warps = 9 if which == "k3" else 18
+    clocks = torch.zeros(warps, len(linalg.FUSED_STAGES), dtype=torch.int64,
+                         device=card)
+    got = run(*args, 1 / 450, 10, 1.0, clocks=clocks)
+    want = plain(*args, 1 / 450, 10, 1.0)
+    ref = plain(*[x.double() for x in args], 1 / 450, 10, 1.0)
+    torch.cuda.synchronize()
+    _hold(got, want, torch.float32, ref)
+    cyc = linalg.fused_stage_cycles(clocks.cpu())
+    ran = lambda rows: {name for i, name in enumerate(linalg.FUSED_STAGES)
+                        if bool((cyc[rows, i] > 0).all())}
+    contact = {"load", "factor", "gram", "prep", "sweep", "velocity"}
+    if which == "k3":
+        assert ran(slice(None)) == contact
+    else:
+        assert ran(slice(0, None, 2)) == {"load", "pd_factor", "pd_back",
+                                          "torque"}
+        assert ran(slice(1, None, 2)) == contact | {"wait", "z0"}
+
+
+@pytest.mark.cuda
 def test_fused_wrappers_reject_bad_inputs(card):
     from egopose_tpu_torch.physics import linalg
     args = list(_contact_system(2, 8, 6, 2, torch.float32, card, seed=0))
