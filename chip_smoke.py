@@ -2,26 +2,38 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure exits non-zero:
+Phases, one JSON line each (``t``: seconds since the script started);
+any failure exits non-zero:
 
   device       card name (torch) and name + power limit (nvidia-smi)
   build        nvcc builds of every kernel source in csrc/ (K1 substep.cu,
-               K2 spd_solve.cu, K3 + K4 fused_contact.cu, K5 fk.cu), the
-               stage-clock builds of K1 and of K3 + K4, and K4's one-warp
-               build, one nvcc per library, started together
+               both branches, K2 spd_solve.cu, K3 + K4 fused_contact.cu, K5
+               fk.cu) and the stage-clock builds of K1 and of K3 + K4, one
+               nvcc per library, started together
   k1_vs_plain  the kernel against the plain split path on the card, one
                control step (15 substeps) at R=3 (B=1024, B=4) and R=2
                (remainder group), on contact-rich states drawn from a numpy
                seed: f64 max-abs <= 1e-9, f32 RMS qpos <= 1e-6 and qvel
                <= 1e-4 with finite outputs
   k1_time      kernel and plain version timed with CUDA events (median of
-               >= 20 launches after warm-up) at B=1024 and B=4, f32, with
-               the bound of the same work on this card, and the kernel's
-               registers, shared bytes, blocks per SM and waves at B=1024
+               >= 20 launches after warm-up, each bracketed alone: ms) at
+               B=1024 and B=4, f32, and the kernel's 50 launches back to
+               back between two events (ms_b2b, per launch: without the
+               wrapper's host time), with the bound of the same work on
+               this card, and the kernel's registers, shared bytes, blocks
+               per SM and waves at B=1024
+  k1_dense_vs_plain
+               K1's dense branch (ContactParams.sparse_ldl=False, given
+               prep_refresh=3, which it must ignore) against the split path
+               at R=1 on contact-rich states, B=1024, 4 and 64, with
+               k1_vs_plain's bars
+  k1_dense_time
+               the same timings of the dense branch and its plain version,
+               bound from k1_dense_work, resources
   k1_stages    the stage-clock build of K1 (EGOPOSE_STAGE_CLOCKS: thread 0
                of each block sums clock64() cycles per stage) at B=4 and
-               B=1024, f32: the median over environments of each stage's
-               cycles in one control step
+               B=1024, f32, each branch: the median over environments of
+               each stage's cycles in one control step
   eval         the port's main path: ego_mimic_eval --cfg subject_03
                --synthetic --iter 3000 in f32 on the card (4 takes x 380
                steps), then eval_pose's compute_stats; asserts one kernel
@@ -38,8 +50,9 @@ Phases, one JSON line each; any failure exits non-zero:
                the same inputs at most 4x the plain f32 version's; finite
   k2_time      kernel, plain version and torch.linalg.solve (the library
                yardstick) timed with CUDA events at B=1024 and B=4, r=25,
-               f32, with the bound of the same work on this card and the
-               kernel's resources as in k1_time
+               f32 (the kernel also back to back), with the bound of the
+               same work on this card and the kernel's resources as in
+               k1_time
   train        the training main path: ego_mimic --cfg subject_03
                --synthetic --batch-lanes 1024 --max-iter 2 in f32 (shipped
                widths; one 200-step segment of 204,800 env steps per
@@ -63,7 +76,9 @@ Phases, one JSON line each; any failure exits non-zero:
                (f64) and 1e-5 (f32); finite
   k3_time, k4_time, k5_time
                kernel and plain version timed with CUDA events at B=1024
-               and B=4, f32, with the bound of the same work on this card;
+               and B=4, f32 (the kernel also back to back), with the bound
+               of the same work on this card (K2-K4 count the lower
+               triangle of A / M as read, all that a Cholesky factor reads);
                K3 and K4 also their resources as in k1_time (and systems
                per block)
   k34_stages   the stage-clock build of K3 and K4 (EGOPOSE_STAGE_CLOCKS:
@@ -98,10 +113,13 @@ Phases, one JSON line each; any failure exits non-zero:
   rollout_torque_fused
                the same in torque mode with fused_solver=True: K3 launches
                == 15 x control steps, K2 == 0
-  kernels      every kernel of the port with its TPU counterpart, launches
-               on the main paths (eval + train + train_torque + the three
-               one-step phases + the two fused rollouts), error against the
-               plain version and times
+  rollout_dense
+               the same in position mode with sparse_ldl=False: one launch
+               of K1's dense branch per control step, no other kernel
+  kernels      every kernel of the port with its TPU counterpart (K1's
+               two branches on two rows), launches on the main paths (eval
+               + train + train_torque + the three one-step phases + the
+               three rollouts), error against the plain version and times
 
 With ``--only a,b`` only the phases named run (the device and build
 phases always do).  ``--ab DIR`` instead times K1 to K4 of the checkout
@@ -135,8 +153,12 @@ ROLLOUT_STEPS = 20            # control steps of the fused rollouts' segment
 ROLLOUT_LANES = 1024          # lanes of the fused rollouts
 
 
+T0 = time.time()              # every line's "t": seconds since the start
+
+
 def emit(phase, **kw):
-    print(json.dumps(dict(phase=phase, **kw)), flush=True)
+    print(json.dumps(dict(phase=phase, **kw, t=time.time() - T0)),
+          flush=True)
 
 
 def nvidia_smi_line():
@@ -236,6 +258,25 @@ def run_pair(m, gains, q, v, ctrl, params):
     return out_k, out_p
 
 
+def k1_bars(dtype, got, want):
+    """(ok, record) of K1's (qpos, qvel) ``got`` against its plain
+    version's ``want``: finite, and f64 max-abs qpos and qvel <= 1e-9, f32
+    RMS qpos <= 1e-6 and qvel <= 1e-4."""
+    import torch
+    (qk, vk), (qp, vp) = got, want
+    finite = bool(torch.isfinite(qk).all() and torch.isfinite(vk).all())
+    dq, dv = (qk - qp).double(), (vk - vp).double()
+    rec = dict(finite=finite, max_abs_qpos=float(dq.abs().max()),
+               max_abs_qvel=float(dv.abs().max()),
+               rms_qpos=float(dq.pow(2).mean().sqrt()),
+               rms_qvel=float(dv.pow(2).mean().sqrt()))
+    if dtype == torch.float64:
+        ok = rec["max_abs_qpos"] <= 1e-9 and rec["max_abs_qvel"] <= 1e-9
+    else:
+        ok = rec["rms_qpos"] <= 1e-6 and rec["rms_qvel"] <= 1e-4
+    return finite and ok, rec
+
+
 def phase_k1_vs_plain(device):
     import torch
     from egopose_tpu_torch.physics import engine
@@ -248,22 +289,10 @@ def phase_k1_vs_plain(device):
             floor_rows, pair_rows = active_rows(m, q, params)
             (qk, vk), (qp, vp) = run_pair(m, gains, q, v, ctrl, params)
             torch.cuda.synchronize()
-            finite = bool(torch.isfinite(qk).all() and torch.isfinite(vk).all())
-            dq, dv = (qk - qp).double(), (vk - vp).double()
+            ok, bars = k1_bars(dtype, (qk, vk), (qp, vp))
             rec = dict(dtype=str(dtype).split(".")[1], B=bsz, R=r,
-                       finite=finite,
                        active_floor_normals=floor_rows,
-                       active_pair_rows=pair_rows,
-                       max_abs_qpos=float(dq.abs().max()),
-                       max_abs_qvel=float(dv.abs().max()),
-                       rms_qpos=float(dq.pow(2).mean().sqrt()),
-                       rms_qvel=float(dv.pow(2).mean().sqrt()))
-            if dtype == torch.float64:
-                ok = finite and rec["max_abs_qpos"] <= 1e-9 \
-                    and rec["max_abs_qvel"] <= 1e-9
-            else:
-                ok = finite and rec["rms_qpos"] <= 1e-6 \
-                    and rec["rms_qvel"] <= 1e-4
+                       active_pair_rows=pair_rows, **bars)
             emit("k1_vs_plain", ok=ok, **rec)
             if not ok:
                 raise AssertionError(f"kernel disagrees with plain: {rec}")
@@ -284,16 +313,43 @@ def k1_work(m, dims_nnz, table_bytes, bsz, itemsize, n_frames, r, floor_rows,
         + bsz * (nq + nd) * itemsize + table_bytes
     c = 3 * floor_rows + pair_rows            # active contact rows
     groups = -(-n_frames // r)
-    prep = (150 * (nd - 6) + 190 * nb                 # FK, inertias
-            + 12 * dims_nnz + 60 * nd                  # CRBA rows, diag
-            + 200 * nb + 60 * nd                       # RNEA
-            + 30 * m.ncpoint + 120 * m.npair + 400 * m.nbpair
-            + 12 * c * nd                              # Jacobian rows
+    prep = (k1_prep_ops(m, dims_nnz, c)
             + 2 * (2 * dims_nnz * 10)                  # two tree factors
             + 2 * c * dims_nnz + c * c * nd)           # Y, Delassus
     sub = (20 * nd + 3 * 4 * dims_nnz                  # rhs, three solves
            + 4 * c * nd + 10 * 2 * c * c + 20 * nd)    # sweep, v, integrate
     return nbytes, bsz * (groups * prep + n_frames * sub)
+
+
+def k1_prep_ops(m, dims_nnz, c):
+    """Operations of one environment's prep that both branches of K1 run:
+    FK, inertias, the CRBA entries and diagonal, RNEA, the narrowphase and
+    the Jacobian rows of ``c`` active contact rows."""
+    nd, nb = m.ndof, m.nbody
+    return (150 * (nd - 6) + 190 * nb                 # FK, inertias
+            + 12 * dims_nnz + 60 * nd                  # CRBA rows, diag
+            + 200 * nb + 60 * nd                       # RNEA
+            + 30 * m.ncpoint + 120 * m.npair + 400 * m.nbpair
+            + 12 * c * nd)                             # Jacobian rows
+
+
+def k1_dense_work(m, dims_nnz, n_sup, table_bytes, bsz, itemsize, n_frames,
+                  iters, floor_rows, pair_rows):
+    """(bytes, flops) of the dense branch's control step for ``bsz``
+    lanes: bytes as k1_work's; per substep the prep, 2 n^3/3 for the two
+    factors, 2 n^2 (2 + c) for the substitutions of the PD column, the
+    qacc column and the c columns of W, 2 c^2 |sup| for J W over the
+    ``n_sup`` contact-loaded dofs, c^2 for its row sums, 2 c n for the
+    residual, iters (2 c^2 + 4 c) for the sweep, 2 n c for W lam and 40 n
+    for the rhs, torque and integration; c the active contact rows."""
+    nbytes, _ = k1_work(m, dims_nnz, table_bytes, bsz, itemsize, n_frames,
+                        1, floor_rows, pair_rows)
+    n = m.ndof
+    c = 3 * floor_rows + pair_rows
+    sub = (k1_prep_ops(m, dims_nnz, c) + 2 * n ** 3 / 3
+           + 2 * n * n * (2 + c) + 2 * c * c * n_sup + c * c + 2 * c * n
+           + iters * (2 * c * c + 4 * c) + 2 * n * c + 40 * n)
+    return nbytes, bsz * n_frames * sub
 
 
 def time_ms(fn, n=25, warm=5):
@@ -311,6 +367,24 @@ def time_ms(fn, n=25, warm=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def time_b2b(fn, n=50, warm=5):
+    """ms per call of ``n`` calls back to back between two CUDA events:
+    the host's time of a call hides behind the card's, so this reads the
+    kernel where time_ms also reads the wrapper's host time at small B."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def resources(occ, bsz, per_block=1):
@@ -347,7 +421,8 @@ def phase_k1_time(device):
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_F32_FLOPS * 1e3
         rec = dict(B=bsz, dtype="float32", R=params.prep_refresh,
-                   ms=time_ms(kern), plain_ms=time_ms(plain, n=20, warm=2),
+                   ms=time_ms(kern), ms_b2b=time_b2b(kern),
+                   plain_ms=time_ms(plain, n=20, warm=2),
                    bytes=nbytes, flops=flops,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes > t_ops else "operations",
@@ -359,20 +434,164 @@ def phase_k1_time(device):
     return out
 
 
-def phase_k1_stages(device):
-    """K1's stage-clock build at B=4 and B=1024 (f32, contact-rich states,
-    R=3): the median over environments of each stage's cycles in one
-    control step, after two warm-up launches.  The SM clock
-    (nvidia-smi) converts cycles to microseconds."""
+DENSE = dict(sparse_ldl=False)   # K1's dense branch
+
+
+def phase_k1_dense_vs_plain(device):
+    """K1's dense branch (sparse_ldl=False) against the split path at R=1,
+    its plain version, one control step at B=1024, 4 and 64 on
+    contact-rich states.  The kernel is given prep_refresh=3 and must
+    refresh every substep all the same, as the TPU kernel's dense branch
+    does.  K1's bars: f64 max-abs <= 1e-9, f32 RMS qpos <= 1e-6, qvel
+    <= 1e-4, finite.
+
+    In f32 the kernel is held against the plain version's f32 run; where
+    that run is itself beyond the f32 bars from the plain version's f64
+    run on the same inputs (its rounding crossed a discontinuity of the
+    model: a pair contact held at the activation margin switches on in
+    one run and not in the other, ~0.4 of qvel at once), the kernel is
+    held to the same bars against the f64 run instead.  Both comparisons
+    are reported, and which one decided."""
+    import torch
+    from egopose_tpu_torch.physics import engine, substep
+    dense = engine.DEFAULT_CONTACT._replace(prep_refresh=3, **DENSE)
+    plain = engine.DEFAULT_CONTACT._replace(prep_refresh=1)
+    m64 = load_world(torch.float64, device)[1]
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        spec, m, (jkp, jkd, tl) = load_world(dtype, device)
+        for bsz, seed in ((1024, 90), (4, 91), (64, 92)):
+            q, v, ctrl = contact_states(spec, m, bsz, seed, dtype, device)
+            lane = lambda x: x.expand(bsz, -1).contiguous()
+            qk, vk = substep.pd_control_step_cuda(
+                m, q, v, ctrl, lane(jkp), lane(jkd), lane(tl), N_FRAMES,
+                dense)
+            qp, vp = engine.pd_control_step_split(
+                m, q, v, ctrl, jkp, jkd, tl, N_FRAMES, plain)
+            torch.cuda.synchronize()
+            ok, bars = k1_bars(dtype, (qk, vk), (qp, vp))
+            floor_rows, pair_rows = active_rows(m, q, plain)
+            rec = dict(dtype=str(dtype).split(".")[1], B=bsz,
+                       kernel_prep_refresh=dense.prep_refresh, plain_R=1,
+                       active_floor_normals=floor_rows,
+                       active_pair_rows=pair_rows, **bars)
+            if dtype == torch.float32:
+                ref = engine.pd_control_step_split(
+                    m64, *[x.double() for x in (q, v, ctrl, jkp, jkd, tl)],
+                    N_FRAMES, plain)
+                plain_ok, rec["plain_f32_vs_f64"] = k1_bars(dtype, (qp, vp),
+                                                            ref)
+                k64_ok, rec["kernel_vs_f64"] = k1_bars(dtype, (qk, vk), ref)
+                rec["decided_by"] = "plain_f32"
+                if not ok and not plain_ok:
+                    ok, rec["decided_by"] = k64_ok, "plain_f64"
+                    rec["plain_parting"] = parting(
+                        m, m64, (jkp, jkd, tl), (q, v, ctrl), vp, ref[1],
+                        plain)
+            emit("k1_dense_vs_plain", ok=ok, **rec)
+            if not ok:
+                raise AssertionError(f"K1 dense disagrees with plain: {rec}")
+            key = rec["dtype"]
+            held = rec["kernel_vs_f64"] \
+                if rec.get("decided_by") == "plain_f64" else rec
+            worst[key] = max(worst.get(key, 0.0), held["max_abs_qpos"],
+                             held["max_abs_qvel"])
+    return worst
+
+
+def parting(m32, m64, gains, state, v32, v64, params):
+    """Where the plain version's f32 run leaves its f64 run: the lane of
+    the largest qvel gap, the first substep after which the gap exceeds
+    1e-2, and at the f64 state that enters it the contact candidate whose
+    depth is nearest the activation margin (depth > -margin activates a
+    row), with that distance in metres."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    lane = int((v32.double() - v64).abs().amax(1).argmax())
+    s32 = [x[lane:lane + 1] for x in state]
+    s64 = [x.double() for x in s32]
+    g64 = [g.double() for g in gains]
+    for sub in range(1, N_FRAMES + 1):
+        kin = engine.fk(m64, s64[0])
+        pts = kin.xpos[:, m64.cpoint_body] + engine.Q.quat_rotate(
+            kin.xquat[:, m64.cpoint_body], m64.cpoint_local)
+        phi = {"floor": m64.cpoint_radius - pts[..., 2],
+               "pair": engine.pair_candidates(m64, kin)[0]}
+        near = {k: float((x + params.margin).abs().min())
+                for k, x in phi.items()}
+        s32[:2] = engine.pd_control_step_split(m32, *s32, *gains, 1, params)
+        s64[:2] = engine.pd_control_step_split(m64, *s64, *g64, 1, params)
+        if float((s32[1].double() - s64[1]).abs().max()) > 1e-2:
+            kind = min(near, key=near.get)
+            return dict(lane=lane, substep=sub, nearest_margin=kind,
+                        distance_m=near[kind])
+    return dict(lane=lane, substep=None)
+
+
+def phase_k1_dense_time(device):
+    """K1's dense branch and its plain version (the split path at R=1)
+    timed at B=1024 and B=4, f32, with the bound of the dense work
+    (k1_dense_work) and the branch's resources."""
     import torch
     from egopose_tpu_torch.physics import engine, substep
     spec, m, gains = load_world(torch.float32, device)
     jkp, jkd, tl = gains
-    params = engine.DEFAULT_CONTACT
+    params = engine.DEFAULT_CONTACT._replace(**DENSE)
+    plain_params = engine.DEFAULT_CONTACT._replace(prep_refresh=1)
+    dims, itab, ftab = substep.build_tables(m, params)
+    table_bytes = itab.size * 4 + ftab.size * 4
+    n_sup = sum(b - a for a, b in substep.support_segments(m))
+    out = {}
+    for bsz in (1024, 4):
+        q, v, ctrl = contact_states(spec, m, bsz, 10 + bsz,
+                                    torch.float32, device)
+        lane = lambda x: x.expand(bsz, -1).contiguous()
+        gk = (lane(jkp), lane(jkd), lane(tl))
+        kern = lambda: substep.pd_control_step_cuda(m, q, v, ctrl, *gk,
+                                                    N_FRAMES, params)
+        plain = lambda: engine.pd_control_step_split(
+            m, q, v, ctrl, jkp, jkd, tl, N_FRAMES, plain_params)
+        floor_rows, pair_rows = active_rows(m, q, params)
+        # the plain step takes ~1 s on the card's host: five calls
+        rec = dict(B=bsz, dtype="float32", ms=time_ms(kern),
+                   ms_b2b=time_b2b(kern),
+                   plain_ms=time_ms(plain, n=5, warm=1), library_ms=None,
+                   **bound(*k1_dense_work(
+                       m, dims["nnz"], n_sup, table_bytes, bsz, 4, N_FRAMES,
+                       params.iters, floor_rows, pair_rows)))
+        rec.update(resources(substep.occupancy(m, torch.float32,
+                                               params=params), bsz))
+        emit("k1_dense_time", **rec)
+        out[bsz] = rec
+    return out
+
+
+def phase_k1_stages(device):
+    """K1's stage-clock build at B=4 and B=1024 (f32, contact-rich states),
+    the sparse branch at R=3 and the dense branch: the median over
+    environments of each stage's cycles in one control step, after two
+    warm-up launches.  The SM clock (nvidia-smi) converts cycles to
+    microseconds."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    spec, m, gains = load_world(torch.float32, device)
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    out = {}
+    for branch, params in (
+            ("sparse", engine.DEFAULT_CONTACT),
+            ("dense", engine.DEFAULT_CONTACT._replace(**DENSE))):
+        out[branch] = stages_of(m, spec, gains, params, clock, branch, device)
+    return out
+
+
+def stages_of(m, spec, gains, params, clock, branch, device):
+    """One branch's k1_stages records at B=4 and B=1024."""
+    import torch
+    from egopose_tpu_torch.physics import substep
+    jkp, jkd, tl = gains
     out = {}
     for bsz in (4, 1024):
         q, v, ctrl = contact_states(spec, m, bsz, 10 + bsz, torch.float32,
@@ -387,7 +606,9 @@ def phase_k1_stages(device):
         torch.cuda.synchronize()
         med = clocks.double().median(0).values.cpu().numpy()
         total = float(med.sum())
-        rec = dict(B=bsz, R=params.prep_refresh, dtype="float32",
+        rec = dict(branch=branch, B=bsz,
+                   R=1 if branch == "dense" else params.prep_refresh,
+                   dtype="float32",
                    sm_clock_mhz_now_max=clock, total_cycles=total,
                    cycles={n: float(c) for n, c in zip(substep.STAGES, med)},
                    share={n: float(c) / total
@@ -548,10 +769,17 @@ def k2_systems(m, q, v, params):
     return a.contiguous(), rhs.contiguous()
 
 
+def tri(n):
+    """Values of an n x n matrix's lower triangle: all of A (M) that a
+    Cholesky factor reads."""
+    return n * (n + 1) // 2
+
+
 def k2_work(bsz, n, r, itemsize):
-    """(bytes, flops) of B solves: A and B read once, X written once;
-    n^3/3 for the factor and 2 n^2 r for the two substitutions."""
-    return (bsz * (n * n + 2 * n * r) * itemsize,
+    """(bytes, flops) of B solves: A's lower triangle and B read once, X
+    written once; n^3/3 for the factor and 2 n^2 r for the two
+    substitutions."""
+    return (bsz * (tri(n) + 2 * n * r) * itemsize,
             bsz * (n ** 3 / 3 + 2 * n * n * r))
 
 
@@ -606,6 +834,7 @@ def phase_k2_time(device):
         t_ops = flops / H100_F32_FLOPS * 1e3
         rec = dict(B=bsz, n=n, r=r, dtype="float32",
                    ms=time_ms(lambda: linalg.spd_solve_cuda(a, rhs)),
+                   ms_b2b=time_b2b(lambda: linalg.spd_solve_cuda(a, rhs)),
                    plain_ms=time_ms(lambda: linalg.spd_solve_plain(a, rhs)),
                    library_ms=time_ms(lambda: torch.linalg.solve(a, rhs)),
                    bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
@@ -648,24 +877,25 @@ def k4_systems(m, gains, q, v, ctrl, params):
 
 
 def k3_work(bsz, n, c, k, iters, itemsize):
-    """(bytes, flops) of B fused contact solves: a, qfrc, qvel, jf, target,
-    mu read once, v_new written once; n^3/3 for the factor, 2 n^2 (1+c)
-    for the substitutions, 2 c^2 n for the Delassus matrix, 2 c n for the
-    residual, c^2 for the row sums, iters (2 c^2 + 4 c) for the sweep and
-    2 n c + n for v_new."""
-    return (bsz * (n * n + 3 * n + c * n + c + k) * itemsize,
+    """(bytes, flops) of B fused contact solves: a's lower triangle, qfrc,
+    qvel, jf, target, mu read once, v_new written once; n^3/3 for the
+    factor, 2 n^2 (1+c) for the substitutions, 2 c^2 n for the Delassus
+    matrix, 2 c n for the residual, c^2 for the row sums, iters (2 c^2 +
+    4 c) for the sweep and 2 n c + n for v_new."""
+    return (bsz * (tri(n) + 3 * n + c * n + c + k) * itemsize,
             bsz * (n ** 3 / 3 + 2 * n * n * (1 + c) + 2 * c * c * n
                    + 2 * c * n + c * c + iters * (2 * c * c + 4 * c)
                    + 2 * n * c + n))
 
 
 def k4_work(bsz, n, c, k, iters, itemsize):
-    """(bytes, flops) of B fused stable-PD substeps: M, kdd, the eight
-    vectors, jf, target, mu read once, v_new written once; K3's work plus
+    """(bytes, flops) of B fused stable-PD substeps: M's lower triangle,
+    kdd, the eight vectors, jf, target, mu read once, v_new written once;
+    K3's work plus
     a second factor (n^3/3), the PD substitution (2 n^2), the two diagonal
     additions (4 n) and the torque, clamp and force (10 n)."""
     _, flops = k3_work(bsz, n, c, k, iters, itemsize)
-    return (bsz * (n * n + 11 * n + c * n + c + k) * itemsize,
+    return (bsz * (tri(n) + 11 * n + c * n + c + k) * itemsize,
             flops + bsz * (n ** 3 / 3 + 2 * n * n + 14 * n))
 
 
@@ -747,6 +977,7 @@ def phase_fused_time(device, which):
         n, c, k = args[0].shape[1], args[-3].shape[1], args[-1].shape[1]
         rec = dict(B=bsz, n=n, c=c, k=k, iters=params.iters, dtype="float32",
                    ms=time_ms(lambda: cuda(*args, *extra)),
+                   ms_b2b=time_b2b(lambda: cuda(*args, *extra)),
                    plain_ms=time_ms(lambda: plain(*args, *extra)),
                    library_ms=None,
                    **bound(*work(bsz, n, c, k, params.iters, 4)))
@@ -849,6 +1080,7 @@ def phase_k5_time(device):
                                  device)
         rec = dict(B=bsz, dtype="float32",
                    ms=time_ms(lambda: fk.fk_cuda(m, q)),
+                   ms_b2b=time_b2b(lambda: fk.fk_cuda(m, q)),
                    plain_ms=time_ms(lambda: engine.fk(m, q)),
                    library_ms=None, **bound(*k5_work(m, bsz, 4)))
         emit("k5_time", **rec)
@@ -866,7 +1098,8 @@ def reset_counts():
 
 def read_counts():
     from egopose_tpu_torch.physics import fk, linalg, substep
-    return dict(k1=substep.launches, k2=linalg.launches,
+    return dict(k1=substep.launches, k1_dense=substep.dense_launches,
+                k2=linalg.launches,
                 k3=linalg.fused_contact_launches,
                 k4=linalg.pd_fused_launches, k5=fk.launches)
 
@@ -1149,11 +1382,11 @@ def phase_train_torque(device):
 # the slice's path: rollouts with the fused solver options at full width
 # ---------------------------------------------------------------------------
 
-def run_rollout(device, option, **overrides):
+def run_rollout(device, contact, **overrides):
     """AgentEgo.sample on the synthetic subject_03 world (1024 lanes, f32)
-    with ContactParams ``option`` on and substep_resident off, one segment
-    cut to ROLLOUT_STEPS control steps, with every launch count zeroed just
-    before it; then one PPO update.  Returns (record, launch counts)."""
+    with the ContactParams fields ``contact`` replaced, one segment cut to
+    ROLLOUT_STEPS control steps, with every launch count zeroed just before
+    it; then one PPO update.  Returns (record, launch counts, ok)."""
     import dataclasses
     import torch
     from egopose_tpu_torch.cli.ego_mimic import build_world
@@ -1167,8 +1400,7 @@ def run_rollout(device, option, **overrides):
         setattr(cfg, key, val)
     spec, model, tables, p, expert, cnn_feat = build_world(
         cfg, torch.float32, device, synthetic=True)
-    p = dataclasses.replace(p, contact=p.contact._replace(
-        substep_resident=False, **{option: True}))
+    p = dataclasses.replace(p, contact=p.contact._replace(**contact))
     agent = AgentEgo(model, spec, p, tables, expert, cnn_feat, cfg,
                      batch_lanes=lanes, seed=cfg.seed, dtype=torch.float32,
                      device=device)
@@ -1206,9 +1438,10 @@ def run_rollout(device, option, **overrides):
 def phase_rollout_pd_fused(device):
     """Position mode with pd_fused: every control step is 15 K4 launches
     (each substep's FK through K5)."""
-    rec, n, ok = run_rollout(device, "pd_fused")
+    rec, n, ok = run_rollout(device, dict(substep_resident=False,
+                                          pd_fused=True))
     ok = bool(ok and n["k4"] == N_FRAMES * ROLLOUT_STEPS and n["k1"] == 0
-              and n["k2"] == 0 and n["k3"] == 0)
+              and n["k1_dense"] == 0 and n["k2"] == 0 and n["k3"] == 0)
     emit("rollout_pd_fused", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"rollout_pd_fused out of bounds: {rec}")
@@ -1218,12 +1451,29 @@ def phase_rollout_pd_fused(device):
 def phase_rollout_torque_fused(device):
     """Torque mode with fused_solver: every control step is 15 K3 launches
     (each substep's FK through K5)."""
-    rec, n, ok = run_rollout(device, "fused_solver", action_type="torque")
+    rec, n, ok = run_rollout(device, dict(substep_resident=False,
+                                          fused_solver=True),
+                             action_type="torque")
     ok = bool(ok and n["k3"] == N_FRAMES * ROLLOUT_STEPS and n["k2"] == 0
-              and n["k1"] == 0 and n["k4"] == 0)
+              and n["k1"] == 0 and n["k1_dense"] == 0 and n["k4"] == 0)
     emit("rollout_torque_fused", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"rollout_torque_fused out of bounds: {rec}")
+    return rec
+
+
+def phase_rollout_dense(device):
+    """Position mode through K1's dense branch, the JAX package's own way
+    to reach it (the env params' contact with sparse_ldl=False; no config
+    key sets it): every control step is one launch of the dense branch,
+    no other kernel runs."""
+    rec, n, ok = run_rollout(device, DENSE)
+    ok = bool(ok and n["k1_dense"] == ROLLOUT_STEPS and n["k1"] == 0
+              and n["k2"] == 0 and n["k3"] == 0 and n["k4"] == 0
+              and n["k5"] == 0)
+    emit("rollout_dense", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"rollout_dense out of bounds: {rec}")
     return rec
 
 
@@ -1286,6 +1536,9 @@ def main():
          libraries=[os.path.relpath(lib, REPO) for lib in libs])
     errs = phase_k1_vs_plain(device) if want("k1_vs_plain") else {}
     times = phase_k1_time(device) if want("k1_time") else {}
+    errs1d = phase_k1_dense_vs_plain(device) \
+        if want("k1_dense_vs_plain") else {}
+    times1d = phase_k1_dense_time(device) if want("k1_dense_time") else {}
     if want("k1_stages"):
         phase_k1_stages(device)
     ev = phase_eval(device) if want("eval") else None
@@ -1313,10 +1566,11 @@ def main():
     rp = phase_rollout_pd_fused(device) if want("rollout_pd_fused") else None
     rt = phase_rollout_torque_fused(device) \
         if want("rollout_torque_fused") else None
+    rd = phase_rollout_dense(device) if want("rollout_dense") else None
     if only is None:
         t4, t2 = times[4], times2[1024]
         fused = lambda key: rp["launches"][key] + rt["launches"][key] \
-            + steps[key]
+            + rd["launches"][key] + steps[key]
 
         def row(name, source, replaces, launches, err, t):
             return dict(name=name, route="cuda",
@@ -1329,6 +1583,9 @@ def main():
             row("substep_control_step", "substep.cu", "substep_pallas.py:694",
                 ev["launches"] + tr["k1_launches"] + tq["k1_launches"]
                 + fused("k1"), errs["float32"], t4),
+            row("substep_control_step_dense", "substep.cu",
+                "substep_pallas.py:784", fused("k1_dense"), errs1d["float32"],
+                times1d[1024]),
             row("batched_spd_solve", "spd_solve.cu", "linalg_pallas.py:163",
                 ev["k2_launches"] + tr["k2_launches"] + tq["k2_launches"]
                 + fused("k2"), errs2["float32"], t2),

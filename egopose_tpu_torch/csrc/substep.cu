@@ -54,6 +54,23 @@
 //   damping, stiffness, gear, torque limit) stay in the registers of the
 //   thread that owns the dof; the warps that own no dof form L v meanwhile.
 //
+// The dense branch (Dims.dense; ContactParams.sparse_ldl=False) ports the
+// TPU kernel's dense-Cholesky branch (substep_pallas.py:739-830): the prep
+// runs every substep whatever prep_refresh says, M is assembled dense (its
+// ancestor-slot entries scattered into the lower triangle of two n x lda
+// squares, lda odd), A_pd = M + dt diag(kd) and A_dyn = M + dt diag(damping)
+// are factored side by side, one warp each (cholesky.cuh's warp_cholesky,
+// pivots floored at 1e-12, lower triangle only, as linalg_pallas.py::
+// _factor_multi); then the PD column on one warp beside W = A_dyn^-1 J^T on
+// another (lanes over the active columns), torque and clamp, the qacc column
+// A_dyn^-1 (dt qfrc) on one warp beside the non-symmetric Delassus J W over
+// the contact-loaded dofs (support_segments) on the other three, and the
+// sweep and velocity v_pred + W lam as _contact_sweep's.  It is a second
+// instantiation of the same body (substep_dense_kernel, its own register
+// bound): ~42.7 KB of shared memory in float (85 KB in double) for the
+// 58-dof humanoid, so 5 blocks per SM (float).  A simple design: nothing of
+// the sparse branch's schedules, and no work rides on the factors.
+//
 // The model is not baked into the code: every table arrives as device
 // memory (itab: int32, ftab: T) described by the Dims offsets, which the
 // Python wrapper builds once per model.  No --use_fast_math: the 58-dof
@@ -65,12 +82,14 @@
 #include <math.h>
 #include <string.h>
 
+#include "cholesky.cuh"
+
 #define NT 128
 
 enum Stage {
   ST_LOAD, ST_FK, ST_DYNAMICS, ST_NARROW, ST_SELECT, ST_FACTOR, ST_INVERSE,
   ST_Y, ST_DELASSUS, ST_PD, ST_TORQUE, ST_DYN_SOLVE, ST_RESIDUAL, ST_SWEEP,
-  ST_VELOCITY, ST_INTEGRATE, ST_STORE, N_STAGES
+  ST_VELOCITY, ST_INTEGRATE, ST_STORE, ST_SUBST, ST_QACC_DELASSUS, N_STAGES
 };
 #ifdef EGOPOSE_STAGE_CLOCKS
 #define STAMP(st)                                    \
@@ -91,13 +110,13 @@ enum Stage {
 // Field order: physics/substep.py::DIM_FIELDS.
 struct Dims {
   int nb, nd, nq, nu, ncp, npair, nbpair, k, kp, c3, nnz, nlevel;
-  int n_frames, prep_refresh, iters;
+  int n_frames, prep_refresh, iters, dense, lda, n_sup, poison;
   int i_parent, i_dof_body, i_hinge0, i_nhinge, i_lvl_off, i_lvl_body;
   int i_path_off, i_path_idx, i_vp_off, i_vp_idx, i_desc_off, i_desc_idx;
   int i_anc_off, i_anc_idx, i_ent_row, i_banc, i_cp_body;
   int i_p_b1, i_p_b2, i_bp_seg, i_bp_box;
   int i_height, i_fac_a, i_fac_b, i_fac_row, i_col_off, i_col_slot;
-  int i_col_row, i_anc_base, n_fac;
+  int i_col_row, i_anc_base, n_fac, i_sup;
   int f_body_pos, f_body_ipos, f_mass, f_inertia, f_axis, f_anchor;
   int f_armature, f_damping, f_stiffness, f_lo, f_hi, f_limited, f_gear;
   int f_gravity, f_cp_local, f_cp_radius, f_cp_mu;
@@ -109,6 +128,7 @@ struct Dims {
   int l_com, l_ic, l_io, l_smom, l_sio, l_smass, l_sq, l_cj, l_fcrb, l_fb;
   int l_dpd, l_ddyn, l_lipd, l_abase, l_jt, l_g, l_gid, l_rhs, l_z, l_u;
   int l_w, l_lam;
+  int l_apd, l_adyn, l_rpd, l_rdyn, l_xpd, l_xdyn, l_wd;
   int l_sel, l_act, l_nact, l_amask, l_total, l_ints;
 };
 
@@ -126,21 +146,14 @@ __host__ __device__ inline size_t smem_bytes(const Dims& d) {
 #define FA_SCALE (1 << 23)
 
 // ---------------------------------------------------------------------------
-// math for float and double (explicit, so the float build never promotes)
+// math for float and double (explicit, so the float build never promotes;
+// xsqrt, xabs, xmax and xmin come from cholesky.cuh)
 // ---------------------------------------------------------------------------
 
-__device__ inline float xsqrt(float x) { return sqrtf(x); }
-__device__ inline double xsqrt(double x) { return sqrt(x); }
 __device__ inline float xsin(float x) { return sinf(x); }
 __device__ inline double xsin(double x) { return sin(x); }
 __device__ inline float xcos(float x) { return cosf(x); }
 __device__ inline double xcos(double x) { return cos(x); }
-__device__ inline float xabs(float x) { return fabsf(x); }
-__device__ inline double xabs(double x) { return fabs(x); }
-__device__ inline float xmax(float a, float b) { return fmaxf(a, b); }
-__device__ inline double xmax(double a, double b) { return fmax(a, b); }
-__device__ inline float xmin(float a, float b) { return fminf(a, b); }
-__device__ inline double xmin(double a, double b) { return fmin(a, b); }
 
 // ---------------------------------------------------------------------------
 // small vector helpers (formulas of ops/quat.py)
@@ -327,6 +340,106 @@ __device__ void block_factor(T* mpd, T* mdyn, T* dpd, T* ddyn, T* ipd,
 }
 
 // ---------------------------------------------------------------------------
+// the contact sweep (both branches) and the dense branch's column solve
+// ---------------------------------------------------------------------------
+
+// The contact residual of row ``lane`` from J^T-shaped columns (X[dd * c3 +
+// r]): sum_dd X[dd][lane] w[dd] - tgt[lane], four partial sums so the loads
+// overlap.  Y^T (L v + u) in the sparse branch, J v_pred in the dense one.
+template <typename T>
+__device__ inline T lane_residual(const T* X, const T* w, const T* tgt,
+                                  int c3, int nd, int lane) {
+  T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
+  int dd = 0;
+  for (; dd + 4 <= nd; dd += 4) {
+    a0 += X[dd * c3 + lane] * w[dd];
+    a1 += X[(dd + 1) * c3 + lane] * w[dd + 1];
+    a2 += X[(dd + 2) * c3 + lane] * w[dd + 2];
+    a3 += X[(dd + 3) * c3 + lane] * w[dd + 3];
+  }
+  for (; dd < nd; ++dd) a0 += X[dd * c3 + lane] * w[dd];
+  return ((a0 + a1) + (a2 + a3)) - tgt[lane];
+}
+
+// Projected-Jacobi sweep by one warp, lane r on contact row r
+// (linalg_pallas.py::_sweep_lam): g = sum_j G[j][r] lam_j + bh_r over the
+// active rows (G holds the Delassus matrix transposed, or the symmetric
+// one, so the lanes read by column), lam -= g gid[r], the friction box on
+// the 2k tangent rows from their point's normal row, lam >= 0 on the
+// normal and pair rows.  The active rows' lam end in lam[].
+template <typename T>
+__device__ inline void warp_sweep(const T* G, const T* gid, T* lam,
+                                  const T* mu, const int* act, int nact,
+                                  bool live, T bh_r, int k, int c3,
+                                  int iters, int lane) {
+  const int r = lane;
+  T lr = T(0);
+  if (r < c3) lam[r] = T(0);
+  __syncwarp();
+  const int src = r < k ? 2 * k + r : (r < 2 * k ? r + k : r);
+  for (int it = 0; it < iters; ++it) {
+    T g = T(0);
+    if (live) {              // two partial sums: loads overlap
+      T g1 = T(0);
+      int ci = 0;
+      for (; ci + 2 <= nact; ci += 2) {
+        const int j0 = act[ci], j1 = act[ci + 1];
+        g += G[j0 * c3 + r] * lam[j0];
+        g1 += G[j1 * c3 + r] * lam[j1];
+      }
+      if (ci < nact) g += G[act[ci] * c3 + r] * lam[act[ci]];
+      g = (g + g1) + bh_r;
+    }
+    T ln = live ? lr - g * gid[r] : T(0);
+    const T nv = __shfl_sync(0xffffffffu, ln, src < 32 ? src : 0);
+    if (r < 2 * k) {
+      const T lim = mu[r % k] * xmax(nv, T(0));
+      ln = xmin(xmax(ln, -lim), lim);
+    } else {
+      ln = xmax(ln, T(0));
+    }
+    __syncwarp();
+    if (live) { lr = ln; lam[r] = ln; }
+    __syncwarp();
+  }
+}
+
+// A x = b for one column by one thread, given A = L L^T factored in the
+// lower triangle of A (row stride lda) and rdiag[j] = 1 / L[j][j]
+// (warp_cholesky's): forward then back substitution, b and x at stride
+// inc (x may be b).  Row j of L is read as a broadcast when the lanes of a
+// warp solve their own columns; four partial sums per dot.
+template <typename T>
+__device__ void thread_cho_solve(const T* A, int lda, const T* rdiag,
+                                 const T* b, T* x, int inc, int n) {
+  for (int j = 0; j < n; ++j) {
+    const T* lj = A + (size_t)j * lda;
+    T p0 = b[j * inc], p1 = T(0), p2 = T(0), p3 = T(0);
+    int k = 0;
+    for (; k + 4 <= j; k += 4) {
+      p0 -= lj[k] * x[k * inc];
+      p1 -= lj[k + 1] * x[(k + 1) * inc];
+      p2 -= lj[k + 2] * x[(k + 2) * inc];
+      p3 -= lj[k + 3] * x[(k + 3) * inc];
+    }
+    for (; k < j; ++k) p0 -= lj[k] * x[k * inc];
+    x[j * inc] = ((p0 + p1) + (p2 + p3)) * rdiag[j];
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    T p0 = x[j * inc], p1 = T(0), p2 = T(0), p3 = T(0);
+    int k = j + 1;
+    for (; k + 4 <= n; k += 4) {
+      p0 -= A[(size_t)k * lda + j] * x[k * inc];
+      p1 -= A[(size_t)(k + 1) * lda + j] * x[(k + 1) * inc];
+      p2 -= A[(size_t)(k + 2) * lda + j] * x[(k + 2) * inc];
+      p3 -= A[(size_t)(k + 3) * lda + j] * x[(k + 3) * inc];
+    }
+    for (; k < n; ++k) p0 -= A[(size_t)k * lda + j] * x[k * inc];
+    x[j * inc] = ((p0 + p1) + (p2 + p3)) * rdiag[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
@@ -336,6 +449,7 @@ struct Layout {
   int xpos, xquat, s, pall, phiall, pphi, pn, pp, selphi;
   int com, ic, io, smom, sio, smass, sq, cj, fcrb, fb;
   int dpd, ddyn, lipd, abase, jt, g, gid, rhs, z, u, w, lam;
+  int apd, adyn, rpd, rdyn, xpd, xdyn, wd;
 };
 
 __device__ inline Layout layout_of(const Dims& d) {
@@ -352,10 +466,12 @@ __device__ inline Layout layout_of(const Dims& d) {
   L.fb = d.l_fb; L.dpd = d.l_dpd; L.ddyn = d.l_ddyn; L.g = d.l_g;
   L.gid = d.l_gid; L.rhs = d.l_rhs; L.z = d.l_z; L.u = d.l_u; L.w = d.l_w;
   L.lam = d.l_lam;
+  L.apd = d.l_apd; L.adyn = d.l_adyn; L.rpd = d.l_rpd; L.rdyn = d.l_rdyn;
+  L.xpd = d.l_xpd; L.xdyn = d.l_xdyn; L.wd = d.l_wd;
   return L;
 }
 
-template <typename T>
+template <typename T, bool DENSE>
 __device__ __forceinline__ void substep_body(
     const Dims& d, const int* __restrict__ itab, const T* __restrict__ ftab,
     const T* __restrict__ qpos, const T* __restrict__ qvel,
@@ -417,6 +533,8 @@ __device__ __forceinline__ void substep_body(
   const int* col_slot = itab + d.i_col_slot;
   const int* col_row = itab + d.i_col_row;
   T* lam = sm + L.lam;
+  // J^T as the select stage writes it: into Y (sparse), into jt (dense)
+  T* JT = DENSE ? sm + L.jt : Y;
 
 #ifdef EGOPOSE_STAGE_CLOCKS
   long long clk[N_STAGES] = {};
@@ -446,7 +564,48 @@ __device__ __forceinline__ void substep_body(
   __syncthreads();
   STAMP(ST_LOAD);
 
-  const int R = d.prep_refresh;
+  // joint limits, passive forces and stable-PD error of the owner's dof:
+  // sets qfb_r and e_r, returns the PD rhs -bias - kp e - kd v
+  auto pd_terms = [&](T& qfb_r, T& e_r) -> T {
+    const int dd = tid;
+    qfb_r = -bias[dd] - damp_r * v[dd];
+    if (hinge) {
+      const T qj = q[dd + 1], dqj = v[dd];
+      const T below = xmax(lo_r - qj, T(0));
+      const T above = xmax(qj - hi_r, T(0));
+      const T viol = (below > T(0) || above > T(0)) ? T(1) : T(0);
+      const T taul = (klim * (below - above) - viol * blim * dqj) * lim_r;
+      qfb_r += taul - stiff_r * qj;
+      e_r = qj - ctrl_r;
+    }
+    return -bias[dd] - kp_r * e_r - kd_r * v[dd];
+  };
+  // semi-implicit integration with the new velocity vn (engine.integrate /
+  // quat_integrate); v <- vn
+  auto integrate = [&](const T* vn) {
+    if (tid == 0) {
+      for (int j = 0; j < 3; ++j) q[j] += dt * vn[j];
+      const T ew[3] = {vn[3] * dt, vn[4] * dt, vn[5] * dt};
+      const T ang = xsqrt(ew[0] * ew[0] + ew[1] * ew[1] + ew[2] * ew[2]);
+      const bool safe = ang > T(1e-12);
+      const T inv = T(1) / xmax(ang, T(1e-12));
+      const T ax[3] = {safe ? ew[0] * inv : T(1), safe ? ew[1] * inv : T(0),
+                       safe ? ew[2] * inv : T(0)};
+      const T half = ang * T(0.5), sh = xsin(half);
+      const T dq[4] = {xcos(half), ax[0] * sh, ax[1] * sh, ax[2] * sh};
+      T nq4[4];
+      qmul(q + 3, dq, nq4);
+      const T nn = xmax(xsqrt(nq4[0] * nq4[0] + nq4[1] * nq4[1] + nq4[2] * nq4[2] + nq4[3] * nq4[3]), T(1e-12));
+      for (int j = 0; j < 4; ++j) q[3 + j] = nq4[j] / nn;
+    }
+    if (owner) {
+      if (hinge) q[tid + 1] += dt * vn[tid];
+      v[tid] = vn[tid];
+    }
+  };
+
+  // the dense branch refreshes its prep every substep (substep_pallas.py:739)
+  const int R = DENSE ? 1 : d.prep_refresh;
   const int n_groups = d.n_frames / R, rem = d.n_frames % R;
   for (int grp = 0; grp < n_groups + (rem ? 1 : 0); ++grp) {
     const int nsub = grp < n_groups ? R : rem;
@@ -690,7 +849,7 @@ __device__ __forceinline__ void substep_body(
                       + (sd[0] * pxn[0] + sd[1] * pxn[1] + sd[2] * pxn[2]);
         val = row * (on * sgn);
       }
-      Y[dd * c3 + r] = val;
+      JT[dd * c3 + r] = val;
     }
     for (int r = tid; r < c3; r += NT) {
       T tg = T(0);
@@ -734,6 +893,14 @@ __device__ __forceinline__ void substep_body(
     }
     for (int dd = tid; dd < nd; dd += NT)            // s q-dot rows (RNEA)
       for (int j = 0; j < 6; ++j) sm[L.sq + 6 * dd + j] = s[6 * dd + j] * v[dd];
+    if constexpr (DENSE) {   // the dense squares: zeros, NaN above with poison
+      const T above = d.poison ? T(NAN) : T(0);
+      for (int e = tid; e < nd * d.lda; e += NT) {
+        const T val = e % d.lda <= e / d.lda ? T(0) : above;
+        sm[L.apd + e] = val;
+        sm[L.adyn + e] = val;
+      }
+    }
     __syncthreads();
 
     // ---- subtree sums (CRBA composites) and S-dot q-dot (RNEA) ---------
@@ -808,20 +975,32 @@ __device__ __forceinline__ void substep_body(
     }
     __syncthreads();
 
-    // ---- compressed mass matrix, diagonals, bias (engine.crba, bias) ----
+    // ---- mass matrix, diagonals, bias (engine.crba, bias): compressed
+    // rows (sparse), or the lower triangle of the dense squares (dense) ----
     for (int e = tid; e < nnz; e += NT) {
       const T val = dot6(fcrb + 6 * ent_row[e], s + 6 * anc_idx[e]);
-      mpd[e] = val;
-      mdyn[e] = val;
+      if constexpr (DENSE) {
+        const int at = ent_row[e] * d.lda + anc_idx[e];
+        sm[L.apd + at] = val;
+        sm[L.adyn + at] = val;
+      } else {
+        mpd[e] = val;
+        mdyn[e] = val;
+      }
     }
     if (owner) {
       const int dd = tid;
       const T dg = dot6(fcrb + 6 * dd, s + 6 * dd) + ftab[d.f_armature + dd];
-      dpd[dd] = dg + dt * kd_r;
-      ddyn[dd] = dg + dt * damp_r;
-      if (itab[d.i_height + dd] == 0) {        // leaves: D is final
-        ipd[dd] = T(1) / xmax(dpd[dd], T(1e-12));
-        idyn[dd] = T(1) / xmax(ddyn[dd], T(1e-12));
+      if constexpr (DENSE) {
+        sm[L.apd + dd * d.lda + dd] = dg + dt * kd_r;
+        sm[L.adyn + dd * d.lda + dd] = dg + dt * damp_r;
+      } else {
+        dpd[dd] = dg + dt * kd_r;
+        ddyn[dd] = dg + dt * damp_r;
+        if (itab[d.i_height + dd] == 0) {        // leaves: D is final
+          ipd[dd] = T(1) / xmax(dpd[dd], T(1e-12));
+          idyn[dd] = T(1) / xmax(ddyn[dd], T(1e-12));
+        }
       }
       T ft[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
       const int b = dof_body[dd];
@@ -832,230 +1011,248 @@ __device__ __forceinline__ void substep_body(
     __syncthreads();
     STAMP(ST_DYNAMICS);
 
-    // ---- tree LDL^T of both systems, by levels -------------------------
-    block_factor(mpd, mdyn, dpd, ddyn, ipd, idyn, itab + d.i_fac_a,
-                 itab + d.i_fac_b, itab + d.i_fac_row, d.n_fac, nnz, tid);
-    STAMP(ST_FACTOR);
-
-    // ---- L^-1 of both factors in L's slots, one row per thread, from
-    // L^-1 L = I: Linv[k][s] = -(L[k][s] + sum_{s<t<depth k} Linv[k][t]
-    // L[anc[k][t]][s]) for s = depth k - 1 down to 0 (slot s of row
-    // anc[k][t] is ancestor anc[k][s]: the lists nest).  A row needs only
-    // itself and L, so all rows run at once.  abase[e] = anc_off[anc_idx[e]]
-    // is staged in shared memory (ints in a prep-only span).
-    int* abase = reinterpret_cast<int*>(sm + L.abase);
-    for (int e = tid; e < nnz; e += NT) abase[e] = itab[d.i_anc_base + e];
-    __syncthreads();
-    for (int idx = tid; idx < 2 * nd; idx += NT) {
-      const bool dyn = idx >= nd;
-      const int kk = dyn ? idx - nd : idx;
-      const T* Lr = dyn ? mdyn : mpd;
-      T* Li = dyn ? lidyn : lipd;
-      const int base = anc_off[kk], dl = anc_off[kk + 1] - base;
-      for (int sl = dl - 1; sl >= 0; --sl) {
-        T p0 = Lr[base + sl], p1 = T(0), p2 = T(0), p3 = T(0);
-        int t = sl + 1;
-        for (; t + 4 <= dl; t += 4) {
-          p0 += Li[base + t] * Lr[abase[base + t] + sl];
-          p1 += Li[base + t + 1] * Lr[abase[base + t + 1] + sl];
-          p2 += Li[base + t + 2] * Lr[abase[base + t + 2] + sl];
-          p3 += Li[base + t + 3] * Lr[abase[base + t + 3] + sl];
-        }
-        for (; t < dl; ++t) p0 += Li[base + t] * Lr[abase[base + t] + sl];
-        Li[base + sl] = -((p0 + p1) + (p2 + p3));
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < nnz; e += NT) mpd[e] = lipd[e];   // L_pd^-1
-    __syncthreads();
-    STAMP(ST_INVERSE);
-
-    // ---- Y = L^-T J^T = (L_dyn^-1)^T J^T on the active columns: one
-    // gather over a column of L^-1 per (dof, column), from a copy of J^T
-    T* jt = sm + L.jt;
-    for (int e = tid; e < nd * c3; e += NT) jt[e] = Y[e];
-    __syncthreads();
-    for (int idx = tid; idx < nd * nact; idx += NT) {
-      const int j = idx / nact, c = act[idx % nact];
-      const int i0 = col_off[j], m = col_off[j + 1] - i0;
-      T p0 = jt[j * c3 + c], p1 = T(0), p2 = T(0), p3 = T(0);
-      int i = i0;
-      for (; i + 4 <= i0 + m; i += 4) {
-        p0 += lidyn[__ldg(col_slot + i)] * jt[__ldg(col_row + i) * c3 + c];
-        p1 += lidyn[__ldg(col_slot + i + 1)] * jt[__ldg(col_row + i + 1) * c3 + c];
-        p2 += lidyn[__ldg(col_slot + i + 2)] * jt[__ldg(col_row + i + 2) * c3 + c];
-        p3 += lidyn[__ldg(col_slot + i + 3)] * jt[__ldg(col_row + i + 3) * c3 + c];
-      }
-      for (; i < i0 + m; ++i)
-        p0 += lidyn[__ldg(col_slot + i)] * jt[__ldg(col_row + i) * c3 + c];
-      Y[j * c3 + c] = (p0 + p1) + (p2 + p3);
-    }
-    __syncthreads();
-    STAMP(ST_Y);
-    // ---- Delassus G = Y^T D^-1 Y on the active rows + row-sum scale ----
-    for (int idx = tid; idx < nact * nact; idx += NT) {
-      const int ai = idx / nact, bi = idx % nact;
-      if (bi > ai) continue;
-      const int a = act[ai], b = act[bi];
-      T acc = T(0);
-      for (int dd = 0; dd < nd; ++dd)
-        acc += (idyn[dd] * Y[dd * c3 + a]) * Y[dd * c3 + b];
-      G[a * c3 + b] = acc;
-      G[b * c3 + a] = acc;
-    }
-    __syncthreads();
-    for (int ai = tid; ai < nact; ai += NT) {
-      const int a = act[ai];
-      T acc = T(0);
-      for (int bi = 0; bi < nact; ++bi) acc += xabs(G[a * c3 + act[bi]]);
-      gid[a] = relax / (acc + T(1e-9));
-    }
-    __syncthreads();
-    STAMP(ST_DELASSUS);
-
-    // ================= substeps against the frozen prep ==================
-    const bool live = lane < c3 && ((amask >> lane) & 1u);
-    for (int sub = 0; sub < nsub; ++sub) {
-      // joint limits, passive forces, stable-PD error and rhs; w = L v
+    if constexpr (DENSE) {
+      // ================= the dense branch: one substep on this prep ======
+      T* apd = sm + L.apd; T* adyn = sm + L.adyn;
+      T* rpd = sm + L.rpd; T* rdyn = sm + L.rdyn;
+      T* xpd = sm + L.xpd; T* xdyn = sm + L.xdyn; T* W = sm + L.wd;
+      const int lda = d.lda;
+      const int* sup = itab + d.i_sup;
+      const bool live = lane < c3 && ((amask >> lane) & 1u);
+      // the PD column's rhs; A_pd and A_dyn factored side by side, one warp
+      // each (_factor_multi: pivots floored at 1e-12, lower triangle only)
       T qfb_r = T(0), e_r = T(0);
-      if (owner) {
-        const int dd = tid;
-        qfb_r = -bias[dd] - damp_r * v[dd];
-        if (hinge) {
-          const T qj = q[dd + 1], dqj = v[dd];
-          const T below = xmax(lo_r - qj, T(0));
-          const T above = xmax(qj - hi_r, T(0));
-          const T viol = (below > T(0) || above > T(0)) ? T(1) : T(0);
-          const T taul = (klim * (below - above) - viol * blim * dqj) * lim_r;
-          qfb_r += taul - stiff_r * qj;
-          e_r = qj - ctrl_r;
-        }
-        rhs[dd] = -bias[dd] - kp_r * e_r - kd_r * v[dd];
+      if (owner) xpd[tid] = pd_terms(qfb_r, e_r);
+      if (warp == 0) warp_cholesky(apd, lda, rpd, nd, lane);
+      else if (warp == 1) warp_cholesky(adyn, lda, rdyn, nd, lane);
+      __syncthreads();
+      STAMP(ST_FACTOR);
+      // qacc_pd = A_pd^-1 rhs on warp 0; W = A_dyn^-1 J^T on warp 1, lanes
+      // over the active columns (an inactive column of J^T is zero, so is
+      // its W column, which nothing reads)
+      if (warp == 0) {
+        warp_lsolve_vec(apd, lda, rpd, xpd, 1, nd, lane);
+        warp_ltsolve_vec(apd, lda, rpd, xpd, 1, nd, lane);
+      } else if (warp == 1 && lane < nact) {
+        const int c = act[lane];
+        thread_cho_solve(adyn, lda, rdyn, JT + c, W + c, c3, nd);
       }
-      // w = L_dyn v on the warps that own no dof (threads 64.. for nd <= 64)
-      for (int dd = tid - 64; dd >= 0 && dd < nd; dd += NT - 64)
-        w[dd] = v[dd] + gather_dot(mdyn, v, (const int*)nullptr, anc_idx,
-                                   anc_off[dd], anc_off[dd + 1] - anc_off[dd]);
       __syncthreads();
-      // PD solve, each dof a gather over L_pd^-1: z = D^-1 L^-T rhs, then
-      // qacc = L^-1 z; the clamped torque -> dynamics rhs (times dt) in rhs
-      if (owner)
-        z[tid] = ipd[tid] * (rhs[tid] + gather_dot(mpd, rhs, col_slot, col_row,
-                                                   col_off[tid], col_off[tid + 1] - col_off[tid]));
-      __syncthreads();
-      T qacc = T(0);
-      if (owner)
-        qacc = z[tid] + gather_dot(mpd, z, (const int*)nullptr, anc_idx, anc_off[tid],
-                                   anc_off[tid + 1] - anc_off[tid]);
-      STAMP(ST_PD);
+      STAMP(ST_SUBST);
+      // torque and clamp; the dynamics rhs dt qfrc
       if (owner) {
         T qf = qfb_r;
         if (hinge) {
-          T tq = -kp_r * e_r - kd_r * (v[tid] + dt * qacc);
+          T tq = -kp_r * e_r - kd_r * (v[tid] + dt * xpd[tid]);
           tq = xmin(xmax(tq, -tlim_r), tlim_r);
           qf += tq * gear_r;
         }
-        rhs[tid] = qf * dt;
+        xdyn[tid] = qf * dt;
       }
       __syncthreads();
       STAMP(ST_TORQUE);
-      // u = D^-1 L^-T (dt qfrc) over L_dyn^-1's columns
-      if (owner) {
-        u[tid] = idyn[tid] * (rhs[tid] + gather_dot(lidyn, rhs, col_slot, col_row,
-                                                    col_off[tid], col_off[tid + 1] - col_off[tid]));
-        w[tid] += u[tid];          // L v + u, the residual's vector
+      // the qacc column A_dyn^-1 (dt qfrc) on warp 0; beside it the
+      // Delassus J W on the active rows, summed over the contact-loaded
+      // dofs in order (_contact_sweep's rank-1 accumulation), stored
+      // transposed so the sweep reads it by column
+      if (warp == 0) {
+        warp_lsolve_vec(adyn, lda, rdyn, xdyn, 1, nd, lane);
+        warp_ltsolve_vec(adyn, lda, rdyn, xdyn, 1, nd, lane);
+      } else {
+        for (int idx = tid - 32; idx < nact * nact; idx += NT - 32) {
+          const int a = act[idx / nact], b = act[idx % nact];
+          T acc = T(0);
+          for (int sg = 0; sg < d.n_sup; ++sg)
+            for (int dd = __ldg(sup + 2 * sg); dd < __ldg(sup + 2 * sg + 1); ++dd)
+              acc += JT[dd * c3 + a] * W[dd * c3 + b];
+          G[b * c3 + a] = acc;
+        }
       }
       __syncthreads();
-      STAMP(ST_DYN_SOLVE);
-      // contact residual J v_pred - target = Y^T (L v + u) - target
+      STAMP(ST_QACC_DELASSUS);
+      // v_pred = v + the qacc column; the row sums of J W (the sweep's scale)
+      if (owner) xdyn[tid] = v[tid] + xdyn[tid];
+      for (int ai = tid; ai < nact; ai += NT) {
+        const int a = act[ai];
+        T acc = T(0);
+        for (int bi = 0; bi < nact; ++bi) acc += xabs(G[act[bi] * c3 + a]);
+        gid[a] = relax / (acc + T(1e-9));
+      }
+      __syncthreads();
+      // contact residual J v_pred - target, then the sweep (warp 0)
       T bh_r = T(0);
-      if (warp == 0 && live) {   // four partial sums: loads overlap
-        T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
-        int dd = 0;
-        for (; dd + 4 <= nd; dd += 4) {
-          a0 += Y[dd * c3 + lane] * w[dd];
-          a1 += Y[(dd + 1) * c3 + lane] * w[dd + 1];
-          a2 += Y[(dd + 2) * c3 + lane] * w[dd + 2];
-          a3 += Y[(dd + 3) * c3 + lane] * w[dd + 3];
-        }
-        for (; dd < nd; ++dd) a0 += Y[dd * c3 + lane] * w[dd];
-        bh_r = ((a0 + a1) + (a2 + a3)) - tgt[lane];
-      }
+      if (warp == 0 && live) bh_r = lane_residual(JT, xdyn, tgt, c3, nd, lane);
       STAMP(ST_RESIDUAL);
-      // projected-Jacobi sweep, one lane per contact row, G read by column
-      if (warp == 0) {
-        const int r = lane;
-        T lr = T(0);
-        if (r < c3) lam[r] = T(0);
-        __syncwarp();
-        const int src = r < k ? 2 * k + r : (r < 2 * k ? r + k : r);
-        for (int it = 0; it < d.iters; ++it) {
-          T g = T(0);
-          if (live) {              // two partial sums: loads overlap
-            T g1 = T(0);
-            int ci = 0;
-            for (; ci + 2 <= nact; ci += 2) {
-              const int j0 = act[ci], j1 = act[ci + 1];
-              g += G[j0 * c3 + r] * lam[j0];
-              g1 += G[j1 * c3 + r] * lam[j1];
-            }
-            if (ci < nact) g += G[act[ci] * c3 + r] * lam[act[ci]];
-            g = (g + g1) + bh_r;
-          }
-          T ln = live ? lr - g * gid[r] : T(0);
-          const T nv = __shfl_sync(0xffffffffu, ln, src < 32 ? src : 0);
-          if (r < 2 * k) {
-            const T lim = mu[r % k] * xmax(nv, T(0));
-            ln = xmin(xmax(ln, -lim), lim);
-          } else {
-            ln = xmax(ln, T(0));
-          }
-          __syncwarp();
-          if (live) { lr = ln; lam[r] = ln; }
-          __syncwarp();
-        }
-      }
+      if (warp == 0)
+        warp_sweep(G, gid, lam, mu, act, nact, live, bh_r, k, c3, d.iters, lane);
       __syncthreads();
       STAMP(ST_SWEEP);
-      // v_new = v + L^-1 D^-1 (z' + Y lam), z' = L^-T (dt qfrc): u += D^-1 Y lam,
-      // then a gather over L_dyn^-1's row into z
+      // v_new = v_pred + W lam
       if (owner) {
         T acc = T(0);
         for (int ci = 0; ci < nact; ++ci) {
           const int c = act[ci];
-          acc += Y[tid * c3 + c] * lam[c];
+          acc += W[tid * c3 + c] * lam[c];
         }
-        u[tid] += idyn[tid] * acc;
+        xdyn[tid] += acc;
       }
-      __syncthreads();
-      if (owner)
-        z[tid] = v[tid] + u[tid] + gather_dot(lidyn, u, (const int*)nullptr, anc_idx,
-                                              anc_off[tid], anc_off[tid + 1] - anc_off[tid]);
       __syncthreads();
       STAMP(ST_VELOCITY);
-      // semi-implicit integration (engine.integrate / quat_integrate)
-      const T* vn = z;
-      if (tid == 0) {
-        for (int j = 0; j < 3; ++j) q[j] += dt * vn[j];
-        const T ew[3] = {vn[3] * dt, vn[4] * dt, vn[5] * dt};
-        const T ang = xsqrt(ew[0] * ew[0] + ew[1] * ew[1] + ew[2] * ew[2]);
-        const bool safe = ang > T(1e-12);
-        const T inv = T(1) / xmax(ang, T(1e-12));
-        const T ax[3] = {safe ? ew[0] * inv : T(1), safe ? ew[1] * inv : T(0),
-                         safe ? ew[2] * inv : T(0)};
-        const T half = ang * T(0.5), sh = xsin(half);
-        const T dq[4] = {xcos(half), ax[0] * sh, ax[1] * sh, ax[2] * sh};
-        T nq4[4];
-        qmul(q + 3, dq, nq4);
-        const T nn = xmax(xsqrt(nq4[0] * nq4[0] + nq4[1] * nq4[1] + nq4[2] * nq4[2] + nq4[3] * nq4[3]), T(1e-12));
-        for (int j = 0; j < 4; ++j) q[3 + j] = nq4[j] / nn;
-      }
-      if (owner) {
-        if (hinge) q[tid + 1] += dt * vn[tid];
-        v[tid] = vn[tid];
-      }
+      integrate(xdyn);
       __syncthreads();
       STAMP(ST_INTEGRATE);
+    } else {
+      // ---- tree LDL^T of both systems, by levels -------------------------
+      block_factor(mpd, mdyn, dpd, ddyn, ipd, idyn, itab + d.i_fac_a,
+                   itab + d.i_fac_b, itab + d.i_fac_row, d.n_fac, nnz, tid);
+      STAMP(ST_FACTOR);
+
+      // ---- L^-1 of both factors in L's slots, one row per thread, from
+      // L^-1 L = I: Linv[k][s] = -(L[k][s] + sum_{s<t<depth k} Linv[k][t]
+      // L[anc[k][t]][s]) for s = depth k - 1 down to 0 (slot s of row
+      // anc[k][t] is ancestor anc[k][s]: the lists nest).  A row needs only
+      // itself and L, so all rows run at once.  abase[e] = anc_off[anc_idx[e]]
+      // is staged in shared memory (ints in a prep-only span).
+      int* abase = reinterpret_cast<int*>(sm + L.abase);
+      for (int e = tid; e < nnz; e += NT) abase[e] = itab[d.i_anc_base + e];
+      __syncthreads();
+      for (int idx = tid; idx < 2 * nd; idx += NT) {
+        const bool dyn = idx >= nd;
+        const int kk = dyn ? idx - nd : idx;
+        const T* Lr = dyn ? mdyn : mpd;
+        T* Li = dyn ? lidyn : lipd;
+        const int base = anc_off[kk], dl = anc_off[kk + 1] - base;
+        for (int sl = dl - 1; sl >= 0; --sl) {
+          T p0 = Lr[base + sl], p1 = T(0), p2 = T(0), p3 = T(0);
+          int t = sl + 1;
+          for (; t + 4 <= dl; t += 4) {
+            p0 += Li[base + t] * Lr[abase[base + t] + sl];
+            p1 += Li[base + t + 1] * Lr[abase[base + t + 1] + sl];
+            p2 += Li[base + t + 2] * Lr[abase[base + t + 2] + sl];
+            p3 += Li[base + t + 3] * Lr[abase[base + t + 3] + sl];
+          }
+          for (; t < dl; ++t) p0 += Li[base + t] * Lr[abase[base + t] + sl];
+          Li[base + sl] = -((p0 + p1) + (p2 + p3));
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < nnz; e += NT) mpd[e] = lipd[e];   // L_pd^-1
+      __syncthreads();
+      STAMP(ST_INVERSE);
+
+      // ---- Y = L^-T J^T = (L_dyn^-1)^T J^T on the active columns: one
+      // gather over a column of L^-1 per (dof, column), from a copy of J^T
+      T* jt = sm + L.jt;
+      for (int e = tid; e < nd * c3; e += NT) jt[e] = Y[e];
+      __syncthreads();
+      for (int idx = tid; idx < nd * nact; idx += NT) {
+        const int j = idx / nact, c = act[idx % nact];
+        const int i0 = col_off[j], m = col_off[j + 1] - i0;
+        T p0 = jt[j * c3 + c], p1 = T(0), p2 = T(0), p3 = T(0);
+        int i = i0;
+        for (; i + 4 <= i0 + m; i += 4) {
+          p0 += lidyn[__ldg(col_slot + i)] * jt[__ldg(col_row + i) * c3 + c];
+          p1 += lidyn[__ldg(col_slot + i + 1)] * jt[__ldg(col_row + i + 1) * c3 + c];
+          p2 += lidyn[__ldg(col_slot + i + 2)] * jt[__ldg(col_row + i + 2) * c3 + c];
+          p3 += lidyn[__ldg(col_slot + i + 3)] * jt[__ldg(col_row + i + 3) * c3 + c];
+        }
+        for (; i < i0 + m; ++i)
+          p0 += lidyn[__ldg(col_slot + i)] * jt[__ldg(col_row + i) * c3 + c];
+        Y[j * c3 + c] = (p0 + p1) + (p2 + p3);
+      }
+      __syncthreads();
+      STAMP(ST_Y);
+      // ---- Delassus G = Y^T D^-1 Y on the active rows + row-sum scale ----
+      for (int idx = tid; idx < nact * nact; idx += NT) {
+        const int ai = idx / nact, bi = idx % nact;
+        if (bi > ai) continue;
+        const int a = act[ai], b = act[bi];
+        T acc = T(0);
+        for (int dd = 0; dd < nd; ++dd)
+          acc += (idyn[dd] * Y[dd * c3 + a]) * Y[dd * c3 + b];
+        G[a * c3 + b] = acc;
+        G[b * c3 + a] = acc;
+      }
+      __syncthreads();
+      for (int ai = tid; ai < nact; ai += NT) {
+        const int a = act[ai];
+        T acc = T(0);
+        for (int bi = 0; bi < nact; ++bi) acc += xabs(G[a * c3 + act[bi]]);
+        gid[a] = relax / (acc + T(1e-9));
+      }
+      __syncthreads();
+      STAMP(ST_DELASSUS);
+
+      // ================= substeps against the frozen prep ================
+      const bool live = lane < c3 && ((amask >> lane) & 1u);
+      for (int sub = 0; sub < nsub; ++sub) {
+        // joint limits, passive forces, stable-PD error and rhs; w = L v
+        T qfb_r = T(0), e_r = T(0);
+        if (owner) rhs[tid] = pd_terms(qfb_r, e_r);
+        // w = L_dyn v on the warps that own no dof (threads 64.. for nd <= 64)
+        for (int dd = tid - 64; dd >= 0 && dd < nd; dd += NT - 64)
+          w[dd] = v[dd] + gather_dot(mdyn, v, (const int*)nullptr, anc_idx,
+                                     anc_off[dd], anc_off[dd + 1] - anc_off[dd]);
+        __syncthreads();
+        // PD solve, each dof a gather over L_pd^-1: z = D^-1 L^-T rhs, then
+        // qacc = L^-1 z; the clamped torque -> dynamics rhs (times dt) in rhs
+        if (owner)
+          z[tid] = ipd[tid] * (rhs[tid] + gather_dot(mpd, rhs, col_slot, col_row,
+                                                     col_off[tid], col_off[tid + 1] - col_off[tid]));
+        __syncthreads();
+        T qacc = T(0);
+        if (owner)
+          qacc = z[tid] + gather_dot(mpd, z, (const int*)nullptr, anc_idx, anc_off[tid],
+                                     anc_off[tid + 1] - anc_off[tid]);
+        STAMP(ST_PD);
+        if (owner) {
+          T qf = qfb_r;
+          if (hinge) {
+            T tq = -kp_r * e_r - kd_r * (v[tid] + dt * qacc);
+            tq = xmin(xmax(tq, -tlim_r), tlim_r);
+            qf += tq * gear_r;
+          }
+          rhs[tid] = qf * dt;
+        }
+        __syncthreads();
+        STAMP(ST_TORQUE);
+        // u = D^-1 L^-T (dt qfrc) over L_dyn^-1's columns
+        if (owner) {
+          u[tid] = idyn[tid] * (rhs[tid] + gather_dot(lidyn, rhs, col_slot, col_row,
+                                                      col_off[tid], col_off[tid + 1] - col_off[tid]));
+          w[tid] += u[tid];          // L v + u, the residual's vector
+        }
+        __syncthreads();
+        STAMP(ST_DYN_SOLVE);
+        // contact residual J v_pred - target = Y^T (L v + u) - target
+        T bh_r = T(0);
+        if (warp == 0 && live) bh_r = lane_residual(Y, w, tgt, c3, nd, lane);
+        STAMP(ST_RESIDUAL);
+        // projected-Jacobi sweep, one lane per contact row, G read by column
+        if (warp == 0)
+          warp_sweep(G, gid, lam, mu, act, nact, live, bh_r, k, c3, d.iters, lane);
+        __syncthreads();
+        STAMP(ST_SWEEP);
+        // v_new = v + L^-1 D^-1 (z' + Y lam), z' = L^-T (dt qfrc): u += D^-1 Y lam,
+        // then a gather over L_dyn^-1's row into z
+        if (owner) {
+          T acc = T(0);
+          for (int ci = 0; ci < nact; ++ci) {
+            const int c = act[ci];
+            acc += Y[tid * c3 + c] * lam[c];
+          }
+          u[tid] += idyn[tid] * acc;
+        }
+        __syncthreads();
+        if (owner)
+          z[tid] = v[tid] + u[tid] + gather_dot(lidyn, u, (const int*)nullptr, anc_idx,
+                                                anc_off[tid], anc_off[tid + 1] - anc_off[tid]);
+        __syncthreads();
+        STAMP(ST_VELOCITY);
+        integrate(z);
+        __syncthreads();
+        STAMP(ST_INTEGRATE);
+      }
     }
   }
 
@@ -1068,34 +1265,46 @@ __device__ __forceinline__ void substep_body(
 #endif
 }
 
-// Float: at most 64 registers a thread, so 8 blocks of 128 fit an SM's
-// 65,536; double: 4 blocks (its 45 KB block allows 4 per SM anyway).
-__global__ void __launch_bounds__(NT, 8)
-substep_kernel(const Dims d, const int* __restrict__ itab,
-               const float* __restrict__ ftab, const float* __restrict__ qpos,
-               const float* __restrict__ qvel, const float* __restrict__ ctrl,
-               const float* __restrict__ jkp, const float* __restrict__ jkd,
-               const float* __restrict__ tlim, float* __restrict__ qpos_out,
-               float* __restrict__ qvel_out, long long* __restrict__ clocks) {
-  substep_body<float>(d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim,
-                      qpos_out, qvel_out, clocks);
-}
+#define KERNEL_ARGS(T)                                                       \
+  const Dims d, const int* __restrict__ itab, const T* __restrict__ ftab,    \
+      const T* __restrict__ qpos, const T* __restrict__ qvel,                \
+      const T* __restrict__ ctrl, const T* __restrict__ jkp,                 \
+      const T* __restrict__ jkd, const T* __restrict__ tlim,                 \
+      T* __restrict__ qpos_out, T* __restrict__ qvel_out,                    \
+      long long* __restrict__ clocks
+#define BODY_ARGS \
+  d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim, qpos_out, qvel_out, clocks
 
-__global__ void __launch_bounds__(NT, 4)
-substep_kernel(const Dims d, const int* __restrict__ itab,
-               const double* __restrict__ ftab, const double* __restrict__ qpos,
-               const double* __restrict__ qvel, const double* __restrict__ ctrl,
-               const double* __restrict__ jkp, const double* __restrict__ jkd,
-               const double* __restrict__ tlim, double* __restrict__ qpos_out,
-               double* __restrict__ qvel_out, long long* __restrict__ clocks) {
-  substep_body<double>(d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim,
-                       qpos_out, qvel_out, clocks);
+// Sparse, float: at most 64 registers a thread, so 8 blocks of 128 fit an
+// SM's 65,536; double: 4 blocks (its 47 KB block allows 4 per SM anyway).
+__global__ void __launch_bounds__(NT, 8) substep_kernel(KERNEL_ARGS(float)) {
+  substep_body<float, false>(BODY_ARGS);
+}
+__global__ void __launch_bounds__(NT, 4) substep_kernel(KERNEL_ARGS(double)) {
+  substep_body<double, false>(BODY_ARGS);
+}
+// Dense: its 42.7 KB float block allows 5 per SM (so up to 96 registers a
+// thread), its 85 KB double block 2.
+__global__ void __launch_bounds__(NT, 5)
+substep_dense_kernel(KERNEL_ARGS(float)) {
+  substep_body<float, true>(BODY_ARGS);
+}
+__global__ void __launch_bounds__(NT, 2)
+substep_dense_kernel(KERNEL_ARGS(double)) {
+  substep_body<double, true>(BODY_ARGS);
 }
 
 template <typename T>
 using KernelFn = void (*)(const Dims, const int*, const T*, const T*,
                           const T*, const T*, const T*, const T*, const T*,
                           T*, T*, long long*);
+
+// The branch's kernel: Dims.dense picks it.
+template <typename T>
+static KernelFn<T> kernel_of(const Dims& d) {
+  return d.dense ? static_cast<KernelFn<T>>(substep_dense_kernel)
+                 : static_cast<KernelFn<T>>(substep_kernel);
+}
 
 // Opt the kernel in to the block's shared memory; 0, -1 (dims mismatch),
 // -2 (more than a block may use) or a CUDA error code.
@@ -1108,7 +1317,7 @@ static int prepare(const int* dims_host, int ndims, Dims* d, size_t* bytes) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (*bytes > (size_t)max_optin) return -2;
-  return (int)cudaFuncSetAttribute(static_cast<KernelFn<T>>(substep_kernel),
+  return (int)cudaFuncSetAttribute(kernel_of<T>(*d),
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)*bytes);
 }
@@ -1122,7 +1331,8 @@ static int launch(const int* dims_host, int ndims, const int* itab,
   size_t bytes = 0;
   const int err = prepare<T>(dims_host, ndims, &d, &bytes);
   if (err != 0) return err;
-  substep_kernel<<<batch, NT, bytes, (cudaStream_t)stream>>>(
+  const KernelFn<T> kernel = kernel_of<T>(d);
+  kernel<<<batch, NT, bytes, (cudaStream_t)stream>>>(
       d, itab, ftab, qpos, qvel, ctrl, jkp, jkd, tlim, qpos_out, qvel_out,
       clocks);
   return (int)cudaGetLastError();
@@ -1152,7 +1362,8 @@ extern "C" int egopose_substep_f64(
                    (T*)qpos_out, (T*)qvel_out, nullptr, batch, stream);
 }
 
-// Resources of the kernel for dtype (0 float, 1 double) at these dims:
+// Resources of the branch's kernel for dtype (0 float, 1 double) at these
+// dims:
 // out[0] blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // out[1] registers per thread, out[2] dynamic shared bytes per block,
 // out[3] local (spill) bytes per thread.
@@ -1163,10 +1374,10 @@ static int occupancy(const int* dims_host, int ndims, int* out) {
   int err = prepare<T>(dims_host, ndims, &d, &bytes);
   if (err != 0) return err;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, static_cast<KernelFn<T>>(substep_kernel));
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel_of<T>(d));
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], static_cast<KernelFn<T>>(substep_kernel), NT, bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel_of<T>(d),
+                                                    NT, bytes);
   out[1] = attr.numRegs;
   out[2] = (int)bytes;
   out[3] = (int)attr.localSizeBytes;

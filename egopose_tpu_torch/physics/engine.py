@@ -7,7 +7,8 @@ under ``vmap``).  The stable-PD split path (pd_control_step_split) is the
 plain version of the CUDA control-step kernel K1 (csrc/substep.cu, wrapped
 by physics/substep.py): called directly it solves with
 linalg.spd_solve_plain on every device, and chip_smoke.py holds the kernels
-against it on the card.  The kernels each path runs on a CUDA batch:
+against it on the card (K1's dense branch, ``sparse_ldl=False``, against it
+at prep_refresh=1).  The kernels each path runs on a CUDA batch:
 
 - pd_control_step: K1 with ``substep_resident``; else K4 (linalg.pd_fused)
   per substep with ``pd_fused``; else the split path with its solves
@@ -40,11 +41,10 @@ cross = Q.cross
 
 class ContactParams(NamedTuple):
     """Contact-solver / joint-limit parameters and the choice of kernel;
-    the same fields and defaults as egopose_tpu.physics.engine.ContactParams
-    except ``sparse_ldl`` (K1 takes only its sparse tree LDL^T).  The solver
-    flags act on CUDA tensors as in the JAX package on the TPU
-    (pd_control_step); on the CPU ``substep_resident`` is ignored and the
-    others run their kernels' plain versions."""
+    the same fields and defaults as egopose_tpu.physics.engine.ContactParams.
+    The solver flags act on CUDA tensors as in the JAX package on the TPU
+    (pd_control_step); on the CPU ``substep_resident`` and ``sparse_ldl``
+    are ignored and the others run their kernels' plain versions."""
     margin: float = 1.0e-3   # activation margin (m)
     beta: float = 0.2        # Baumgarte penetration-recovery factor
     slop: float = 1.0e-4     # penetration allowed without correction (m)
@@ -63,13 +63,19 @@ class ContactParams(NamedTuple):
                              # fused_solver in pd_control_step
     substep_resident: bool = False  # the whole control step in one launch
                              # of K1 (CUDA only); takes precedence
+    sparse_ldl: bool = True  # K1 solves the PD and dynamics systems by its
+                             # sparse tree LDL^T; False: by dense Cholesky,
+                             # with the prep recomputed every substep
+                             # whatever prep_refresh says (the TPU kernel's
+                             # dense branch).  Ignored outside K1
     klim: float = 200.0      # joint-limit stiffness (N m / rad)
     blim: float = 5.0        # joint-limit damping (N m s / rad)
     prep_refresh: int = 1    # recompute FK / mass matrix / bias / contact
                              # geometry (and their factorizations) every
                              # `prep_refresh`-th substep; PD error, limits,
                              # solves, sweep and integration use fresh q/v;
-                             # ignored by pd_fused and fused_solver
+                             # ignored by pd_fused, fused_solver and K1's
+                             # dense branch (sparse_ldl=False)
 
 
 # Same defaults as the JAX engine: the resident kernel K1, prep-refresh R=3.
@@ -411,7 +417,10 @@ def pd_control_step_split(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd,
     dynamics + contact sweep + integration, grouped by the prep-refresh
     cadence R (the last group takes the remainder).  The SPD solves go
     through ``solve``: the plain version by default, which makes this K1's
-    plain version; pd_control_step passes linalg.spd_solve (K2 on the card).
+    plain version -- at prep_refresh=1 that of K1's dense branch
+    (sparse_ldl=False), which recomputes the prep every substep whatever
+    prep_refresh says; pd_control_step passes linalg.spd_solve (K2 on the
+    card).
     With ``fused_solver`` R is 1 and each substep's dynamics solve and
     sweep are one linalg.fused_contact (the K3 kernel on the card)."""
     act = list(m.actuator_dof)
@@ -527,7 +536,9 @@ def pd_control_step(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, torque_lim,
 
     The JAX engine's dispatch, in its order of precedence: with
     ``substep_resident`` a CUDA batch runs K1, the whole control step in one
-    launch (physics/substep.py; a model K1 does not take raises); otherwise
+    launch (physics/substep.py; a model K1 does not take raises), by its
+    sparse tree LDL^T or, with ``sparse_ldl=False``, by its dense branch;
+    otherwise
     ``pd_fused`` runs _pd_fused_control_step (K4 on the card), and else the
     split path above runs with its solves through linalg.spd_solve (K2 on
     the card), as the JAX split path solves through K2 on the TPU.  On the

@@ -15,11 +15,25 @@ launches it through ctypes.  ``occupancy`` reads the kernel's registers
 and blocks per SM on the card; ``pd_control_step_cuda(..., clocks=...)``
 runs its stage-clock build.
 
+The kernel has two branches, as the TPU kernel has: by default
+(``ContactParams.sparse_ldl``) it solves the PD and dynamics systems by
+the sparse tree LDL^T above, with the prep refreshed every
+``prep_refresh`` substeps; with ``sparse_ldl=False`` it runs the TPU
+kernel's dense branch (substep_pallas.py:739-830): the prep every substep
+whatever ``prep_refresh`` says, the dense M, two dense Cholesky factors
+side by side, W = A_dyn^-1 J^T and the non-symmetric Delassus J W over the
+contact-loaded dofs (``support_segments``).  The branches are two
+instantiations of one kernel source with their own shared layouts
+(``SMEM_ARRAYS``, ``SMEM_ARRAYS_DENSE``) and launch counts (``launches``,
+``dense_launches``).
+
 Dispatch (engine.pd_control_step, the counterpart of make_substep_step):
 with ``ContactParams.substep_resident`` (the default) a CUDA batch runs the
 kernel at any B >= 1; a CPU batch runs the plain split path
-(engine.pd_control_step_split).  There is no fallback from CUDA to the
-plain version: a model the kernel does not support raises.
+(engine.pd_control_step_split), which ignores ``sparse_ldl``; at
+prep_refresh=1 it is the plain version of the dense branch.  There is no
+fallback from CUDA to the plain version: a model the kernel does not
+support raises.
 """
 from __future__ import annotations
 
@@ -31,8 +45,10 @@ import torch
 from . import engine, nvcc
 from .model import PhysicsModel
 
-# Launch count of the kernel: incremented once per launch, nowhere else.
+# Launch counts of the kernel's sparse and dense branches: each
+# incremented once per launch of its branch, nowhere else.
 launches = 0
+dense_launches = 0
 
 # Arrays of one block's shared memory (csrc/substep.cu), in allocation
 # order: (name, size, first stage, last stage) with the size a function of
@@ -86,6 +102,38 @@ SMEM_ARRAYS = (
     ("w", lambda d: d["nd"], "substeps", "substeps"),
     ("lam", lambda d: d["c3"], "substeps", "substeps"),
 )
+# The dense branch's arrays (per substep: prep, the two dense factors of
+# M + dt diag(kd) and M + dt diag(damping) in n x lda squares, the PD and
+# qacc columns, W = A_dyn^-1 J^T, the Delassus J W stored transposed in g,
+# the sweep); the prep arrays as in the sparse branch.
+LIVE_STAGES_DENSE = ("load fk narrowphase select dynamics mass factor subst "
+                     "torque qacc sweep velocity").split()
+_PREP = tuple(a for a in SMEM_ARRAYS
+              if a[0] in ("xpos xquat s pall phiall pphi pn pp selphi com ic "
+                          "io smom sio smass sq cj fcrb fb").split())
+SMEM_ARRAYS_DENSE = (
+    ("q", lambda d: d["nq"], "load", "velocity"),
+    ("v", lambda d: d["nd"], "load", "velocity"),
+    ("jt", lambda d: d["nd"] * d["c3"], "select", "sweep"),
+    ("tgt", lambda d: d["c3"], "select", "sweep"),
+    ("mu", lambda d: d["k"], "select", "sweep"),
+    ("apd", lambda d: d["nd"] * d["lda"], "dynamics", "subst"),
+    ("adyn", lambda d: d["nd"] * d["lda"], "dynamics", "qacc"),
+    ("bias", lambda d: d["nd"], "mass", "factor"),
+    ("rpd", lambda d: d["nd"], "factor", "subst"),
+    ("rdyn", lambda d: d["nd"], "factor", "qacc"),
+    ("xpd", lambda d: d["nd"], "factor", "torque"),
+    ("xdyn", lambda d: d["nd"], "torque", "velocity"),
+) + _PREP + (
+    ("wd", lambda d: d["nd"] * d["c3"], "subst", "velocity"),
+    ("g", lambda d: d["c3"] * d["c3"], "qacc", "sweep"),
+    ("gid", lambda d: d["c3"], "sweep", "sweep"),
+    ("lam", lambda d: d["c3"], "sweep", "velocity"),
+)
+# Every array name of either branch, in the order of Dims' l_ fields.
+SMEM_NAMES = tuple(a[0] for a in SMEM_ARRAYS) + tuple(
+    a[0] for a in SMEM_ARRAYS_DENSE
+    if a[0] not in {b[0] for b in SMEM_ARRAYS})
 # int arrays after the float ones: the selected floor and pair candidates,
 # the active contact rows, their count and their bit mask
 SMEM_INTS = (("sel", lambda d: d["k"] + d["kp"]),
@@ -95,19 +143,19 @@ SMEM_INTS = (("sel", lambda d: d["k"] + d["kp"]),
 # Field order of the ``Dims`` struct in csrc/substep.cu (ints only).
 DIM_FIELDS = (
     "nb nd nq nu ncp npair nbpair k kp c3 nnz nlevel "
-    "n_frames prep_refresh iters "
+    "n_frames prep_refresh iters dense lda n_sup poison "
     "i_parent i_dof_body i_hinge0 i_nhinge i_lvl_off i_lvl_body "
     "i_path_off i_path_idx i_vp_off i_vp_idx i_desc_off i_desc_idx "
     "i_anc_off i_anc_idx i_ent_row i_banc i_cp_body "
     "i_p_b1 i_p_b2 i_bp_seg i_bp_box "
     "i_height i_fac_a i_fac_b i_fac_row i_col_off i_col_slot i_col_row "
-    "i_anc_base n_fac "
+    "i_anc_base n_fac i_sup "
     "f_body_pos f_body_ipos f_mass f_inertia f_axis f_anchor "
     "f_armature f_damping f_stiffness f_lo f_hi f_limited f_gear "
     "f_gravity f_cp_local f_cp_radius f_cp_mu "
     "f_p_a1 f_p_b1 f_p_a2 f_p_b2 f_p_rsum f_p_rdiff "
     "f_bp_a f_bp_b f_bp_rseg f_bp_pos f_bp_quat f_bp_half f_scal").split() \
-    + ["l_" + a[0] for a in SMEM_ARRAYS] + ["l_" + a[0] for a in SMEM_INTS] \
+    + ["l_" + a for a in SMEM_NAMES] + ["l_" + a[0] for a in SMEM_INTS] \
     + ["l_total", "l_ints"]
 
 NT = 128              # threads per block (csrc/substep.cu)
@@ -115,13 +163,14 @@ MAX_ROWS = 32         # contact rows: the kernel's sweep runs in one warp
 
 # Stages of the stage-clock build (enum Stage in csrc/substep.cu), in order.
 STAGES = ("load fk dynamics narrowphase select factor inverse y delassus pd "
-          "torque dyn_solve residual sweep velocity integrate store").split()
+          "torque dyn_solve residual sweep velocity integrate store "
+          "subst qacc_delassus").split()
 CLOCKS_DEFINE = "EGOPOSE_STAGE_CLOCKS"
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    global launches, dense_launches
+    launches = dense_launches = 0
 
 
 def supports(m: PhysicsModel) -> bool:
@@ -147,16 +196,19 @@ def dof_anc_lists(anc_mask: np.ndarray) -> tuple:
                        if anc_mask[d, j] or anc_mask[j, d]) for d in range(n))
 
 
-def smem_layout(dims: dict) -> dict:
-    """Offsets of the block's shared arrays (SMEM_ARRAYS, in elements of
-    the float type; SMEM_INTS, in ints after them) as ``l_<name>``, plus
-    ``l_total`` floats and ``l_ints`` ints.  First fit: each array goes at
-    the lowest offset where it overlaps no placed array whose stages
-    overlap its own, so arrays live only in the prep share bytes with the
-    substeps' arrays."""
-    stage = {n: i for i, n in enumerate(LIVE_STAGES)}
-    placed, out = [], {}
-    for name, size, first, last in SMEM_ARRAYS:
+def smem_layout(dims: dict, dense: bool = False) -> dict:
+    """Offsets of the block's shared arrays (SMEM_ARRAYS, or with ``dense``
+    SMEM_ARRAYS_DENSE, in elements of the float type; SMEM_INTS, in ints
+    after them) as ``l_<name>``, plus ``l_total`` floats and ``l_ints``
+    ints; the other branch's arrays get offset 0.  First fit: each array
+    goes at the lowest offset where it overlaps no placed array whose
+    stages overlap its own, so arrays live only in the prep share bytes
+    with the later stages' arrays."""
+    stages, arrays = (LIVE_STAGES_DENSE, SMEM_ARRAYS_DENSE) if dense \
+        else (LIVE_STAGES, SMEM_ARRAYS)
+    stage = {n: i for i, n in enumerate(stages)}
+    placed, out = [], {"l_" + n: 0 for n in SMEM_NAMES}
+    for name, size, first, last in arrays:
         n, lo, hi = size(dims), stage[first], stage[last]
         busy = sorted((o, o + sz) for o, sz, a, b in placed
                       if a <= hi and lo <= b)
@@ -285,10 +337,29 @@ def factor_schedule(anc: tuple, anc_off, nnz: int):
     return tab[..., 0], tab[..., 1], np.array(row_off, np.int64)
 
 
+def support_segments(m: PhysicsModel) -> tuple:
+    """The dofs that any contact candidate (floor point or body pair) can
+    load, as ascending maximal (start, end) ranges: J's columns are
+    structurally zero elsewhere, and the dense branch forms the Delassus
+    J W over these dofs only, in this order (substep_pallas.py's
+    ``sup_segs``)."""
+    f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()
+    pdm = np.concatenate([f64(m.point_dof_mask), np.abs(f64(m.pair_dof_mask)),
+                          np.abs(f64(m.bpair_dof_mask))], axis=1)
+    segs = []
+    for j in np.nonzero(pdm.sum(1) > 0)[0]:
+        if segs and segs[-1][1] == j:
+            segs[-1][1] = int(j) + 1
+        else:
+            segs.append([int(j), int(j) + 1])
+    return tuple((a, b) for a, b in segs)
+
+
 def build_tables(m: PhysicsModel, params: engine.ContactParams):
-    """Per-model kernel tables: (dims dict without the per-call fields,
-    int32 table, float64 table).  The kernel loops over these; nothing of
-    the model is baked into its code."""
+    """Per-model kernel tables for the branch ``params.sparse_ldl`` picks:
+    (dims dict without the per-call fields, int32 table, float64 table).
+    The kernel loops over these; nothing of the model is baked into its
+    code."""
     if not supports(m):
         raise NotImplementedError(
             "the CUDA control-step kernel needs one actuator per hinge dof "
@@ -324,23 +395,33 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
     vp_off, vp_idx = _csr([np.nonzero(vp[d])[0] for d in range(nd)])
     desc_off, desc_idx = _csr([np.nonzero(desc[b])[0] for b in range(nb)])
     anc_lists = dof_anc_lists(anc)
-    # the factorization's aligned prefix updates need nested lists:
-    # for j = anc[d][s], anc[j] == anc[d][:s] (ldl_pallas.py:19-25)
-    for d in range(nd):
-        for s, j in enumerate(anc_lists[d]):
-            if anc_lists[j] != anc_lists[d][:s]:
-                raise NotImplementedError("dof ancestor lists do not nest")
+    dense = not params.sparse_ldl
     anc_off, anc_idx = _csr(anc_lists)
     ent_row = np.repeat(np.arange(nd), np.diff(anc_off))
-    if nd > NT or len(anc_idx) + nd >= 1 << 13:
+    if nd > NT:
         raise NotImplementedError(
-            f"the kernel's tables take at most {NT} dofs and "
-            f"{(1 << 13) - nd - 1} compressed slots, got {nd} and "
-            f"{len(anc_idx)}")
+            f"the kernel takes at most {NT} dofs, got {nd}")
     height, _ = tree_levels(anc_lists)
-    inv = inverse_tables(anc_lists, anc_off)
-    fac_a, fac_b, fac_row = factor_schedule(anc_lists, anc_off,
-                                            len(anc_idx))
+    if dense:          # the tree factor's tables are the sparse branch's
+        none = np.zeros(0, np.int64)
+        inv = dict(col_off=none, col_slot=none, col_row=none, anc_base=none)
+        fac_a, fac_b, fac_row = none, none, np.zeros(1, np.int64)
+    else:
+        # the factorization's aligned prefix updates need nested lists:
+        # for j = anc[d][s], anc[j] == anc[d][:s] (ldl_pallas.py:19-25)
+        for d in range(nd):
+            for s, j in enumerate(anc_lists[d]):
+                if anc_lists[j] != anc_lists[d][:s]:
+                    raise NotImplementedError(
+                        "dof ancestor lists do not nest")
+        if len(anc_idx) + nd >= 1 << 13:
+            raise NotImplementedError(
+                f"the tree factor's tables take at most "
+                f"{(1 << 13) - nd - 1} compressed slots, got {len(anc_idx)}")
+        inv = inverse_tables(anc_lists, anc_off)
+        fac_a, fac_b, fac_row = factor_schedule(anc_lists, anc_off,
+                                                len(anc_idx))
+    sup = support_segments(m)
     k = min(params.max_contacts, m.ncpoint)
     kp = min(params.max_pair_contacts, m.npair + m.nbpair)
     c3 = 3 * k + kp
@@ -362,7 +443,8 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
             ("bp_seg", m.bpair_body_seg.cpu().numpy()),
             ("bp_box", m.bpair_body_box.cpu().numpy()),
             ("height", height),
-            ("fac_a", fac_a), ("fac_b", fac_b), ("fac_row", fac_row)] \
+            ("fac_a", fac_a), ("fac_b", fac_b), ("fac_row", fac_row),
+            ("sup", np.array(sup, np.int64).ravel())] \
         + list(inv.items())
     p = params
     floats = [("body_pos", f64(m.body_pos)), ("body_ipos", f64(m.body_ipos)),
@@ -390,8 +472,9 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
     dims = dict(nb=nb, nd=nd, nq=nq, nu=nu, ncp=m.ncpoint, npair=m.npair,
                 nbpair=m.nbpair, k=k, kp=kp, c3=c3, nnz=len(anc_idx),
                 nlevel=len(lvl_off) - 1, iters=int(p.iters),
-                n_fac=len(fac_row) - 1)
-    dims.update(smem_layout(dims))
+                n_fac=len(fac_row) - 1, dense=int(dense), lda=nd | 1,
+                n_sup=len(sup), poison=0)
+    dims.update(smem_layout(dims, dense))
     itab, off = [], 0
     for name, a in ints:
         dims["i_" + name] = off
@@ -442,6 +525,7 @@ def _load(clocks: bool = False):
 
 
 def _device_tables(m: PhysicsModel, params, device, dtype):
+    # ``params`` holds sparse_ldl: each branch has its tables and layout
     key = (params, str(device), dtype)
     if key not in m.kernel_cache:
         dims, itab, ftab = build_tables(m, params)
@@ -451,17 +535,21 @@ def _device_tables(m: PhysicsModel, params, device, dtype):
     return m.kernel_cache[key]
 
 
-def _dim_array(dims, n_frames, params):
-    dims = dict(dims, n_frames=int(n_frames),
-                prep_refresh=max(1, int(params.prep_refresh)))
+def _dim_array(dims, n_frames, params, poison=False):
+    """The Dims struct of one launch; the dense branch refreshes its prep
+    every substep whatever ``prep_refresh`` says, as the TPU kernel's."""
+    r = 1 if dims["dense"] else max(1, int(params.prep_refresh))
+    dims = dict(dims, n_frames=int(n_frames), prep_refresh=r,
+                poison=int(poison))
     return (ctypes.c_int * len(DIM_FIELDS))(
         *[int(dims[f]) for f in DIM_FIELDS])
 
 
 def occupancy(m: PhysicsModel, dtype, n_frames: int = 15,
               params: engine.ContactParams = engine.DEFAULT_CONTACT) -> dict:
-    """The kernel's resources on the current card for ``m``: blocks per
-    SM, registers per thread, shared bytes per block, spill bytes."""
+    """The kernel's resources on the current card for ``m`` in the branch
+    ``params.sparse_ldl`` picks: blocks per SM, registers per thread,
+    shared bytes per block, spill bytes."""
     dims, _, _ = build_tables(m, params)
     out = (ctypes.c_int * 4)()
     err = _load().egopose_substep_occupancy(
@@ -476,13 +564,17 @@ def occupancy(m: PhysicsModel, dtype, n_frames: int = 15,
 def pd_control_step_cuda(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, tlim,
                          n_frames: int,
                          params: engine.ContactParams = engine.DEFAULT_CONTACT,
-                         clocks=None):
-    """Launch the kernel: qpos (B,nq), qvel (B,nd), ctrl/jkp/jkd/tlim
-    (B,nu), all contiguous CUDA tensors of one float dtype -> (qpos',
-    qvel'), new tensors.  With ``clocks``, a (B, len(STAGES)) int64 CUDA
-    tensor, the stage-clock build runs instead (float32 only) and fills it
-    with each stage's cycles; it is not counted as a launch."""
-    global launches
+                         clocks=None, poison_upper: bool = False):
+    """Launch the kernel, in the branch ``params.sparse_ldl`` picks: qpos
+    (B,nq), qvel (B,nd), ctrl/jkp/jkd/tlim (B,nu), all contiguous CUDA
+    tensors of one float dtype -> (qpos', qvel'), new tensors.  With
+    ``clocks``, a (B, len(STAGES)) int64 CUDA tensor, the stage-clock build
+    runs instead (float32 only) and fills it with each stage's cycles; it
+    is not counted as a launch.  ``poison_upper`` (dense branch) fills the
+    strict upper triangle of both dense squares with NaN before every
+    factor: the outputs stay finite and unchanged only if the factor and
+    the substitutions read the lower triangle alone."""
+    global launches, dense_launches
     bsz = qpos.shape[0]
     dtype = qpos.dtype
     shapes = ((qpos, m.nq), (qvel, m.ndof), (ctrl, m.nu), (jkp, m.nu),
@@ -497,7 +589,7 @@ def pd_control_step_cuda(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, tlim,
                 f"({bsz}, {w}) on {qpos.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     dims, itab, ftab = _device_tables(m, params, qpos.device, dtype)
-    dim_arr = _dim_array(dims, n_frames, params)
+    dim_arr = _dim_array(dims, n_frames, params, poison_upper)
     qpos_out = torch.empty_like(qpos)
     qvel_out = torch.empty_like(qvel)
     ptrs = [itab.data_ptr(), ftab.data_ptr(), qpos.data_ptr(),
@@ -523,5 +615,8 @@ def pd_control_step_cuda(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, tlim,
             f"substep kernel launch failed: error {err} (a CUDA error code; "
             "-1: dims mismatch, -2: the model needs more shared memory than "
             "a block may use)")
-    launches += 1
+    if dims["dense"]:
+        dense_launches += 1
+    else:
+        launches += 1
     return qpos_out, qvel_out

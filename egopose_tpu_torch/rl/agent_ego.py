@@ -160,7 +160,7 @@ class AgentEgo:
         if objective != "ppo":
             raise NotImplementedError(
                 f"policy_objective {objective!r} is not ported yet (ROADMAP "
-                "§1 item 7: the a2c objective and TRPO)")
+                "§1 item 9: the a2c objective and TRPO)")
         windows = rollout.gather_windows(
             self.cnn_feat, batch.expert_ind, batch.start_ind,
             self.p.fr_margin, self.p.env_episode_len)

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card: K1,
-the control step (csrc/substep.cu), K2, the batched SPD solve
+the control step (csrc/substep.cu; its sparse branch, and its dense branch
+with ContactParams.sparse_ldl=False against the split path at R=1), K2, the batched SPD solve
 (csrc/spd_solve.cu), K3 and K4, the fused contact solve and the fused
 stable-PD substep (csrc/fused_contact.cu), and K5, forward kinematics
 (csrc/fk.cu).  Needs an NVIDIA GPU and nvcc: marked ``cuda`` and skipped
@@ -75,9 +76,11 @@ def _k1_states(spec, bsz, seed, lift=0.0):
     return q, v, ctrl
 
 
-def _hold_k1(card, dtype, bsz, r, seed, lift=0.0):
+def _hold_k1(card, dtype, bsz, r, seed, lift=0.0, dense=False):
     """One control step through K1 against the plain split path: f64
-    max-abs <= 1e-9, f32 RMS qpos <= 1e-6 and qvel <= 1e-4."""
+    max-abs <= 1e-9, f32 RMS qpos <= 1e-6 and qvel <= 1e-4.  With
+    ``dense`` K1's dense branch runs (given prep_refresh r, which it
+    ignores) against the split path at R=1."""
     from egopose_tpu_torch.physics import engine, model, substep
     from egopose_tpu_torch.physics.spec import parse_mjcf
     spec = parse_mjcf(XML)
@@ -85,13 +88,16 @@ def _hold_k1(card, dtype, bsz, r, seed, lift=0.0):
     q, v, ctrl = _k1_states(spec, bsz, seed, lift)
     gains = [np.full(spec.nu, g) for g in (300.0, 30.0, 100.0)]
     t = lambda x: torch.tensor(x, dtype=dtype, device=card)
-    params = engine.DEFAULT_CONTACT._replace(prep_refresh=r)
-    before = substep.launches
+    params = engine.DEFAULT_CONTACT._replace(prep_refresh=r,
+                                             sparse_ldl=not dense)
+    before = (substep.launches, substep.dense_launches)
     qk, vk = engine.pd_control_step(
         m, t(q), t(v), t(ctrl), *map(t, gains), 15, params)
-    assert substep.launches == before + 1
-    qp, vp = engine.pd_control_step_split(m, t(q), t(v), t(ctrl),
-                                          *map(t, gains), 15, params)
+    assert (substep.launches, substep.dense_launches) == (
+        before[0] + (not dense), before[1] + dense)
+    qp, vp = engine.pd_control_step_split(
+        m, t(q), t(v), t(ctrl), *map(t, gains), 15,
+        params._replace(prep_refresh=1) if dense else params)
     torch.cuda.synchronize()
     assert torch.isfinite(qk).all() and torch.isfinite(vk).all()
     dq, dv = (qk - qp).double(), (vk - vp).double()
@@ -118,6 +124,106 @@ def test_kernel_without_active_contacts_on_card(card, dtype):
     """Every lane 1 m above the floor: no contact row is active, so the
     kernel skips every column of Y and every row of the sweep."""
     _hold_k1(card, dtype, 8, 3, seed=9, lift=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 4, 64])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dense_kernel_matches_plain_on_card(card, dtype, bsz):
+    """K1's dense branch (sparse_ldl=False), given prep_refresh=3, against
+    the split path at R=1 (its plain version: the dense branch refreshes
+    its prep every substep), with K1's bars."""
+    _hold_k1(card, dtype, bsz, 3, seed=30 + bsz, dense=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dense_kernel_without_active_contacts_on_card(card, dtype):
+    """Every lane 1 m above the floor: W, the Delassus matrix and the
+    sweep have no active row."""
+    _hold_k1(card, dtype, 8, 3, seed=9, lift=1.0, dense=True)
+
+
+def _dense_inputs(card, dtype, bsz, seed):
+    from egopose_tpu_torch.physics import model
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    spec = parse_mjcf(XML)
+    m = model.build_model(spec, dtype=dtype, device=card)
+    q, v, ctrl = _k1_states(spec, bsz, seed)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=card)
+    gains = [t(np.full((bsz, spec.nu), g)) for g in (300.0, 30.0, 100.0)]
+    return m, (t(q), t(v), t(ctrl), *gains)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_reads_the_lower_triangle_on_card(card):
+    """NaN in the strict upper triangle of both dense squares before every
+    factor (poison_upper) changes nothing: the factors and substitutions
+    read the lower triangle only, as _factor_multi's masks do (B=9, f64)."""
+    from egopose_tpu_torch.physics import engine, substep
+    m, args = _dense_inputs(card, torch.float64, 9, 12)
+    params = engine.DEFAULT_CONTACT._replace(sparse_ldl=False)
+    clean = substep.pd_control_step_cuda(m, *args, 15, params)
+    poisoned = substep.pd_control_step_cuda(m, *args, 15, params,
+                                            poison_upper=True)
+    torch.cuda.synchronize()
+    for a, b in zip(clean, poisoned):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_refuses_what_it_cannot_take_on_card(card):
+    """A CUDA batch the dense branch cannot take raises
+    NotImplementedError (no plain fallback): 36 contact rows, more than
+    its one-warp sweep holds."""
+    from egopose_tpu_torch.physics import engine, substep
+    m, (q, v, ctrl, kp, kd, tl) = _dense_inputs(card, torch.float32, 2, 4)
+    params = engine.DEFAULT_CONTACT._replace(sparse_ldl=False,
+                                             max_contacts=10)
+    before = substep.dense_launches
+    with pytest.raises(NotImplementedError, match="contact rows"):
+        engine.pd_control_step(m, q, v, ctrl, kp[0], kd[0], tl[0], 15, params)
+    assert substep.dense_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dense_occupancy_on_card(card, dtype):
+    """The dense branch's block: the layout's bytes (42,676 f32, 85,200
+    f64 for the humanoid), at least 5 blocks per SM in float and 2 in
+    double."""
+    from egopose_tpu_torch.physics import engine, model, substep
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    m = model.build_model(parse_mjcf(XML), dtype=dtype, device=card)
+    params = engine.DEFAULT_CONTACT._replace(sparse_ldl=False)
+    dims, _, _ = substep.build_tables(m, params)
+    occ = substep.occupancy(m, dtype, params=params)
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert occ["shared_bytes"] == substep.smem_bytes(dims, size)
+    assert occ["blocks_per_sm"] >= (5 if dtype == torch.float32 else 2)
+
+
+@pytest.mark.cuda
+def test_dense_stage_clocks_on_card(card):
+    """The stage-clock build's dense branch holds K1's f32 bars and stamps
+    its stages (prep, factor, subst, torque, qacc_delassus, residual,
+    sweep, velocity, integrate), none of the sparse branch's own."""
+    from egopose_tpu_torch.physics import engine, substep
+    m, args = _dense_inputs(card, torch.float32, 6, 8)
+    params = engine.DEFAULT_CONTACT._replace(sparse_ldl=False)
+    clocks = torch.zeros(6, len(substep.STAGES), dtype=torch.int64,
+                         device=card)
+    qk, vk = substep.pd_control_step_cuda(m, *args, 15, params, clocks=clocks)
+    qp, vp = engine.pd_control_step_split(
+        m, *args[:3], *[g[0] for g in args[3:]], 15,
+        params._replace(prep_refresh=1))
+    torch.cuda.synchronize()
+    assert (qk - qp).double().pow(2).mean().sqrt() <= 1e-6
+    assert (vk - vp).double().pow(2).mean().sqrt() <= 1e-4
+    ran = {n for i, n in enumerate(substep.STAGES)
+           if bool((clocks[:, i] > 0).all())}
+    assert ran == set(substep.STAGES) - {"inverse", "y", "delassus", "pd",
+                                         "dyn_solve"}
 
 
 @pytest.mark.cuda
