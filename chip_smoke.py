@@ -19,9 +19,11 @@ any failure exits non-zero:
                >= 20 launches after warm-up, each bracketed alone: ms) at
                B=1024 and B=4, f32, and the kernel's 50 launches back to
                back between two events (ms_b2b, per launch: without the
-               wrapper's host time), with the bound of the same work on
-               this card, and the kernel's registers, shared bytes, blocks
-               per SM and waves at B=1024
+               wrapper's host time, where the card stays ahead of the
+               host), the kernel's own device time per launch from
+               torch.profiler (device_ms: no host time at all), with the
+               bound of the same work on this card, and the kernel's
+               registers, shared bytes, blocks per SM and waves at B=1024
   k1_dense_vs_plain
                K1's dense branch (ContactParams.sparse_ldl=False, given
                prep_refresh=3, which it must ignore) against the split path
@@ -33,7 +35,9 @@ any failure exits non-zero:
   k1_stages    the stage-clock build of K1 (EGOPOSE_STAGE_CLOCKS: thread 0
                of each block sums clock64() cycles per stage) at B=4 and
                B=1024, f32, each branch: the median over environments of
-               each stage's cycles in one control step
+               each stage's cycles in one control step (the dense
+               branch's own stages: factor, gram, torque, z0, residual,
+               sweep, velocity, integrate; substep.STAGES)
   eval         the port's main path: ego_mimic_eval --cfg subject_03
                --synthetic --iter 3000 in f32 on the card (4 takes x 380
                steps), then eval_pose's compute_stats; asserts one kernel
@@ -79,8 +83,7 @@ any failure exits non-zero:
                and B=4, f32 (the kernel also back to back), with the bound
                of the same work on this card (K2-K4 count the lower
                triangle of A / M as read, all that a Cholesky factor reads);
-               K3 and K4 also their resources as in k1_time (and systems
-               per block)
+               also their resources as in k1_time (and systems per block)
   k34_stages   the stage-clock build of K3 and K4 (EGOPOSE_STAGE_CLOCKS:
                lane 0 of each warp stamps clock64() after each stage) at
                B=4 and B=1024, f32: the median over warps of each stage's
@@ -122,10 +125,16 @@ any failure exits non-zero:
                three rollouts), error against the plain version and times
 
 With ``--only a,b`` only the phases named run (the device and build
-phases always do).  ``--ab DIR`` instead times K1 to K4 of the checkout
-in DIR (a parent commit, unpacked with git archive) and of this tree in
-turns, parent, tree, tree, parent (phase ``ab``), each run a subprocess of
-``--only k1_time,k2_time,k3_time,k4_time``.
+phases always do).  ``--ab DIR`` instead times every kernel of the
+checkout in DIR (a parent commit, unpacked with git archive) and of this
+tree in turns, parent, tree, tree, parent (phase ``ab``: ``ms``,
+``ms_b2b`` and ``device_ms`` of each phase at each B), each run a
+subprocess of ``--only
+k1_time,k1_dense_time,k2_time,k3_time,k4_time,k5_time`` (or of the
+phases of an ``--only`` given beside ``--ab``).  A checkout whose phases
+print no ``device_ms`` (d4a5506) gets it from one more subprocess, this
+script's ``--device-times DIR``, which times every kernel of the package
+in DIR with torch.profiler (phase ``device_times``).
 
 The last two lines are the card's name and power limit and then
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints no
@@ -336,19 +345,23 @@ def k1_prep_ops(m, dims_nnz, c):
 def k1_dense_work(m, dims_nnz, n_sup, table_bytes, bsz, itemsize, n_frames,
                   iters, floor_rows, pair_rows):
     """(bytes, flops) of the dense branch's control step for ``bsz``
-    lanes: bytes as k1_work's; per substep the prep, 2 n^3/3 for the two
-    factors, 2 n^2 (2 + c) for the substitutions of the PD column, the
-    qacc column and the c columns of W, 2 c^2 |sup| for J W over the
-    ``n_sup`` contact-loaded dofs, c^2 for its row sums, 2 c n for the
-    residual, iters (2 c^2 + 4 c) for the sweep, 2 n c for W lam and 40 n
-    for the rhs, torque and integration; c the active contact rows."""
+    lanes: bytes as k1_work's; per substep the least dense algebra known
+    to compute it, the forward-only solve: the prep, 2 n^3/3 for the two
+    factors, 2 n^2 for the PD column's two substitutions, n^2 c for
+    Y = L^-1 J^T, c (c + 1) n for the lower triangle of D = Y^T Y, n^2
+    for z0 = L^-1 dt qfrc, 2 c |sup| for J v over the ``n_sup``
+    contact-loaded dofs and 2 c n for Y^T z0 (the residual), c^2 for D's
+    row sums, iters (2 c^2 + 4 c) for the sweep, 2 n c for Y lam, n^2 for
+    the back substitution and 40 n for the rhs, torque and integration;
+    c the active contact rows."""
     nbytes, _ = k1_work(m, dims_nnz, table_bytes, bsz, itemsize, n_frames,
                         1, floor_rows, pair_rows)
     n = m.ndof
     c = 3 * floor_rows + pair_rows
-    sub = (k1_prep_ops(m, dims_nnz, c) + 2 * n ** 3 / 3
-           + 2 * n * n * (2 + c) + 2 * c * c * n_sup + c * c + 2 * c * n
-           + iters * (2 * c * c + 4 * c) + 2 * n * c + 40 * n)
+    sub = (k1_prep_ops(m, dims_nnz, c) + 2 * n ** 3 / 3 + 2 * n * n
+           + n * n * c + c * (c + 1) * n + n * n + 2 * c * n_sup
+           + 2 * c * n + c * c + iters * (2 * c * c + 4 * c) + 2 * n * c
+           + n * n + 40 * n)
     return nbytes, bsz * n_frames * sub
 
 
@@ -387,6 +400,40 @@ def time_b2b(fn, n=50, warm=5):
     return a.elapsed_time(b) / n
 
 
+# The name each kernel has in a torch.profiler trace (a substring of it).
+KERNEL_KEYS = dict(k1="substep_kernel", k1_dense="substep_dense_kernel",
+                   k2="spd_solve_kernel", k3="fused_contact_kernel",
+                   k4="pd_fused_kernel", k5="fk_kernel")
+
+
+def device_ms(fn, key, n=20, tries=3):
+    """The kernel's own time per launch on the card: torch.profiler's
+    device time of the kernels whose name holds ``key`` over ``n`` calls
+    of ``fn``, divided by the launches traced.  Unlike time_b2b it holds no
+    host time even where one call's host time exceeds the kernel's.  The
+    trace of a short session can miss launches (of K5 at B=4, all of them
+    once in six sessions), so a session that traced none is run again,
+    up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dtime = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and key in e.key]
+        launched = sum(e.count for e in ev)
+        if launched:
+            return sum(dtime(e) for e in ev) / launched / 1e3
+    raise AssertionError(f"{key}: no launch traced in {tries} sessions")
+
+
 def resources(occ, bsz, per_block=1):
     """An occupancy record plus the waves ``bsz`` blocks of work take on
     this card (``per_block``: systems per block)."""
@@ -422,6 +469,7 @@ def phase_k1_time(device):
         t_ops = flops / H100_F32_FLOPS * 1e3
         rec = dict(B=bsz, dtype="float32", R=params.prep_refresh,
                    ms=time_ms(kern), ms_b2b=time_b2b(kern),
+                   device_ms=device_ms(kern, KERNEL_KEYS["k1"]),
                    plain_ms=time_ms(plain, n=20, warm=2),
                    bytes=nbytes, flops=flops,
                    bound_ms=max(t_bytes, t_ops),
@@ -555,6 +603,7 @@ def phase_k1_dense_time(device):
         # the plain step takes ~1 s on the card's host: five calls
         rec = dict(B=bsz, dtype="float32", ms=time_ms(kern),
                    ms_b2b=time_b2b(kern),
+                   device_ms=device_ms(kern, KERNEL_KEYS["k1_dense"]),
                    plain_ms=time_ms(plain, n=5, warm=1), library_ms=None,
                    **bound(*k1_dense_work(
                        m, dims["nnz"], n_sup, table_bytes, bsz, 4, N_FRAMES,
@@ -835,6 +884,8 @@ def phase_k2_time(device):
         rec = dict(B=bsz, n=n, r=r, dtype="float32",
                    ms=time_ms(lambda: linalg.spd_solve_cuda(a, rhs)),
                    ms_b2b=time_b2b(lambda: linalg.spd_solve_cuda(a, rhs)),
+                   device_ms=device_ms(lambda: linalg.spd_solve_cuda(a, rhs),
+                                       KERNEL_KEYS["k2"]),
                    plain_ms=time_ms(lambda: linalg.spd_solve_plain(a, rhs)),
                    library_ms=time_ms(lambda: torch.linalg.solve(a, rhs)),
                    bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
@@ -878,22 +929,26 @@ def k4_systems(m, gains, q, v, ctrl, params):
 
 def k3_work(bsz, n, c, k, iters, itemsize):
     """(bytes, flops) of B fused contact solves: a's lower triangle, qfrc,
-    qvel, jf, target, mu read once, v_new written once; n^3/3 for the
-    factor, 2 n^2 (1+c) for the substitutions, 2 c^2 n for the Delassus
-    matrix, 2 c n for the residual, c^2 for the row sums, iters (2 c^2 +
-    4 c) for the sweep and 2 n c + n for v_new."""
+    qvel, jf, target, mu read once, v_new written once; the forward-only
+    solve the kernel does, the least dense algebra known to compute it:
+    n^3/3 for the factor, n^2 (1 + c) for the forward substitution of
+    [dt qfrc, J^T], c (c + 1) n for the lower triangle of the Delassus
+    matrix Z^T Z, 4 c n for the residual J v + Z^T z0, c^2 for the row
+    sums, iters (2 c^2 + 4 c) for the sweep, 2 n c + n for z0 + Z lam and
+    n^2 + n for the back substitution and v_new."""
     return (bsz * (tri(n) + 3 * n + c * n + c + k) * itemsize,
-            bsz * (n ** 3 / 3 + 2 * n * n * (1 + c) + 2 * c * c * n
-                   + 2 * c * n + c * c + iters * (2 * c * c + 4 * c)
-                   + 2 * n * c + n))
+            bsz * (n ** 3 / 3 + n * n * (1 + c) + c * (c + 1) * n
+                   + 4 * c * n + c * c + iters * (2 * c * c + 4 * c)
+                   + 2 * n * c + n + n * n + n))
 
 
 def k4_work(bsz, n, c, k, iters, itemsize):
     """(bytes, flops) of B fused stable-PD substeps: M's lower triangle,
     kdd, the eight vectors, jf, target, mu read once, v_new written once;
     K3's work plus
-    a second factor (n^3/3), the PD substitution (2 n^2), the two diagonal
-    additions (4 n) and the torque, clamp and force (10 n)."""
+    a second factor (n^3/3), the PD column's two substitutions (2 n^2),
+    the two diagonal additions (4 n) and the torque, clamp and force
+    (10 n)."""
     _, flops = k3_work(bsz, n, c, k, iters, itemsize)
     return (bsz * (tri(n) + 11 * n + c * n + c + k) * itemsize,
             flops + bsz * (n ** 3 / 3 + 2 * n * n + 14 * n))
@@ -978,6 +1033,8 @@ def phase_fused_time(device, which):
         rec = dict(B=bsz, n=n, c=c, k=k, iters=params.iters, dtype="float32",
                    ms=time_ms(lambda: cuda(*args, *extra)),
                    ms_b2b=time_b2b(lambda: cuda(*args, *extra)),
+                   device_ms=device_ms(lambda: cuda(*args, *extra),
+                                       KERNEL_KEYS[which]),
                    plain_ms=time_ms(lambda: plain(*args, *extra)),
                    library_ms=None,
                    **bound(*work(bsz, n, c, k, params.iters, 4)))
@@ -1081,8 +1138,12 @@ def phase_k5_time(device):
         rec = dict(B=bsz, dtype="float32",
                    ms=time_ms(lambda: fk.fk_cuda(m, q)),
                    ms_b2b=time_b2b(lambda: fk.fk_cuda(m, q)),
+                   device_ms=device_ms(lambda: fk.fk_cuda(m, q),
+                                       KERNEL_KEYS["k5"]),
                    plain_ms=time_ms(lambda: engine.fk(m, q)),
                    library_ms=None, **bound(*k5_work(m, bsz, 4)))
+        occ = fk.occupancy(m, torch.float32)
+        rec.update(resources(occ, bsz, occ["systems_per_block"]))
         emit("k5_time", **rec)
         out[bsz] = rec
     return out
@@ -1477,28 +1538,91 @@ def phase_rollout_dense(device):
     return rec
 
 
-def run_ab(parent_dir):
-    """K1's to K4's times of a parent checkout (``parent_dir``, holding
+AB_PHASES = "k1_time,k1_dense_time,k2_time,k3_time,k4_time,k5_time"
+
+
+def phase_device_times(device):
+    """Every kernel's device_ms at B=1024 and B=4 (f32, each on the inputs
+    of its k*_time phase) through the public wrappers of whichever
+    egopose_tpu_torch is first on sys.path: with ``--device-times DIR``
+    that of the checkout in DIR, so that --ab reads a parent's kernels by
+    this script's method."""
+    import torch
+    from egopose_tpu_torch.physics import engine, fk, linalg, nvcc, substep
+    nvcc.build_all()
+    spec, m, gains = load_world(torch.float32, device)
+    params = engine.DEFAULT_CONTACT
+    dense = params._replace(**DENSE)
+    extra = (m.timestep, params.iters, params.relax)
+    out = {}
+    for bsz in (1024, 4):
+        lane = lambda x: x.expand(bsz, -1).contiguous()
+        st = lambda seed: contact_states(spec, m, bsz, seed + bsz,
+                                         torch.float32, device)
+        q1, v1, c1 = st(10)
+        gk = [lane(g) for g in gains]
+        a2, rhs = k2_systems(m, *st(30)[:2], params)
+        q5, v5, c5 = st(50)
+        a3 = k3_systems(m, q5, v5, params)
+        a4 = k4_systems(m, gains, q5, v5, c5, params)
+        q7 = st(70)[0]
+        calls = dict(
+            k1=lambda: substep.pd_control_step_cuda(m, q1, v1, c1, *gk,
+                                                    N_FRAMES, params),
+            k1_dense=lambda: substep.pd_control_step_cuda(
+                m, q1, v1, c1, *gk, N_FRAMES, dense),
+            k2=lambda: linalg.spd_solve_cuda(a2, rhs),
+            k3=lambda: linalg.fused_contact_cuda(*a3, *extra),
+            k4=lambda: linalg.pd_fused_cuda(*a4, *extra),
+            k5=lambda: fk.fk_cuda(m, q7))
+        rec = {name: device_ms(fn, KERNEL_KEYS[name])
+               for name, fn in calls.items()}
+        emit("device_times", B=bsz, dtype="float32", **rec)
+        out[bsz] = rec
+    return out
+
+
+def run_ab(parent_dir, phases=AB_PHASES):
+    """Every kernel's times of a parent checkout (``parent_dir``, holding
     its own chip_smoke.py) and of this tree in turns, parent, tree, tree,
-    parent: each a subprocess running ``--only
-    k1_time,k2_time,k3_time,k4_time``, which builds its own kernels.
-    Prints one ``ab`` line per run and one summary line; returns 0 when
-    every run passed."""
+    parent: each a subprocess running ``--only`` ``phases`` (AB_PHASES
+    unless ``--only`` is given beside ``--ab``), which builds its own
+    kernels.  Records each phase's ``ms``, ``ms_b2b`` and ``device_ms`` at
+    each B, keyed by the whole phase name.  A checkout whose phases print
+    no ``device_ms`` (d4a5506) gets it from this script's
+    ``--device-times`` on its package, by the same method.  Prints one
+    ``ab`` line per run and one summary line; returns 0 when every run
+    passed."""
     runs = []
     for who in ("parent", "tree", "tree", "parent"):
         root = parent_dir if who == "parent" else REPO
         out = subprocess.run(
             [sys.executable, os.path.join(root, "chip_smoke.py"), "--only",
-             "k1_time,k2_time,k3_time,k4_time"], cwd=root,
-            capture_output=True, text=True, timeout=900)
+             phases], cwd=root, capture_output=True, text=True,
+            timeout=900)
         recs = [json.loads(x) for x in out.stdout.splitlines()
                 if x.startswith('{"phase": "k')]
-        times = {f"{r['phase'][:2]}_B{r['B']}_ms": r["ms"] for r in recs}
-        runs.append(dict(who=who, rc=out.returncode, **times))
+        times = {f"{r['phase']}_B{r['B']}_{f}": r[f] for r in recs
+                 for f in ("ms", "ms_b2b", "device_ms") if f in r}
+        rc = out.returncode
+        if not any(f.endswith("_device_ms") for f in times):
+            dev = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--device-times",
+                 root], cwd=root, capture_output=True, text=True,
+                timeout=900)
+            rc = max(rc, dev.returncode)
+            for r in (json.loads(x) for x in dev.stdout.splitlines()
+                      if x.startswith('{"phase": "device_times"')):
+                times.update({f"{k}_time_B{r['B']}_device_ms": r[k]
+                              for k in KERNEL_KEYS
+                              if f"{k}_time" in phases.split(",")})
+        runs.append(dict(who=who, rc=rc, **times))
         emit("ab", **runs[-1])
-    keys = [k for k in runs[1] if k.endswith("_ms")]
-    summary = {k: dict(parent=[r[k] for r in runs if r["who"] == "parent"],
-                       tree=[r[k] for r in runs if r["who"] == "tree"])
+    keys = sorted({k for r in runs for k in r
+                   if k.endswith(("_ms", "_ms_b2b"))})
+    summary = {k: dict(parent=[r.get(k) for r in runs
+                               if r["who"] == "parent"],
+                       tree=[r.get(k) for r in runs if r["who"] == "tree"])
                for k in keys}
     emit("ab_summary", parent_dir=os.path.relpath(parent_dir, REPO),
          order=[r["who"] for r in runs], **summary)
@@ -1506,12 +1630,20 @@ def run_ab(parent_dir):
 
 
 def main():
-    if "--ab" in sys.argv:
+    if "--ab" in sys.argv or "--device-times" in sys.argv:
+        flag = "--ab" if "--ab" in sys.argv else "--device-times"
+        root = os.path.abspath(sys.argv[sys.argv.index(flag) + 1])
+        if flag == "--device-times":       # that checkout's package first
+            sys.path.insert(0, root)
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             return 2
-        return run_ab(os.path.abspath(sys.argv[sys.argv.index("--ab") + 1]))
+        if flag == "--ab":
+            return run_ab(root, *(sys.argv[sys.argv.index("--only") + 1:][:1]
+                                  if "--only" in sys.argv else ()))
+        phase_device_times(torch.device("cuda", 0))
+        return 0
     only = sys.argv[sys.argv.index("--only") + 1].split(",") \
         if "--only" in sys.argv else None
     want = lambda p: only is None or p in only

@@ -1,7 +1,7 @@
 // One-warp dense Cholesky factor and single-column triangular solves in
 // shared memory, shared by the batched SPD solve (spd_solve.cu, K2), the
 // fused contact solve and the fused stable-PD substep (fused_contact.cu,
-// K3 and K4).
+// K3 and K4) and the dense branch of the control step (substep.cu, K1).
 //
 // Every function here is called by all 32 lanes of one warp and works on
 // one system in shared memory; lanes synchronise with __syncwarp and
@@ -12,10 +12,10 @@
 // 8-column panels.  L sits in an n x (n + 1) square (odd row stride, so
 // the 32 rows a warp reads at once in one column fall in 32 distinct
 // banks), in its lower triangle or, transposed, in its upper one (RowMajor,
-// UpperShifted), so that K4's two factors share a square.  A caller may
-// run work beside the factor that needs row j of L when the factor forms
-// column j (a ``Rider``: K3's and K4's forward substitutions); K2 runs
-// none, and its factor is the code it had.
+// UpperShifted), so that two factors share a square (K4, K1's dense
+// branch).  A caller may run work beside the factor that needs row j of L
+// when the factor forms column j (a ``Rider``: the forward substitutions
+// of K1-dense, K3 and K4, SubstRider below); K2 runs none.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,10 +33,11 @@ __device__ inline double xabs(double x) { return fabs(x); }
 #define FULL_MASK 0xffffffffu
 
 // What warp_cholesky runs beside the factor: nothing (K2), or a forward
-// substitution that needs row j of L when the factor forms column j (K3,
-// K4; fused_contact.cu).  begin(j) precedes column j's dot, step(k, L[j][k])
-// runs for each k < j inside it, finish(j, 1 / L[j][j]) follows the
-// column; the rider only ever touches its own lane's data.
+// substitution that needs row j of L when the factor forms column j (K1's
+// dense branch, K3, K4: SubstRider).  begin(j) precedes column j's dot,
+// step(k, L[j][k]) runs for each k < j inside it, in order, finish(j,
+// 1 / L[j][j]) follows the column; the rider only ever touches its own
+// lane's data.
 struct NoRider {
   __device__ void begin(int) {}
   template <typename T> __device__ void step(int, T) {}
@@ -63,8 +64,10 @@ struct UpperShifted {
 // IEEE-rounded 1 / sqrt (so a 1 x 1 system loses no more than the plain
 // version), which is also 1 / L[j][j] unless the floor applies; rdiag[j]
 // receives 1 / L[j][j] in either case.  Only the entries of the lower
-// triangle (in the layout ``Lay``) are read or written.  Ends with
-// __syncwarp.
+// triangle (in the layout ``Lay``) are read or written.  The dot keeps one
+// accumulator per row: four partial sums with their loads issued ahead
+// timed slower on the card for K1's dense branch and K2-K4 alike
+// (PERF.md).  Ends with __syncwarp.
 template <typename T, typename Rider = NoRider, typename Lay = RowMajor>
 __device__ void warp_cholesky(T* A, int lda, T* rdiag, int n, int lane,
                               Rider rider = Rider(), Lay = Lay()) {
@@ -101,6 +104,51 @@ __device__ void warp_cholesky(T* A, int lda, T* rdiag, int n, int lane,
     __syncwarp();
   }
 }
+
+// The forward substitution Z <- L^-1 Z of up to two columns per lane (col,
+// col + 32, for the columns [c0, c1) of Z, row stride ldz) run beside
+// warp_cholesky: row j of Z needs row j of L, which the factor reads as
+// broadcasts while it forms column j, so each step(k, L[j][k]) adds its
+// products and finish(j, 1 / L[j][j]) completes z_j.  With ``jq``, also
+// jq[col - jq0] = sum_j Z[j][col] vq[j] of each column col >= jq0 as
+// loaded (J v from the J^T columns: K3 and K4 keep dt qfrc in column 0,
+// jq0 = 1; K1's dense branch has J^T alone, jq0 = 0).
+template <typename T>
+struct SubstRider {
+  T* Z;
+  int ldz, ca, cb, n, jq0;
+  bool ha, hb;
+  const T* vq;
+  T* jq;
+  T sa, sb, qa, qb;
+
+  __device__ SubstRider(T* z, int ldz_, int c0, int c1, int n_, int lane,
+                        const T* vq_, T* jq_, int jq0_ = 1)
+      : Z(z), ldz(ldz_), ca(c0 + lane), cb(c0 + lane + 32), n(n_),
+        jq0(jq0_), ha(c0 + lane < c1), hb(c0 + lane + 32 < c1), vq(vq_),
+        jq(jq_), sa(T(0)), sb(T(0)), qa(T(0)), qb(T(0)) {}
+
+  __device__ void begin(int j) {
+    if (ha) sa = Z[j * ldz + ca];
+    if (hb) sb = Z[j * ldz + cb];
+    if (jq != nullptr) {
+      qa += sa * vq[j];
+      qb += sb * vq[j];
+    }
+  }
+  __device__ void step(int k, T ljk) {
+    if (ha) sa -= ljk * Z[k * ldz + ca];
+    if (hb) sb -= ljk * Z[k * ldz + cb];
+  }
+  __device__ void finish(int j, T rdj) {
+    if (ha) Z[j * ldz + ca] = sa * rdj;
+    if (hb) Z[j * ldz + cb] = sb * rdj;
+    if (jq != nullptr && j == n - 1) {
+      if (ha && ca >= jq0) jq[ca - jq0] = qa;
+      if (hb && cb >= jq0) jq[cb - jq0] = qb;
+    }
+  }
+};
 
 // y <- L^-1 y for one column y (element i at y[i * incy]), by blocks of
 // 32 rows: each lane holds its row of the block in a register, x_j is

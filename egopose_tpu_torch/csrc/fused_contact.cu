@@ -22,7 +22,8 @@
 // The contact solve runs forward only, the Cholesky form of what the JAX
 // package's K1 does with its LDL^T (_delassus_sym, _contact_sweep_sym):
 //   Z = L^-1 [dt qfrc | J^T]   forward substitution, lanes over columns,
-//                              run beside the factor (SubstRider): row j
+//                              run beside the factor (cholesky.cuh's
+//                              SubstRider): row j
 //                              of Z needs row j of L, which the factor
 //                              reads as it forms column j
 //   D = Z_c^T Z_c              = J A^-1 J^T, lower triangle, mirrored
@@ -155,49 +156,6 @@ __device__ inline T dot4(const T* a, int sa, const T* b, int sb, int len) {
   for (; t < len; ++t) s0 += a[t * sa] * b[t * sb];
   return (s0 + s1) + (s2 + s3);
 }
-
-// The forward substitution Z <- L^-1 Z of up to two columns per lane (col,
-// col + 32) run beside warp_cholesky: row j of Z needs row j of L, which
-// the factor reads as broadcasts while it forms column j, so each step(k,
-// L[j][k]) adds its products and finish(j, 1 / L[j][j]) completes z_j.
-// With ``jq``, also jq[col - 1] = sum_j Z[j][col] qvel[j] of each column
-// col >= 1 as loaded (J qvel from the J^T columns).
-template <typename T>
-struct SubstRider {
-  T* Z;
-  int ldz, ca, cb, n;
-  bool ha, hb;
-  const T* vq;
-  T* jq;
-  T sa, sb, qa, qb;
-
-  __device__ SubstRider(T* z, int ldz_, int c0, int c1, int n_, int lane,
-                        const T* vq_, T* jq_)
-      : Z(z), ldz(ldz_), ca(c0 + lane), cb(c0 + lane + 32), n(n_),
-        ha(c0 + lane < c1), hb(c0 + lane + 32 < c1), vq(vq_), jq(jq_),
-        sa(T(0)), sb(T(0)), qa(T(0)), qb(T(0)) {}
-
-  __device__ void begin(int j) {
-    if (ha) sa = Z[j * ldz + ca];
-    if (hb) sb = Z[j * ldz + cb];
-    if (jq != nullptr) {
-      qa += sa * vq[j];
-      qb += sb * vq[j];
-    }
-  }
-  __device__ void step(int k, T ljk) {
-    if (ha) sa -= ljk * Z[k * ldz + ca];
-    if (hb) sb -= ljk * Z[k * ldz + cb];
-  }
-  __device__ void finish(int j, T rdj) {
-    if (ha) Z[j * ldz + ca] = sa * rdj;
-    if (hb) Z[j * ldz + cb] = sb * rdj;
-    if (jq != nullptr && j == n - 1) {
-      if (ha && ca >= 1) jq[ca - 1] = qa;
-      if (hb) jq[cb - 1] = qb;
-    }
-  }
-};
 
 // The factor of s.L in layout Lay (with rd) and Z's columns [c0, c1) <-
 // L^-1 Z beside it (SubstRider); columns beyond the rider's two per lane

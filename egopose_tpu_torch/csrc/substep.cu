@@ -56,20 +56,34 @@
 //
 // The dense branch (Dims.dense; ContactParams.sparse_ldl=False) ports the
 // TPU kernel's dense-Cholesky branch (substep_pallas.py:739-830): the prep
-// runs every substep whatever prep_refresh says, M is assembled dense (its
-// ancestor-slot entries scattered into the lower triangle of two n x lda
-// squares, lda odd), A_pd = M + dt diag(kd) and A_dyn = M + dt diag(damping)
-// are factored side by side, one warp each (cholesky.cuh's warp_cholesky,
-// pivots floored at 1e-12, lower triangle only, as linalg_pallas.py::
-// _factor_multi); then the PD column on one warp beside W = A_dyn^-1 J^T on
-// another (lanes over the active columns), torque and clamp, the qacc column
-// A_dyn^-1 (dt qfrc) on one warp beside the non-symmetric Delassus J W over
-// the contact-loaded dofs (support_segments) on the other three, and the
-// sweep and velocity v_pred + W lam as _contact_sweep's.  It is a second
-// instantiation of the same body (substep_dense_kernel, its own register
-// bound): ~42.7 KB of shared memory in float (85 KB in double) for the
-// 58-dof humanoid, so 5 blocks per SM (float).  A simple design: nothing of
-// the sparse branch's schedules, and no work rides on the factors.
+// runs every substep whatever prep_refresh says, A_pd = M + dt diag(kd) and
+// A_dyn = M + dt diag(damping) are factored (cholesky.cuh's warp_cholesky,
+// pivots floored at 1e-12, each factor reading its own lower triangle, as
+// linalg_pallas.py::_factor_multi), and the contact solve runs forward
+// only, as K4's (fused_contact.cu), since J A_dyn^-1 J^T = Y^T Y with
+// A_dyn = L L^T and Y = L^-1 J^T:
+//   factor    A_pd on warp 0 with the PD column's forward half riding on
+//             it; A_dyn on warp 1 with the J^T columns riding on it
+//             (SubstRider: Y = L^-1 J^T in place, J v read off the columns
+//             as they pass)
+//   gram      the PD column's back substitution on warp 0; beside it
+//             D = Y^T Y on the active rows (lower triangle, mirrored) on
+//             warps 1-3
+//   torque    torque, clamp, dt qfrc; the sweep's row scale from D
+//   z0 ...    on warp 0: z0 = L^-1 (dt qfrc), the residual
+//             J v + Y^T z0 - target, the sweep, and v_new = v + L^-T (z0 +
+//             Y lam) by one back substitution
+// W = A_dyn^-1 J^T and J W are never formed.  Both factors share one
+// n x lda square (lda = (n + 1) | 1): A_dyn's L in the lower triangle,
+// A_pd's transposed into the upper one (cholesky.cuh's UpperShifted).  The
+// square is assembled once the CRBA/RNEA intermediates it overlays are
+// dead, straight from the CRBA rows (M[i][j] = fcrb_i . s_j where j is an
+// ancestor of i, a host-built bit table, else 0), so every entry either
+// factor reads is written each substep.  It is a second instantiation of
+// the same body (substep_dense_kernel): 24.0 KB of shared memory in
+// float (47.8 KB in double) for the 58-dof humanoid; with
+// __launch_bounds__(128, 8) 8 float blocks fit one SM, one wave at
+// B = 1024, as the sparse branch.
 //
 // The model is not baked into the code: every table arrives as device
 // memory (itab: int32, ftab: T) described by the Dims offsets, which the
@@ -77,7 +91,9 @@
 // system is stiff.  Built with -DEGOPOSE_STAGE_CLOCKS, thread 0 of every
 // block sums the clock64() cycles of each stage (a barrier closes each)
 // into clocks[env * N_STAGES + stage]; the main path's library has no
-// clock code.
+// clock code.  Built with -DEGOPOSE_POISON, the dense branch honours
+// Dims.poison (a test's NaN fills); the main path's library has no poison
+// code either.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <string.h>
@@ -89,7 +105,7 @@
 enum Stage {
   ST_LOAD, ST_FK, ST_DYNAMICS, ST_NARROW, ST_SELECT, ST_FACTOR, ST_INVERSE,
   ST_Y, ST_DELASSUS, ST_PD, ST_TORQUE, ST_DYN_SOLVE, ST_RESIDUAL, ST_SWEEP,
-  ST_VELOCITY, ST_INTEGRATE, ST_STORE, ST_SUBST, ST_QACC_DELASSUS, N_STAGES
+  ST_VELOCITY, ST_INTEGRATE, ST_STORE, ST_GRAM, ST_Z0, N_STAGES
 };
 #ifdef EGOPOSE_STAGE_CLOCKS
 #define STAMP(st)                                    \
@@ -110,13 +126,13 @@ enum Stage {
 // Field order: physics/substep.py::DIM_FIELDS.
 struct Dims {
   int nb, nd, nq, nu, ncp, npair, nbpair, k, kp, c3, nnz, nlevel;
-  int n_frames, prep_refresh, iters, dense, lda, n_sup, poison;
+  int n_frames, prep_refresh, iters, dense, lda;
   int i_parent, i_dof_body, i_hinge0, i_nhinge, i_lvl_off, i_lvl_body;
   int i_path_off, i_path_idx, i_vp_off, i_vp_idx, i_desc_off, i_desc_idx;
   int i_anc_off, i_anc_idx, i_ent_row, i_banc, i_cp_body;
   int i_p_b1, i_p_b2, i_bp_seg, i_bp_box;
   int i_height, i_fac_a, i_fac_b, i_fac_row, i_col_off, i_col_slot;
-  int i_col_row, i_anc_base, n_fac, i_sup;
+  int i_col_row, i_anc_base, n_fac, i_dmask;
   int f_body_pos, f_body_ipos, f_mass, f_inertia, f_axis, f_anchor;
   int f_armature, f_damping, f_stiffness, f_lo, f_hi, f_limited, f_gear;
   int f_gravity, f_cp_local, f_cp_radius, f_cp_mu;
@@ -128,8 +144,13 @@ struct Dims {
   int l_com, l_ic, l_io, l_smom, l_sio, l_smass, l_sq, l_cj, l_fcrb, l_fb;
   int l_dpd, l_ddyn, l_lipd, l_abase, l_jt, l_g, l_gid, l_rhs, l_z, l_u;
   int l_w, l_lam;
-  int l_apd, l_adyn, l_rpd, l_rdyn, l_xpd, l_xdyn, l_wd;
+  int l_asq, l_rpd, l_rdyn, l_xpd, l_jq, l_xdyn;
   int l_sel, l_act, l_nact, l_amask, l_total, l_ints;
+  // Read by the -DEGOPOSE_POISON build only (tests).  Last: under the
+  // 64-register bound ptxas's spills and schedule of the sparse branch move
+  // with this struct's layout (5% at B = 1024, PERF.md section 6); with
+  // poison here it allocates as it did before the field existed.
+  int poison;
 };
 
 // Bytes of one block's dynamic shared memory: l_total values of T, then
@@ -340,12 +361,12 @@ __device__ void block_factor(T* mpd, T* mdyn, T* dpd, T* ddyn, T* ipd,
 }
 
 // ---------------------------------------------------------------------------
-// the contact sweep (both branches) and the dense branch's column solve
+// the contact sweep (both branches)
 // ---------------------------------------------------------------------------
 
 // The contact residual of row ``lane`` from J^T-shaped columns (X[dd * c3 +
 // r]): sum_dd X[dd][lane] w[dd] - tgt[lane], four partial sums so the loads
-// overlap.  Y^T (L v + u) in the sparse branch, J v_pred in the dense one.
+// overlap.  Y^T (L v + u) in the sparse branch, Y^T z0 in the dense one.
 template <typename T>
 __device__ inline T lane_residual(const T* X, const T* w, const T* tgt,
                                   int c3, int nd, int lane) {
@@ -363,8 +384,8 @@ __device__ inline T lane_residual(const T* X, const T* w, const T* tgt,
 
 // Projected-Jacobi sweep by one warp, lane r on contact row r
 // (linalg_pallas.py::_sweep_lam): g = sum_j G[j][r] lam_j + bh_r over the
-// active rows (G holds the Delassus matrix transposed, or the symmetric
-// one, so the lanes read by column), lam -= g gid[r], the friction box on
+// active rows (G holds the symmetric Delassus matrix, so the lanes read
+// it by column), lam -= g gid[r], the friction box on
 // the 2k tangent rows from their point's normal row, lam >= 0 on the
 // normal and pair rows.  The active rows' lam end in lam[].
 template <typename T>
@@ -404,41 +425,6 @@ __device__ inline void warp_sweep(const T* G, const T* gid, T* lam,
   }
 }
 
-// A x = b for one column by one thread, given A = L L^T factored in the
-// lower triangle of A (row stride lda) and rdiag[j] = 1 / L[j][j]
-// (warp_cholesky's): forward then back substitution, b and x at stride
-// inc (x may be b).  Row j of L is read as a broadcast when the lanes of a
-// warp solve their own columns; four partial sums per dot.
-template <typename T>
-__device__ void thread_cho_solve(const T* A, int lda, const T* rdiag,
-                                 const T* b, T* x, int inc, int n) {
-  for (int j = 0; j < n; ++j) {
-    const T* lj = A + (size_t)j * lda;
-    T p0 = b[j * inc], p1 = T(0), p2 = T(0), p3 = T(0);
-    int k = 0;
-    for (; k + 4 <= j; k += 4) {
-      p0 -= lj[k] * x[k * inc];
-      p1 -= lj[k + 1] * x[(k + 1) * inc];
-      p2 -= lj[k + 2] * x[(k + 2) * inc];
-      p3 -= lj[k + 3] * x[(k + 3) * inc];
-    }
-    for (; k < j; ++k) p0 -= lj[k] * x[k * inc];
-    x[j * inc] = ((p0 + p1) + (p2 + p3)) * rdiag[j];
-  }
-  for (int j = n - 1; j >= 0; --j) {
-    T p0 = x[j * inc], p1 = T(0), p2 = T(0), p3 = T(0);
-    int k = j + 1;
-    for (; k + 4 <= n; k += 4) {
-      p0 -= A[(size_t)k * lda + j] * x[k * inc];
-      p1 -= A[(size_t)(k + 1) * lda + j] * x[(k + 1) * inc];
-      p2 -= A[(size_t)(k + 2) * lda + j] * x[(k + 2) * inc];
-      p3 -= A[(size_t)(k + 3) * lda + j] * x[(k + 3) * inc];
-    }
-    for (; k < n; ++k) p0 -= A[(size_t)k * lda + j] * x[k * inc];
-    x[j * inc] = ((p0 + p1) + (p2 + p3)) * rdiag[j];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
@@ -449,7 +435,7 @@ struct Layout {
   int xpos, xquat, s, pall, phiall, pphi, pn, pp, selphi;
   int com, ic, io, smom, sio, smass, sq, cj, fcrb, fb;
   int dpd, ddyn, lipd, abase, jt, g, gid, rhs, z, u, w, lam;
-  int apd, adyn, rpd, rdyn, xpd, xdyn, wd;
+  int asq, rpd, rdyn, xpd, jq, xdyn;
 };
 
 __device__ inline Layout layout_of(const Dims& d) {
@@ -466,9 +452,13 @@ __device__ inline Layout layout_of(const Dims& d) {
   L.fb = d.l_fb; L.dpd = d.l_dpd; L.ddyn = d.l_ddyn; L.g = d.l_g;
   L.gid = d.l_gid; L.rhs = d.l_rhs; L.z = d.l_z; L.u = d.l_u; L.w = d.l_w;
   L.lam = d.l_lam;
-  L.apd = d.l_apd; L.adyn = d.l_adyn; L.rpd = d.l_rpd; L.rdyn = d.l_rdyn;
-  L.xpd = d.l_xpd; L.xdyn = d.l_xdyn; L.wd = d.l_wd;
+  L.asq = d.l_asq; L.rpd = d.l_rpd; L.rdyn = d.l_rdyn; L.xpd = d.l_xpd;
+  L.jq = d.l_jq; L.xdyn = d.l_xdyn;
   return L;
+}
+
+__device__ inline bool in_span(int e, int off, int n) {
+  return e >= off && e < off + n;
 }
 
 template <typename T, bool DENSE>
@@ -605,7 +595,9 @@ __device__ __forceinline__ void substep_body(
   };
 
   // the dense branch refreshes its prep every substep (substep_pallas.py:739)
+  // and keeps the owner's passive force and PD error from its prep here
   const int R = DENSE ? 1 : d.prep_refresh;
+  T qfb_d = T(0), e_d = T(0);
   const int n_groups = d.n_frames / R, rem = d.n_frames % R;
   for (int grp = 0; grp < n_groups + (rem ? 1 : 0); ++grp) {
     const int nsub = grp < n_groups ? R : rem;
@@ -893,14 +885,6 @@ __device__ __forceinline__ void substep_body(
     }
     for (int dd = tid; dd < nd; dd += NT)            // s q-dot rows (RNEA)
       for (int j = 0; j < 6; ++j) sm[L.sq + 6 * dd + j] = s[6 * dd + j] * v[dd];
-    if constexpr (DENSE) {   // the dense squares: zeros, NaN above with poison
-      const T above = d.poison ? T(NAN) : T(0);
-      for (int e = tid; e < nd * d.lda; e += NT) {
-        const T val = e % d.lda <= e / d.lda ? T(0) : above;
-        sm[L.apd + e] = val;
-        sm[L.adyn + e] = val;
-      }
-    }
     __syncthreads();
 
     // ---- subtree sums (CRBA composites) and S-dot q-dot (RNEA) ---------
@@ -976,14 +960,34 @@ __device__ __forceinline__ void substep_body(
     __syncthreads();
 
     // ---- mass matrix, diagonals, bias (engine.crba, bias): compressed
-    // rows (sparse), or the lower triangle of the dense squares (dense) ----
-    for (int e = tid; e < nnz; e += NT) {
-      const T val = dot6(fcrb + 6 * ent_row[e], s + 6 * anc_idx[e]);
-      if constexpr (DENSE) {
-        const int at = ent_row[e] * d.lda + anc_idx[e];
-        sm[L.apd + at] = val;
-        sm[L.adyn + at] = val;
-      } else {
+    // rows (sparse), or both triangles of the dense square (dense) --------
+    if constexpr (DENSE) {
+      // A_dyn[r][col] (col < r, RowMajor) and A_pd[col - 1][r] (r + 1 < col
+      // <= nd, UpperShifted): M[i][j] = fcrb_i . s_j where j is an ancestor
+      // of i (bit j of row i of the dmask table), else 0; the diagonals
+      // (col == r, r + 1) by their owners below.  With ``poison`` the square
+      // is NaN first, so an entry no factor owns (col > nd) stays NaN and
+      // every owned one must be written here, every substep.
+      T* asq = sm + L.asq;
+      const int lda = d.lda, words = (nd + 31) >> 5;
+      const unsigned* dmask =
+          reinterpret_cast<const unsigned*>(itab + d.i_dmask);
+#ifdef EGOPOSE_POISON
+      if (d.poison) {
+        for (int e = tid; e < nd * lda; e += NT) asq[e] = T(NAN);
+        __syncthreads();
+      }
+#endif
+      for (int e = tid; e < nd * lda; e += NT) {
+        const int r = e / lda, col = e - r * lda;
+        if (col == r || col == r + 1 || col > nd) continue;
+        const int i = col < r ? r : col - 1, j = col < r ? col : r;
+        const bool anc = (__ldg(dmask + i * words + (j >> 5)) >> (j & 31)) & 1u;
+        asq[e] = anc ? dot6(fcrb + 6 * i, s + 6 * j) : T(0);
+      }
+    } else {
+      for (int e = tid; e < nnz; e += NT) {
+        const T val = dot6(fcrb + 6 * ent_row[e], s + 6 * anc_idx[e]);
         mpd[e] = val;
         mdyn[e] = val;
       }
@@ -992,8 +996,8 @@ __device__ __forceinline__ void substep_body(
       const int dd = tid;
       const T dg = dot6(fcrb + 6 * dd, s + 6 * dd) + ftab[d.f_armature + dd];
       if constexpr (DENSE) {
-        sm[L.apd + dd * d.lda + dd] = dg + dt * kd_r;
-        sm[L.adyn + dd * d.lda + dd] = dg + dt * damp_r;
+        sm[L.asq + dd * d.lda + dd] = dg + dt * damp_r;        // A_dyn
+        sm[L.asq + dd * d.lda + dd + 1] = dg + dt * kd_r;      // A_pd
       } else {
         dpd[dd] = dg + dt * kd_r;
         ddyn[dd] = dg + dt * damp_r;
@@ -1007,94 +1011,116 @@ __device__ __forceinline__ void substep_body(
       for (int i = desc_off[b]; i < desc_off[b + 1]; ++i)
         for (int j = 0; j < 6; ++j) ft[j] += sm[L.fb + 6 * desc_idx[i] + j];
       bias[dd] = dot6(s + 6 * dd, ft);
+      // the dense branch's PD rhs, the PD column's first value
+      if constexpr (DENSE) sm[L.xpd + dd] = pd_terms(qfb_d, e_d);
     }
     __syncthreads();
     STAMP(ST_DYNAMICS);
 
     if constexpr (DENSE) {
       // ================= the dense branch: one substep on this prep ======
-      T* apd = sm + L.apd; T* adyn = sm + L.adyn;
+#ifdef EGOPOSE_POISON
+      if (d.poison) {
+        // every value but those of the arrays live into the factors (q, v,
+        // J^T, tgt, mu, the square, the PD column) is NaN from here: the
+        // dead prep, and what the later stages write before they read it
+        for (int e = tid; e < d.l_total; e += NT)
+          if (!in_span(e, L.q, nq) && !in_span(e, L.v, nd) &&
+              !in_span(e, L.jt, nd * c3) && !in_span(e, L.tgt, c3) &&
+              !in_span(e, L.mu, k) && !in_span(e, L.asq, nd * d.lda) &&
+              !in_span(e, L.xpd, nd))
+            sm[e] = T(NAN);
+        __syncthreads();
+      }
+#endif
+      T* asq = sm + L.asq;
       T* rpd = sm + L.rpd; T* rdyn = sm + L.rdyn;
-      T* xpd = sm + L.xpd; T* xdyn = sm + L.xdyn; T* W = sm + L.wd;
+      T* xpd = sm + L.xpd; T* xdyn = sm + L.xdyn; T* jq = sm + L.jq;
       const int lda = d.lda;
-      const int* sup = itab + d.i_sup;
       const bool live = lane < c3 && ((amask >> lane) & 1u);
-      // the PD column's rhs; A_pd and A_dyn factored side by side, one warp
-      // each (_factor_multi: pivots floored at 1e-12, lower triangle only)
-      T qfb_r = T(0), e_r = T(0);
-      if (owner) xpd[tid] = pd_terms(qfb_r, e_r);
-      if (warp == 0) warp_cholesky(apd, lda, rpd, nd, lane);
-      else if (warp == 1) warp_cholesky(adyn, lda, rdyn, nd, lane);
+      // A_pd (upper triangle) on warp 0 with the PD column's forward half
+      // riding on it; A_dyn (lower triangle) on warp 1 with Y = L^-1 J^T
+      // riding on it, in place over J^T, and J v into jq
+      if (warp == 0)
+        warp_cholesky(asq, lda, rpd, nd, lane,
+                      SubstRider<T>(xpd, 1, 0, 1, nd, lane, v, nullptr),
+                      UpperShifted());
+      else if (warp == 1)
+        warp_cholesky(asq, lda, rdyn, nd, lane,
+                      SubstRider<T>(JT, c3, 0, c3, nd, lane, v, jq, 0),
+                      RowMajor());
       __syncthreads();
       STAMP(ST_FACTOR);
-      // qacc_pd = A_pd^-1 rhs on warp 0; W = A_dyn^-1 J^T on warp 1, lanes
-      // over the active columns (an inactive column of J^T is zero, so is
-      // its W column, which nothing reads)
+      // the PD column's back substitution on warp 0; beside it D = Y^T Y on
+      // the active rows (lower triangle, mirrored) on warps 1-3
       if (warp == 0) {
-        warp_lsolve_vec(apd, lda, rpd, xpd, 1, nd, lane);
-        warp_ltsolve_vec(apd, lda, rpd, xpd, 1, nd, lane);
-      } else if (warp == 1 && lane < nact) {
-        const int c = act[lane];
-        thread_cho_solve(adyn, lda, rdyn, JT + c, W + c, c3, nd);
+        warp_ltsolve_vec(asq, lda, rpd, xpd, 1, nd, lane, UpperShifted());
+      } else {
+        for (int idx = tid - 32; idx < nact * nact; idx += NT - 32) {
+          const int ai = idx / nact, bi = idx - ai * nact;
+          if (bi > ai) continue;
+          const int a = act[ai], b = act[bi];
+          T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
+          int dd = 0;
+          for (; dd + 4 <= nd; dd += 4) {
+            p0 += JT[dd * c3 + a] * JT[dd * c3 + b];
+            p1 += JT[(dd + 1) * c3 + a] * JT[(dd + 1) * c3 + b];
+            p2 += JT[(dd + 2) * c3 + a] * JT[(dd + 2) * c3 + b];
+            p3 += JT[(dd + 3) * c3 + a] * JT[(dd + 3) * c3 + b];
+          }
+          for (; dd < nd; ++dd) p0 += JT[dd * c3 + a] * JT[dd * c3 + b];
+          const T g = (p0 + p1) + (p2 + p3);
+          G[a * c3 + b] = g;
+          G[b * c3 + a] = g;
+        }
       }
       __syncthreads();
-      STAMP(ST_SUBST);
-      // torque and clamp; the dynamics rhs dt qfrc
+      STAMP(ST_GRAM);
+      // torque, clamp and dt qfrc (the dof owners); the sweep's row scale
+      // relax / (sum_b |D_ab| + 1e-9) beside them
       if (owner) {
-        T qf = qfb_r;
+        T qf = qfb_d;
         if (hinge) {
-          T tq = -kp_r * e_r - kd_r * (v[tid] + dt * xpd[tid]);
+          T tq = -kp_r * e_d - kd_r * (v[tid] + dt * xpd[tid]);
           tq = xmin(xmax(tq, -tlim_r), tlim_r);
           qf += tq * gear_r;
         }
         xdyn[tid] = qf * dt;
       }
-      __syncthreads();
-      STAMP(ST_TORQUE);
-      // the qacc column A_dyn^-1 (dt qfrc) on warp 0; beside it the
-      // Delassus J W on the active rows, summed over the contact-loaded
-      // dofs in order (_contact_sweep's rank-1 accumulation), stored
-      // transposed so the sweep reads it by column
-      if (warp == 0) {
-        warp_lsolve_vec(adyn, lda, rdyn, xdyn, 1, nd, lane);
-        warp_ltsolve_vec(adyn, lda, rdyn, xdyn, 1, nd, lane);
-      } else {
-        for (int idx = tid - 32; idx < nact * nact; idx += NT - 32) {
-          const int a = act[idx / nact], b = act[idx % nact];
-          T acc = T(0);
-          for (int sg = 0; sg < d.n_sup; ++sg)
-            for (int dd = __ldg(sup + 2 * sg); dd < __ldg(sup + 2 * sg + 1); ++dd)
-              acc += JT[dd * c3 + a] * W[dd * c3 + b];
-          G[b * c3 + a] = acc;
-        }
-      }
-      __syncthreads();
-      STAMP(ST_QACC_DELASSUS);
-      // v_pred = v + the qacc column; the row sums of J W (the sweep's scale)
-      if (owner) xdyn[tid] = v[tid] + xdyn[tid];
-      for (int ai = tid; ai < nact; ai += NT) {
+      for (int ai = tid - 64; ai >= 0 && ai < nact; ai += NT - 64) {
         const int a = act[ai];
         T acc = T(0);
         for (int bi = 0; bi < nact; ++bi) acc += xabs(G[act[bi] * c3 + a]);
         gid[a] = relax / (acc + T(1e-9));
       }
       __syncthreads();
-      // contact residual J v_pred - target, then the sweep (warp 0)
+      STAMP(ST_TORQUE);
+      // warp 0 from here: z0 = L^-1 (dt qfrc) ...
+      if (warp == 0) warp_lsolve_vec(asq, lda, rdyn, xdyn, 1, nd, lane);
+      STAMP(ST_Z0);
+      // ... the residual J v + Y^T z0 - target ...
       T bh_r = T(0);
-      if (warp == 0 && live) bh_r = lane_residual(JT, xdyn, tgt, c3, nd, lane);
+      if (warp == 0 && live)
+        bh_r = lane_residual(JT, xdyn, tgt, c3, nd, lane) + jq[lane];
       STAMP(ST_RESIDUAL);
+      // ... the sweep ...
       if (warp == 0)
-        warp_sweep(G, gid, lam, mu, act, nact, live, bh_r, k, c3, d.iters, lane);
-      __syncthreads();
+        warp_sweep(G, gid, lam, mu, act, nact, live, bh_r, k, c3, d.iters,
+                   lane);
       STAMP(ST_SWEEP);
-      // v_new = v_pred + W lam
-      if (owner) {
-        T acc = T(0);
-        for (int ci = 0; ci < nact; ++ci) {
-          const int c = act[ci];
-          acc += W[tid * c3 + c] * lam[c];
+      // ... and v_new = v + L^-T (z0 + Y lam)
+      if (warp == 0) {
+        for (int i = lane; i < nd; i += 32) {
+          T acc = T(0);
+          for (int ci = 0; ci < nact; ++ci) {
+            const int c = act[ci];
+            acc += JT[i * c3 + c] * lam[c];
+          }
+          xdyn[i] += acc;
         }
-        xdyn[tid] += acc;
+        __syncwarp();
+        warp_ltsolve_vec(asq, lda, rdyn, xdyn, 1, nd, lane);
+        for (int i = lane; i < nd; i += 32) xdyn[i] += v[i];
       }
       __syncthreads();
       STAMP(ST_VELOCITY);
@@ -1283,13 +1309,14 @@ __global__ void __launch_bounds__(NT, 8) substep_kernel(KERNEL_ARGS(float)) {
 __global__ void __launch_bounds__(NT, 4) substep_kernel(KERNEL_ARGS(double)) {
   substep_body<double, false>(BODY_ARGS);
 }
-// Dense: its 42.7 KB float block allows 5 per SM (so up to 96 registers a
-// thread), its 85 KB double block 2.
-__global__ void __launch_bounds__(NT, 5)
+// Dense: its 24.0 KB float block allows 9 per SM, so the registers
+// decide: 8 blocks at 64 a thread, one wave at B = 1024; its 47 KB double
+// block allows 4.
+__global__ void __launch_bounds__(NT, 8)
 substep_dense_kernel(KERNEL_ARGS(float)) {
   substep_body<float, true>(BODY_ARGS);
 }
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 4)
 substep_dense_kernel(KERNEL_ARGS(double)) {
   substep_body<double, true>(BODY_ARGS);
 }

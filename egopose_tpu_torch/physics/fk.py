@@ -3,7 +3,11 @@ of the JAX engine's) and the CUDA kernel K5.
 
 Port of egopose_tpu/physics/fk_pallas.py: the Pallas kernel ``_fk_kernel``
 (body ``_fk_compute``, launched by ``fk_batched_tpu``) becomes the
-hand-written CUDA C++ kernel in ``csrc/fk.cu``, one warp per environment.
+hand-written CUDA C++ kernel in ``csrc/fk.cu``, one warp per environment:
+the model's tables, a flat per-hinge schedule built here (``build_tables``),
+are staged in shared memory, each body's transform relative to its parent
+is formed off the walk, and the walk composes them along each body's
+ancestor path.
 
 ``fk_batched`` dispatches on the tensor's device: a CUDA batch launches the
 kernel, a CPU batch runs ``fk``.  There is no fallback from CUDA to the
@@ -26,9 +30,10 @@ from .model import PhysicsModel
 launches = 0
 
 # Field order of the ``FkDims`` struct in csrc/fk.cu.
-DIM_FIELDS = ("nb nd nq nlevel i_parent i_lvl_off i_lvl_body i_bdof_off "
-              "i_bdof_idx i_qadr f_body_pos f_body_ipos f_axis "
-              "f_anchor").split()
+DIM_FIELDS = ("nb nd nq nh n_int n_float i_path_off i_path_idx i_hinge_off "
+              "i_hdof i_hqadr i_hpar f_body_pos f_body_ipos f_haxis "
+              "f_hanchor").split()
+WARPS = 4             # environments (warps) per block (csrc/fk.cu)
 
 _lib = None
 
@@ -89,51 +94,69 @@ def fk(m: PhysicsModel, qpos: torch.Tensor) -> Kin:
 
 
 def build_tables(m: PhysicsModel):
-    """Per-model kernel tables: (dims dict, int32 table, float64 table):
-    the parent of every body, the bodies of each tree level (CSR), each
-    body's hinge dofs in order (CSR), every dof's qpos address, and the
-    body offsets, com offsets, hinge axes and anchors."""
+    """Per-model kernel tables: (dims dict, int32 table, float64 table).
+    Per body, the range of its hinges and its ancestor path from the root's
+    first child down to itself (CSR); per hinge, in body order and each
+    body's hinge order, its dof, its qpos address, the parent of its body,
+    its axis and anchor; and the body offsets and com offsets.  The kernel
+    stages both tables whole in shared memory."""
     nb, nd = m.nbody, m.ndof
     parent = np.array(m.parent, np.int64)
-    if nb < 1 or nd < 6 or (parent[1:] >= np.arange(1, nb)).any():
+    dof_body = np.array(m.dof_body, np.int64)
+    if nb < 2 or nd < 6 or (parent[1:] >= np.arange(1, nb)).any() \
+            or (dof_body[:6] != 0).any() or (dof_body[6:] == 0).any():
         raise NotImplementedError(
-            "the FK kernel needs a free root and every body after its parent")
-    depth = np.zeros(nb, np.int64)
-    for b in range(1, nb):
-        depth[b] = depth[parent[b]] + 1
-    levels = [[b for b in range(1, nb) if depth[b] == lv]
-              for lv in range(1, int(depth.max()) + 1)]
-    lvl_off = np.cumsum([0] + [len(lv) for lv in levels])
-    hinges = [[d for d in range(6, nd) if m.dof_body[d] == b]
+            "the FK kernel needs a free root (dofs 0-5 on body 0), hinges "
+            "on the other bodies, and every body after its parent")
+    hinges = [[d for d in range(6, nd) if dof_body[d] == b]
               for b in range(nb)]
-    bdof_off = np.cumsum([0] + [len(h) for h in hinges])
+    paths = []
+    for b in range(nb):
+        path = []
+        while b > 0:
+            path.append(b)
+            b = int(parent[b])
+        paths.append(path[::-1])
     qadr = np.zeros(nd, np.int64)
     for *_, qidx, didx in m.levels:
         for q, d in zip(qidx.cpu().numpy().ravel(), didx.cpu().numpy().ravel()):
             if d < nd:
                 qadr[d] = q
+    hdof = [d for h in hinges for d in h]
     f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()
-    ints = [("parent", parent), ("lvl_off", lvl_off),
-            ("lvl_body", [b for lv in levels for b in lv]),
-            ("bdof_off", bdof_off), ("bdof_idx", [d for h in hinges for d in h]),
-            ("qadr", qadr)]
+    path_off = np.cumsum([0] + [len(p) for p in paths])
+    ints = [("path_off", path_off), ("path_idx", [b for p in paths for b in p]),
+            ("hinge_off", np.cumsum([0] + [len(h) for h in hinges])),
+            ("hdof", hdof), ("hqadr", qadr[hdof]),
+            ("hpar", parent[dof_body[hdof]])]
     floats = [("body_pos", f64(m.body_pos)), ("body_ipos", f64(m.body_ipos)),
-              ("axis", f64(m.dof_axis)), ("anchor", f64(m.dof_anchor))]
-    dims = dict(nb=nb, nd=nd, nq=m.nq, nlevel=len(levels))
+              ("haxis", f64(m.dof_axis)[hdof]),
+              ("hanchor", f64(m.dof_anchor)[hdof])]
+    dims = dict(nb=nb, nd=nd, nq=m.nq, nh=len(hdof))
     itab, off = [], 0
     for name, a in ints:
         dims["i_" + name] = off
         a = np.asarray(a, np.int64).ravel()
         itab.append(a)
         off += a.size
+    dims["n_int"] = off
     ftab, off = [], 0
     for name, a in floats:
         dims["f_" + name] = off
         a = np.asarray(a, np.float64).ravel()
         ftab.append(a)
         off += a.size
+    dims["n_float"] = off
     return (dims, np.concatenate(itab).astype(np.int32),
             np.concatenate(ftab))
+
+
+def block_bytes(dims: dict, itemsize: int) -> int:
+    """Shared memory of one block (csrc/fk.cu's block_bytes): the float
+    table, WARPS environments' values and the int table."""
+    nb, nd = dims["nb"], dims["nd"]
+    per = dims["nq"] + 4 * dims["nh"] + 17 * nb + 6 * nd
+    return (dims["n_float"] + WARPS * per) * itemsize + 4 * dims["n_int"]
 
 
 def _device_tables(m: PhysicsModel, device, dtype):
@@ -157,8 +180,27 @@ def _load():
             fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int] \
                 + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.egopose_fk_occupancy.argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.egopose_fk_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def occupancy(m: PhysicsModel, dtype) -> dict:
+    """The kernel's resources on the current card for ``m``: blocks per
+    SM, registers per thread, shared bytes per block, spill bytes,
+    environments per block."""
+    dims, _, _ = build_tables(m)
+    out = (ctypes.c_int * 5)()
+    err = _load().egopose_fk_occupancy(
+        (ctypes.c_int * len(DIM_FIELDS))(*[int(dims[f]) for f in DIM_FIELDS]),
+        len(DIM_FIELDS), int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"fk occupancy query failed: error {err}")
+    return dict(blocks_per_sm=out[0], registers=out[1], shared_bytes=out[2],
+                local_bytes=out[3], systems_per_block=out[4])
 
 
 def fk_cuda(m: PhysicsModel, qpos: torch.Tensor) -> Kin:

@@ -20,9 +20,11 @@ The kernel has two branches, as the TPU kernel has: by default
 the sparse tree LDL^T above, with the prep refreshed every
 ``prep_refresh`` substeps; with ``sparse_ldl=False`` it runs the TPU
 kernel's dense branch (substep_pallas.py:739-830): the prep every substep
-whatever ``prep_refresh`` says, the dense M, two dense Cholesky factors
-side by side, W = A_dyn^-1 J^T and the non-symmetric Delassus J W over the
-contact-loaded dofs (``support_segments``).  The branches are two
+whatever ``prep_refresh`` says, the dense M in both triangles of one
+square, two dense Cholesky factors side by side, and the contact solve
+forward only (Y = L^-1 J^T riding on the dynamics factor, the Delassus
+matrix Y^T Y, one back substitution), which is the TPU branch's
+W = A_dyn^-1 J^T and J W in another association.  The branches are two
 instantiations of one kernel source with their own shared layouts
 (``SMEM_ARRAYS``, ``SMEM_ARRAYS_DENSE``) and launch counts (``launches``,
 ``dense_launches``).
@@ -102,33 +104,40 @@ SMEM_ARRAYS = (
     ("w", lambda d: d["nd"], "substeps", "substeps"),
     ("lam", lambda d: d["c3"], "substeps", "substeps"),
 )
-# The dense branch's arrays (per substep: prep, the two dense factors of
-# M + dt diag(kd) and M + dt diag(damping) in n x lda squares, the PD and
-# qacc columns, W = A_dyn^-1 J^T, the Delassus J W stored transposed in g,
-# the sweep); the prep arrays as in the sparse branch.
-LIVE_STAGES_DENSE = ("load fk narrowphase select dynamics mass factor subst "
-                     "torque qacc sweep velocity").split()
-_PREP = tuple(a for a in SMEM_ARRAYS
-              if a[0] in ("xpos xquat s pall phiall pphi pn pp selphi com ic "
-                          "io smom sio smass sq cj fcrb fb").split())
+# The dense branch's arrays.  Per substep: the prep; the square of both
+# factors (A_dyn's in the lower triangle, A_pd's in the upper), assembled
+# in the mass stage once the CRBA/RNEA intermediates it overlays are dead;
+# the PD column (xpd); J^T, which becomes Y = L^-1 J^T in place, and J v
+# (jq); the dynamics column (xdyn: dt qfrc, z0, then v_new); the Delassus
+# matrix Y^T Y (g) and the sweep's vectors.  The prep arrays as in the
+# sparse branch, each ending where the dense branch last reads it.
+LIVE_STAGES_DENSE = ("load fk narrowphase select dynamics mass factor gram "
+                     "torque solve").split()
+_PREP_DENSE_LAST = dict(xpos="dynamics", xquat="dynamics", s="mass",
+                        com="dynamics", ic="dynamics", io="dynamics",
+                        smom="dynamics", sio="dynamics", smass="dynamics",
+                        sq="dynamics", cj="dynamics", fcrb="mass", fb="mass")
+_PREP = tuple((n, size, first, _PREP_DENSE_LAST.get(n, last))
+              for n, size, first, last in SMEM_ARRAYS
+              if n in ("xpos xquat s pall phiall pphi pn pp selphi com ic "
+                       "io smom sio smass sq cj fcrb fb").split())
 SMEM_ARRAYS_DENSE = (
-    ("q", lambda d: d["nq"], "load", "velocity"),
-    ("v", lambda d: d["nd"], "load", "velocity"),
-    ("jt", lambda d: d["nd"] * d["c3"], "select", "sweep"),
-    ("tgt", lambda d: d["c3"], "select", "sweep"),
-    ("mu", lambda d: d["k"], "select", "sweep"),
-    ("apd", lambda d: d["nd"] * d["lda"], "dynamics", "subst"),
-    ("adyn", lambda d: d["nd"] * d["lda"], "dynamics", "qacc"),
-    ("bias", lambda d: d["nd"], "mass", "factor"),
-    ("rpd", lambda d: d["nd"], "factor", "subst"),
-    ("rdyn", lambda d: d["nd"], "factor", "qacc"),
-    ("xpd", lambda d: d["nd"], "factor", "torque"),
-    ("xdyn", lambda d: d["nd"], "torque", "velocity"),
+    ("q", lambda d: d["nq"], "load", "solve"),
+    ("v", lambda d: d["nd"], "load", "solve"),
+    ("jt", lambda d: d["nd"] * d["c3"], "select", "solve"),
+    ("tgt", lambda d: d["c3"], "select", "solve"),
+    ("mu", lambda d: d["k"], "select", "solve"),
+    ("asq", lambda d: d["nd"] * d["lda"], "mass", "solve"),
+    ("bias", lambda d: d["nd"], "mass", "mass"),
+    ("rpd", lambda d: d["nd"], "factor", "gram"),
+    ("rdyn", lambda d: d["nd"], "factor", "solve"),
+    ("xpd", lambda d: d["nd"], "mass", "torque"),
+    ("jq", lambda d: d["c3"], "factor", "solve"),
+    ("xdyn", lambda d: d["nd"], "torque", "solve"),
 ) + _PREP + (
-    ("wd", lambda d: d["nd"] * d["c3"], "subst", "velocity"),
-    ("g", lambda d: d["c3"] * d["c3"], "qacc", "sweep"),
-    ("gid", lambda d: d["c3"], "sweep", "sweep"),
-    ("lam", lambda d: d["c3"], "sweep", "velocity"),
+    ("g", lambda d: d["c3"] * d["c3"], "gram", "solve"),
+    ("gid", lambda d: d["c3"], "torque", "solve"),
+    ("lam", lambda d: d["c3"], "solve", "solve"),
 )
 # Every array name of either branch, in the order of Dims' l_ fields.
 SMEM_NAMES = tuple(a[0] for a in SMEM_ARRAYS) + tuple(
@@ -143,20 +152,20 @@ SMEM_INTS = (("sel", lambda d: d["k"] + d["kp"]),
 # Field order of the ``Dims`` struct in csrc/substep.cu (ints only).
 DIM_FIELDS = (
     "nb nd nq nu ncp npair nbpair k kp c3 nnz nlevel "
-    "n_frames prep_refresh iters dense lda n_sup poison "
+    "n_frames prep_refresh iters dense lda "
     "i_parent i_dof_body i_hinge0 i_nhinge i_lvl_off i_lvl_body "
     "i_path_off i_path_idx i_vp_off i_vp_idx i_desc_off i_desc_idx "
     "i_anc_off i_anc_idx i_ent_row i_banc i_cp_body "
     "i_p_b1 i_p_b2 i_bp_seg i_bp_box "
     "i_height i_fac_a i_fac_b i_fac_row i_col_off i_col_slot i_col_row "
-    "i_anc_base n_fac i_sup "
+    "i_anc_base n_fac i_dmask "
     "f_body_pos f_body_ipos f_mass f_inertia f_axis f_anchor "
     "f_armature f_damping f_stiffness f_lo f_hi f_limited f_gear "
     "f_gravity f_cp_local f_cp_radius f_cp_mu "
     "f_p_a1 f_p_b1 f_p_a2 f_p_b2 f_p_rsum f_p_rdiff "
     "f_bp_a f_bp_b f_bp_rseg f_bp_pos f_bp_quat f_bp_half f_scal").split() \
     + ["l_" + a for a in SMEM_NAMES] + ["l_" + a[0] for a in SMEM_INTS] \
-    + ["l_total", "l_ints"]
+    + ["l_total", "l_ints", "poison"]
 
 NT = 128              # threads per block (csrc/substep.cu)
 MAX_ROWS = 32         # contact rows: the kernel's sweep runs in one warp
@@ -164,8 +173,12 @@ MAX_ROWS = 32         # contact rows: the kernel's sweep runs in one warp
 # Stages of the stage-clock build (enum Stage in csrc/substep.cu), in order.
 STAGES = ("load fk dynamics narrowphase select factor inverse y delassus pd "
           "torque dyn_solve residual sweep velocity integrate store "
-          "subst qacc_delassus").split()
+          "gram z0").split()
 CLOCKS_DEFINE = "EGOPOSE_STAGE_CLOCKS"
+# The build whose dense branch honours Dims.poison (pd_control_step_cuda's
+# poison_upper): the main build carries no poison code, which cost the
+# dense branch 7% at B = 1024 though it never ran (PERF.md section 6).
+POISON_DEFINE = "EGOPOSE_POISON"
 
 
 def reset_launches():
@@ -340,9 +353,9 @@ def factor_schedule(anc: tuple, anc_off, nnz: int):
 def support_segments(m: PhysicsModel) -> tuple:
     """The dofs that any contact candidate (floor point or body pair) can
     load, as ascending maximal (start, end) ranges: J's columns are
-    structurally zero elsewhere, and the dense branch forms the Delassus
-    J W over these dofs only, in this order (substep_pallas.py's
-    ``sup_segs``)."""
+    structurally zero elsewhere (substep_pallas.py's ``sup_segs``, over
+    which the TPU kernel's dense branch sums J W; chip_smoke.py counts
+    J v over them in the dense branch's bound)."""
     f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()
     pdm = np.concatenate([f64(m.point_dof_mask), np.abs(f64(m.pair_dof_mask)),
                           np.abs(f64(m.bpair_dof_mask))], axis=1)
@@ -353,6 +366,19 @@ def support_segments(m: PhysicsModel) -> tuple:
         else:
             segs.append([int(j), int(j) + 1])
     return tuple((a, b) for a, b in segs)
+
+
+def dense_mask(anc: tuple) -> np.ndarray:
+    """The dense branch's structure of M: bit j of row i (words of 32
+    bits, (nd + 31) // 32 per row, as int32) is set where j is in anc[i],
+    the entries below the diagonal that are not structurally zero."""
+    n = len(anc)
+    words = (n + 31) // 32
+    bits = np.zeros((n, words), np.int64)
+    for i, a in enumerate(anc):
+        for j in a:
+            bits[i, j // 32] |= 1 << (j % 32)
+    return np.where(bits >= 1 << 31, bits - (1 << 32), bits).ravel()
 
 
 def build_tables(m: PhysicsModel, params: engine.ContactParams):
@@ -402,10 +428,11 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
         raise NotImplementedError(
             f"the kernel takes at most {NT} dofs, got {nd}")
     height, _ = tree_levels(anc_lists)
+    none = np.zeros(0, np.int64)
     if dense:          # the tree factor's tables are the sparse branch's
-        none = np.zeros(0, np.int64)
         inv = dict(col_off=none, col_slot=none, col_row=none, anc_base=none)
         fac_a, fac_b, fac_row = none, none, np.zeros(1, np.int64)
+        dmask = dense_mask(anc_lists)
     else:
         # the factorization's aligned prefix updates need nested lists:
         # for j = anc[d][s], anc[j] == anc[d][:s] (ldl_pallas.py:19-25)
@@ -421,7 +448,7 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
         inv = inverse_tables(anc_lists, anc_off)
         fac_a, fac_b, fac_row = factor_schedule(anc_lists, anc_off,
                                                 len(anc_idx))
-    sup = support_segments(m)
+        dmask = none
     k = min(params.max_contacts, m.ncpoint)
     kp = min(params.max_pair_contacts, m.npair + m.nbpair)
     c3 = 3 * k + kp
@@ -444,7 +471,7 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
             ("bp_box", m.bpair_body_box.cpu().numpy()),
             ("height", height),
             ("fac_a", fac_a), ("fac_b", fac_b), ("fac_row", fac_row),
-            ("sup", np.array(sup, np.int64).ravel())] \
+            ("dmask", dmask)] \
         + list(inv.items())
     p = params
     floats = [("body_pos", f64(m.body_pos)), ("body_ipos", f64(m.body_ipos)),
@@ -472,8 +499,8 @@ def build_tables(m: PhysicsModel, params: engine.ContactParams):
     dims = dict(nb=nb, nd=nd, nq=nq, nu=nu, ncp=m.ncpoint, npair=m.npair,
                 nbpair=m.nbpair, k=k, kp=kp, c3=c3, nnz=len(anc_idx),
                 nlevel=len(lvl_off) - 1, iters=int(p.iters),
-                n_fac=len(fac_row) - 1, dense=int(dense), lda=nd | 1,
-                n_sup=len(sup), poison=0)
+                n_fac=len(fac_row) - 1, dense=int(dense), lda=(nd + 1) | 1,
+                poison=0)
     dims.update(smem_layout(dims, dense))
     itab, off = [], 0
     for name, a in ints:
@@ -505,11 +532,13 @@ def build(verbose: bool = False) -> str:
     return nvcc.build("substep.cu", verbose)
 
 
-def _load(clocks: bool = False):
-    """The kernel's library; with ``clocks`` its stage-clock build."""
-    if clocks not in _libs:
-        lib = ctypes.CDLL(nvcc.build(("substep.cu", (CLOCKS_DEFINE,)))
-                          if clocks else build())
+def _load(define: str | None = None):
+    """The kernel's library; with ``define`` its stage-clock build
+    (CLOCKS_DEFINE) or its poison build (POISON_DEFINE)."""
+    if define not in _libs:
+        lib = ctypes.CDLL(nvcc.build(("substep.cu", (define,)))
+                          if define else build())
+        clocks = define == CLOCKS_DEFINE
         names = ("egopose_substep_clocks_f32",) if clocks else \
             ("egopose_substep_f32", "egopose_substep_f64")
         for name in names:
@@ -520,8 +549,8 @@ def _load(clocks: bool = False):
         lib.egopose_substep_occupancy.argtypes = _DIMS + [
             ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.egopose_substep_occupancy.restype = ctypes.c_int
-        _libs[clocks] = lib
-    return _libs[clocks]
+        _libs[define] = lib
+    return _libs[define]
 
 
 def _device_tables(m: PhysicsModel, params, device, dtype):
@@ -570,10 +599,13 @@ def pd_control_step_cuda(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, tlim,
     tensors of one float dtype -> (qpos', qvel'), new tensors.  With
     ``clocks``, a (B, len(STAGES)) int64 CUDA tensor, the stage-clock build
     runs instead (float32 only) and fills it with each stage's cycles; it
-    is not counted as a launch.  ``poison_upper`` (dense branch) fills the
-    strict upper triangle of both dense squares with NaN before every
-    factor: the outputs stay finite and unchanged only if the factor and
-    the substitutions read the lower triangle alone."""
+    is not counted as a launch.  ``poison_upper`` (dense branch; the
+    kernel's POISON_DEFINE build, counted as a launch) fills the
+    square of both factors with NaN before every assembly, and after it
+    every value of the block but those of the arrays live into the
+    factors: the outputs stay finite and unchanged only if every entry a
+    factor reads is written anew each substep and no stage from the
+    factors on reads the dead prep or a value before writing it."""
     global launches, dense_launches
     bsz = qpos.shape[0]
     dtype = qpos.dtype
@@ -602,13 +634,14 @@ def pd_control_step_cuda(m: PhysicsModel, qpos, qvel, ctrl, jkp, jkd, tlim,
                 or clocks.device != qpos.device or not clocks.is_contiguous():
             raise ValueError("clocks: a contiguous (B, len(STAGES)) int64 "
                              "tensor beside float32 inputs")
-        err = _load(clocks=True).egopose_substep_clocks_f32(
+        err = _load(CLOCKS_DEFINE).egopose_substep_clocks_f32(
             dim_arr, len(DIM_FIELDS), *ptrs, clocks.data_ptr(), bsz, stream)
         if err != 0:
             raise RuntimeError(f"stage-clock launch failed: error {err}")
         return qpos_out, qvel_out
-    fn = _load().egopose_substep_f64 if dtype == torch.float64 \
-        else _load().egopose_substep_f32
+    lib = _load(POISON_DEFINE if poison_upper else None)
+    fn = lib.egopose_substep_f64 if dtype == torch.float64 \
+        else lib.egopose_substep_f32
     err = fn(dim_arr, len(DIM_FIELDS), *ptrs, bsz, stream)
     if err != 0:
         raise RuntimeError(

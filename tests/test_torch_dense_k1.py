@@ -7,11 +7,13 @@ card:
   with sparse_ldl=False equals the JAX engine's CPU step (the split path
   at the given prep_refresh) at R=1 and R=3, float64 to 1e-9, on
   contact-rich states made with numpy, with the subject_03 gains;
-- the dense branch's contact-loaded dof ranges equal the JAX kernel's
-  ``sup_segs`` (substep_pallas._build_static), and its launch refreshes
+- the contact-loaded dof ranges equal the JAX kernel's ``sup_segs``
+  (substep_pallas._build_static), and the dense branch's launch refreshes
   the prep every substep whatever prep_refresh says;
 - the dense shared-memory layout overlays only arrays whose live stages
-  are disjoint, and its size is the reckoned one;
+  are disjoint, its size is the reckoned one, and 8 blocks fit an SM;
+- the bit table of M's structure the dense square is assembled from holds
+  the ancestor lists exactly;
 - a model or parameters the dense branch cannot take raise
   NotImplementedError.
 """
@@ -109,16 +111,18 @@ def test_dense_flag_is_ignored_on_the_cpu(world, r):
 
 
 def test_support_segments_match_jax(world):
-    """The dofs the dense branch sums J W over: the JAX kernel's sup_segs,
-    also as the kernel's table (pairs (start, end))."""
+    """The dofs the TPU kernel's dense branch sums J W over (the dense
+    branch's bound in chip_smoke.py counts J v over them): the JAX
+    kernel's sup_segs.  No branch of the CUDA kernel reads them: its
+    dense branch never forms J W, so its int table does not carry them."""
     _, jm, tm, *_ = world
     want = SP._build_static(jm, je.DEFAULT_CONTACT._replace(
         sparse_ldl=False))["sup_segs"]
     got = substep.support_segments(tm)
     assert got == tuple(tuple(int(x) for x in s) for s in want)
-    dims, itab, _ = substep.build_tables(tm, DENSE)
-    flat = itab[dims["i_sup"]:dims["i_sup"] + 2 * dims["n_sup"]]
-    assert [tuple(p) for p in flat.reshape(-1, 2).tolist()] == list(got)
+    for params in (DENSE, te.DEFAULT_CONTACT):
+        dims, _, _ = substep.build_tables(tm, params)
+        assert dims["i_dmask"] == dims["i_fac_row"] + dims["n_fac"] + 1
 
 
 def test_dense_dims_refresh_every_substep(world):
@@ -132,7 +136,7 @@ def test_dense_dims_refresh_every_substep(world):
             tm, te.DEFAULT_CONTACT._replace(prep_refresh=r))
         assert dense["dense"] == 1 and sparse["dense"] == 0
         assert dense["n_fac"] == 0 and sparse["n_fac"] > 0
-        assert dense["lda"] % 2 == 1 and dense["lda"] >= tm.ndof
+        assert dense["lda"] % 2 == 1 and dense["lda"] >= tm.ndof + 1
         field = substep.DIM_FIELDS.index("prep_refresh")
         assert substep._dim_array(dense, 15, DENSE._replace(
             prep_refresh=r))[field] == 1
@@ -146,11 +150,15 @@ def test_dense_dims_refresh_every_substep(world):
 def test_dense_shared_layout(world):
     """Arrays of the dense block whose live stages overlap share no bytes;
     the size is the reckoned one for the humanoid (nd=58, lda=59, c=24):
-    two 58 x 59 squares (6,844 values), J^T (1,392), the eight vectors and
-    the q, tgt, mu arrays (~470) and the CRBA/RNEA prep (2,190) live at
-    once in the dynamics stage; W (1,392), the Delassus matrix (576) and
-    the sweep's vectors overlay the dead prep: 10,631 values and 38 ints,
-    42,676 B in float and 85,200 B in double (5 and 2 blocks per SM)."""
+    in the mass stage, the peak, one 58 x 59 square holding both factors
+    (3,422 values) beside J^T (1,392), the CRBA rows and motion subspaces
+    it is assembled from (696), the body forces (126) and q, v, tgt, mu,
+    bias and the PD column (263); the Delassus matrix (576) and the
+    solve's vectors overlay the dead prep later: 5,957 values and 38 ints,
+    23,980 B in float and 47,808 B in double.  With the 1 KB an H100
+    reserves per block, 9 float blocks fit an SM's 228 KB, and 64
+    registers a thread (__launch_bounds__(128, 8)) allow 8: 8 blocks per
+    SM, one wave at B=1024 on 132 SMs; 4 in double."""
     _, _, tm, *_ = world
     dims, _, _ = substep.build_tables(tm, DENSE)
     stage = {n: i for i, n in enumerate(substep.LIVE_STAGES_DENSE)}
@@ -161,18 +169,38 @@ def test_dense_shared_layout(world):
         for o2, e2, a2, b2, n2 in spans[i + 1:]:
             if a1 <= b2 and a2 <= b1:                    # live together
                 assert e1 <= o2 or e2 <= o1, (n1, n2)
-    # no stage holds more live values than the layout has
-    peak = max(sum(e - o for o, e, a, b, _ in spans if a <= s <= b)
-               for s in range(len(stage)))
-    assert peak <= dims["l_total"]
-    assert (dims["l_total"], dims["l_ints"]) == (10631, 38)
-    assert substep.smem_bytes(dims, 4) == 42676
-    assert substep.smem_bytes(dims, 8) == 85200
-    assert 5 * substep.smem_bytes(dims, 4) <= 228 * 1024
-    assert 2 * substep.smem_bytes(dims, 8) <= 228 * 1024
+    live = lambda s: sum(e - o for o, e, a, b, _ in spans if a <= s <= b)
+    assert max(range(len(stage)), key=live) == stage["mass"]
+    assert live(stage["mass"]) == 5899 <= dims["l_total"]
+    assert (dims["l_total"], dims["l_ints"]) == (5957, 38)
+    assert substep.smem_bytes(dims, 4) == 23980
+    assert substep.smem_bytes(dims, 8) == 47808
+    per_sm, reserved, regs = 228 * 1024, 1024, 65536
+    by_smem = per_sm // (substep.smem_bytes(dims, 4) + reserved)
+    by_regs = regs // (substep.NT * 64)
+    assert (by_smem, by_regs) == (9, 8)
+    assert -(-1024 // (min(by_smem, by_regs) * 132)) == 1      # one wave
+    assert per_sm // (substep.smem_bytes(dims, 8) + reserved) == 4
     # the sparse branch's layout is untouched by the dense one
     sparse, _, _ = substep.build_tables(tm, te.DEFAULT_CONTACT)
     assert substep.smem_bytes(sparse, 4) == 24044
+
+
+def test_dense_mask_holds_the_ancestor_lists(world):
+    """dense_mask's bit j of row i is set exactly where j is in row i's
+    ancestor list (M's entries below the diagonal that are not
+    structurally zero), and the dense branch's table carries it."""
+    _, _, tm, *_ = world
+    anc = substep.dof_anc_lists(tm.anc_mask.numpy() > 0.5)
+    bits = substep.dense_mask(anc).astype(np.int64) & 0xFFFFFFFF
+    words = (tm.ndof + 31) // 32
+    got = [[j for j in range(tm.ndof)
+            if bits[i * words + j // 32] >> (j % 32) & 1]
+           for i in range(tm.ndof)]
+    assert got == [list(a) for a in anc]
+    dims, itab, _ = substep.build_tables(tm, DENSE)
+    assert (itab[dims["i_dmask"]:dims["i_dmask"] + tm.ndof * words]
+            == substep.dense_mask(anc)).all()
 
 
 def test_dense_branch_refuses_what_it_cannot_take(world):

@@ -5,9 +5,13 @@ against the JAX package's lane-major FK, float64 on the CPU:
   Pallas kernel's body _fk_compute and the level-batched _fk_compute_lvl,
   run as plain JAX ops (as tests/test_fk_pallas.py does; interpret mode
   would take minutes), at 1e-12 on every output;
-- the kernel's tables (fk.build_tables) walked in numpy in csrc/fk.cu's
-  order reproduce engine.fk at 1e-12, so the layout the kernel reads is
-  checked here too;
+- the kernel's tables (fk.build_tables: a flat per-hinge schedule)
+  walked in numpy in csrc/fk.cu's stages (the hinges' rotations, each
+  body's transform relative to its parent, the composition along each
+  body's ancestor path, the s rows from each hinge's parent pose)
+  reproduce engine.fk and the JAX package's _fk_compute and
+  _fk_compute_lvl at 1e-12, so the layout the kernel reads is checked here
+  too, and the block's shared bytes are the reckoned ones;
 - the CUDA wrapper refuses what the kernel does not take.
 """
 import os
@@ -72,36 +76,51 @@ def _qmul(a, b):
 
 
 def _walk_tables(dims, itab, ftab, q):
-    """csrc/fk.cu's walk for one environment, reading only the tables."""
+    """csrc/fk.cu's stages for one environment, reading only the tables."""
     i = lambda name, n: itab[dims["i_" + name]:dims["i_" + name] + n]
     f = lambda name, n: ftab[dims["f_" + name]:dims["f_" + name] + 3 * n] \
         .reshape(n, 3)
-    nb, nd, nl = dims["nb"], dims["nd"], dims["nlevel"]
-    parent, lvl_off = i("parent", nb), i("lvl_off", nl + 1)
-    lvl_body = i("lvl_body", lvl_off[-1])
-    bdof_off = i("bdof_off", nb + 1)
-    bdof_idx, qadr = i("bdof_idx", bdof_off[-1]), i("qadr", nd)
+    nb, nd, nh = dims["nb"], dims["nd"], dims["nh"]
+    path_off, hinge_off = i("path_off", nb + 1), i("hinge_off", nb + 1)
+    path_idx = i("path_idx", path_off[-1])
+    hdof, hqadr, hpar = i("hdof", nh), i("hqadr", nh), i("hpar", nh)
     body_pos, body_ipos = f("body_pos", nb), f("body_ipos", nb)
-    axis, anchor = f("axis", nd), f("anchor", nd)
+    haxis, hanchor = f("haxis", nh), f("hanchor", nh)
     wq, wt, s = np.zeros((nb, 4)), np.zeros((nb, 3)), np.zeros((nd, 6))
     wq[0] = q[3:7] / max(np.sqrt(np.sum(q[3:7] ** 2)), 1e-12)
     wt[0] = q[:3]
+    # every hinge's rotation
+    rh = [np.r_[np.cos(0.5 * q[hqadr[h]]), haxis[h] * np.sin(0.5 * q[hqadr[h]])]
+          for h in range(nh)]
+    # each body's transform relative to its parent; each hinge's axis and
+    # anchor in the parent's frame
+    lq, lt = np.zeros((nb, 4)), np.zeros((nb, 3))
+    for b in range(1, nb):
+        rq, rt = np.array([1.0, 0, 0, 0]), body_pos[b].copy()
+        for h in range(hinge_off[b], hinge_off[b + 1]):
+            anchor = rt + _qrot(rq, hanchor[h])
+            s[hdof[h]] = np.r_[_qrot(rq, haxis[h]), anchor]
+            rq = _qmul(rq, rh[h])
+            rt = anchor - _qrot(rq, hanchor[h])
+        lq[b], lt[b] = rq, rt
+    # the walk along each body's ancestor path
+    for b in range(1, nb):
+        bq, bt = wq[0].copy(), wt[0].copy()
+        for a in path_idx[path_off[b]:path_off[b + 1]]:
+            bt = bt + _qrot(bq, lt[a])
+            bq = _qmul(bq, lq[a])
+        wq[b], wt[b] = bq, bt
+    # the s rows: the root's, then each hinge's from its parent's pose
     for r in range(3):
+        s[r] = 0.0
         s[r, 3 + r] = 1.0
         aw = _qrot(wq[0], np.eye(3)[r])
         s[3 + r] = np.r_[aw, np.cross(wt[0], aw)]
-    for lv in range(nl):
-        for b in lvl_body[lvl_off[lv]:lvl_off[lv + 1]]:
-            bq = wq[parent[b]]
-            bt = wt[parent[b]] + _qrot(bq, body_pos[b])
-            for d in bdof_idx[bdof_off[b]:bdof_off[b + 1]]:
-                aw = _qrot(bq, axis[d])
-                anw = bt + _qrot(bq, anchor[d])
-                s[d] = np.r_[aw, np.cross(anw, aw)]
-                half = 0.5 * q[qadr[d]]
-                bq = _qmul(bq, np.r_[np.cos(half), axis[d] * np.sin(half)])
-                bt = anw - _qrot(bq, anchor[d])
-            wq[b], wt[b] = bq, bt
+    for h in range(nh):
+        p, row = hpar[h], s[hdof[h]]
+        aw = _qrot(wq[p], row[:3])
+        anw = wt[p] + _qrot(wq[p], row[3:])
+        s[hdof[h]] = np.r_[aw, np.cross(anw, aw)]
     com = wt + np.stack([_qrot(wq[b], body_ipos[b]) for b in range(nb)])
     return wt, wq, com, s
 
@@ -111,13 +130,42 @@ def test_kernel_tables_walk_matches_engine_fk(world):
     dims, itab, ftab = fk.build_tables(tm)
     assert set(fk.DIM_FIELDS) == set(dims)
     assert itab.dtype == np.int32 and ftab.dtype == np.float64
-    assert (dims["nb"], dims["nd"], dims["nlevel"]) == (21, 58, 8)
+    assert (dims["nb"], dims["nd"], dims["nh"]) == (21, 58, 52)
+    assert (dims["n_int"], dims["n_float"]) == (itab.size, ftab.size)
     want = engine.fk(tm, torch.tensor(q))
     for lane in range(q.shape[0]):
         got = _walk_tables(dims, itab, ftab, q[lane])
         for name, g, w in zip(want._fields, got, want):
             np.testing.assert_allclose(g, w[lane].numpy(), rtol=0, atol=TOL,
                                        err_msg=f"lane {lane} {name}")
+
+
+@pytest.mark.parametrize("ref", [_fk_compute, _fk_compute_lvl],
+                         ids=["fk_compute", "fk_compute_lvl"])
+def test_kernel_tables_walk_matches_jax_lane_major_fk(world, ref):
+    """The same walk against the Pallas kernel's body and the level-batched
+    FK it replaces, lane-major (rows, comp, B)."""
+    jm, tm, q = world
+    dims, itab, ftab = fk.build_tables(tm)
+    want = ref(jnp.asarray(q.T), _build_topo(jm), jnp.float64)
+    for lane in range(q.shape[0]):
+        got = _walk_tables(dims, itab, ftab, q[lane])
+        for name, g, w in zip(engine.Kin._fields, got, want):
+            np.testing.assert_allclose(g, np.asarray(w)[..., lane], rtol=0,
+                                       atol=TOL, err_msg=f"lane {lane} {name}")
+
+
+def test_kernel_block_bytes(world):
+    """A block of four environments: the staged tables (438 floats, 285
+    ints) and per environment qpos, the hinges' rotations, the bodies'
+    relative transforms and the staged outputs (972 values): 18,444 B in
+    float, 35,748 B in double, within the 48 KB a block takes without
+    opting in."""
+    _, tm, _ = world
+    dims, _, _ = fk.build_tables(tm)
+    assert (dims["n_float"], dims["n_int"]) == (438, 285)
+    assert fk.block_bytes(dims, 4) == 18444
+    assert fk.block_bytes(dims, 8) == 35748 <= 48 * 1024
 
 
 def test_fk_cuda_refuses_what_the_kernel_does_not_take(world):

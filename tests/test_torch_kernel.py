@@ -157,9 +157,16 @@ def _dense_inputs(card, dtype, bsz, seed):
 
 @pytest.mark.cuda
 def test_dense_kernel_reads_the_lower_triangle_on_card(card):
-    """NaN in the strict upper triangle of both dense squares before every
-    factor (poison_upper) changes nothing: the factors and substitutions
-    read the lower triangle only, as _factor_multi's masks do (B=9, f64)."""
+    """poison_upper (the kernel's poison build) fills the square that holds
+    both factors (A_dyn's lower triangle, A_pd's upper one) with NaN before
+    every assembly, so every
+    entry of the square must be written anew each substep; after the
+    assembly it fills every other value of the block with NaN too, but
+    those of the arrays live into the factors (q, v, J^T, tgt, mu, the PD
+    column), so no stage from the factors on may read the prep's dead
+    arrays, which the square and the solve's arrays overlay, or a value
+    it has not yet written.  The output is bit-equal to the main build's
+    (B=9, f64)."""
     from egopose_tpu_torch.physics import engine, substep
     m, args = _dense_inputs(card, torch.float64, 9, 12)
     params = engine.DEFAULT_CONTACT._replace(sparse_ldl=False)
@@ -189,9 +196,9 @@ def test_dense_kernel_refuses_what_it_cannot_take_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_dense_occupancy_on_card(card, dtype):
-    """The dense branch's block: the layout's bytes (42,676 f32, 85,200
-    f64 for the humanoid), at least 5 blocks per SM in float and 2 in
-    double."""
+    """The dense branch's block: the layout's bytes (23,980 f32, 47,808
+    f64 for the humanoid), 64 registers at most and 8 blocks per SM in
+    float (one wave at B=1024 on 132 SMs), 4 in double."""
     from egopose_tpu_torch.physics import engine, model, substep
     from egopose_tpu_torch.physics.spec import parse_mjcf
     m = model.build_model(parse_mjcf(XML), dtype=dtype, device=card)
@@ -200,14 +207,16 @@ def test_dense_occupancy_on_card(card, dtype):
     occ = substep.occupancy(m, dtype, params=params)
     size = torch.tensor([], dtype=dtype).element_size()
     assert occ["shared_bytes"] == substep.smem_bytes(dims, size)
-    assert occ["blocks_per_sm"] >= (5 if dtype == torch.float32 else 2)
+    assert occ["blocks_per_sm"] >= (8 if dtype == torch.float32 else 4)
+    if dtype == torch.float32:
+        assert occ["registers"] <= 64
 
 
 @pytest.mark.cuda
 def test_dense_stage_clocks_on_card(card):
     """The stage-clock build's dense branch holds K1's f32 bars and stamps
-    its stages (prep, factor, subst, torque, qacc_delassus, residual,
-    sweep, velocity, integrate), none of the sparse branch's own."""
+    its stages (prep, factor, gram, torque, z0, residual, sweep, velocity,
+    integrate), none of the sparse branch's own."""
     from egopose_tpu_torch.physics import engine, substep
     m, args = _dense_inputs(card, torch.float32, 6, 8)
     params = engine.DEFAULT_CONTACT._replace(sparse_ldl=False)
@@ -611,10 +620,11 @@ def test_fused_wrappers_reject_bad_inputs(card):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bsz", [1, 5, 300])
+@pytest.mark.parametrize("bsz", [1, 5, 300, 1023])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_fk_matches_plain_on_card(card, dtype, bsz):
-    """f64: every output within 1e-10 of engine.fk; f32 within 1e-5."""
+    """f64: every output within 1e-10 of engine.fk; f32 within 1e-5; B=1,
+    5 and 1023 leave the last block of four environments partly filled."""
     from egopose_tpu_torch.physics import engine, fk, model
     from egopose_tpu_torch.physics.spec import parse_mjcf
     m = model.build_model(parse_mjcf(XML), dtype=dtype, device=card)
@@ -633,6 +643,22 @@ def test_fk_matches_plain_on_card(card, dtype, bsz):
     for name, g, w in zip(want._fields, got, want):
         assert g.shape == w.shape and torch.isfinite(g).all(), name
         assert (g - w).abs().max() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fk_occupancy_on_card(card, dtype):
+    """K5's block: the reckoned bytes (fk.block_bytes), four
+    environments."""
+    from egopose_tpu_torch.physics import fk, model
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    m = model.build_model(parse_mjcf(XML), dtype=dtype, device=card)
+    dims, _, _ = fk.build_tables(m)
+    occ = fk.occupancy(m, dtype)
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert occ["shared_bytes"] == fk.block_bytes(dims, size)
+    assert occ["systems_per_block"] == fk.WARPS
+    assert occ["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
