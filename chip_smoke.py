@@ -119,10 +119,39 @@ any failure exits non-zero:
   rollout_dense
                the same in position mode with sparse_ldl=False: one launch
                of K1's dense branch per control step, no other kernel
+  forecast_train
+               ego_forecast --cfg subject_03_syn --synthetic at the shipped
+               widths (1024 lanes, episodes of 90 steps, min batch 50000:
+               one segment of 92,160 env steps per iteration, 10 epochs),
+               2 iterations (depth cut from 3000), in a scratch directory
+               with the committed mimic iter_3000.p: the warm start copied
+               the mimic leaves (a run with --max-iter 0), K1 launches ==
+               control steps and no other kernel, finite losses and
+               rewards, rewards in [0, 1] (decayed over the episode) and
+               their components in (0, 1], iter_0002.p reloads equal;
+               T_sample, T_update, env-steps/s
+  forecast_eval
+               ego_forecast_eval on that checkpoint, every window of the 4
+               takes one lane (40 windows of 90 steps), initialised from
+               the eval phase's estimation results (ego_mimic_eval runs
+               first when eval does not), then with --gt-init: 90 K1
+               launches a run, no other kernel, finite; each run's first
+               control step (K1 over all windows) against the plain split
+               path on the CPU in f64 from the same state and action,
+               within K1's f32 RMS bar; the em-init run's horizon-30 pose
+               dist within 5% of the port's CPU f64 run of the same windows
+               (where either misses and the CPU f32 counterpart misses too,
+               against that: decided_by); wall time, frames/s, num_fail,
+               and K1's device time on the first step's inputs with its
+               share of a control step
+  forecast_stats
+               eval_forecast --mode stats on both pickles: horizon-30 and
+               horizon-90 pose, velocity and acceleration metrics, finite
   kernels      every kernel of the port with its TPU counterpart (K1's
                two branches on two rows), launches on the main paths (eval
                + train + train_torque + the three one-step phases + the
-               three rollouts), error against the plain version and times
+               three rollouts + forecast_train + forecast_eval), error
+               against the plain version and times
 
 With ``--only a,b`` only the phases named run (the device and build
 phases always do).  ``--ab DIR`` instead times every kernel of the
@@ -131,10 +160,8 @@ tree in turns, parent, tree, tree, parent (phase ``ab``: ``ms``,
 ``ms_b2b`` and ``device_ms`` of each phase at each B), each run a
 subprocess of ``--only
 k1_time,k1_dense_time,k2_time,k3_time,k4_time,k5_time`` (or of the
-phases of an ``--only`` given beside ``--ab``).  A checkout whose phases
-print no ``device_ms`` (d4a5506) gets it from one more subprocess, this
-script's ``--device-times DIR``, which times every kernel of the package
-in DIR with torch.profiler (phase ``device_times``).
+phases of an ``--only`` given beside ``--ab``); the parent's phases
+must print ``device_ms`` (649cfae and later do).
 
 The last two lines are the card's name and power limit and then
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints no
@@ -754,7 +781,7 @@ def phase_eval(device):
     emit("eval", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"eval out of bounds: {rec}")
-    return rec
+    return dict(rec, em_results=(results, meta))
 
 
 def phase_eval_profile(device, step_ms=None):
@@ -1538,48 +1565,318 @@ def phase_rollout_dense(device):
     return rec
 
 
-AB_PHASES = "k1_time,k1_dense_time,k2_time,k3_time,k4_time,k5_time"
+# ---------------------------------------------------------------------------
+# ego-forecast: training, the sliding-window eval and its horizon metrics
+# ---------------------------------------------------------------------------
+
+FORECAST = "subject_03_syn"
+FORECAST_ITERS = 2
 
 
-def phase_device_times(device):
-    """Every kernel's device_ms at B=1024 and B=4 (f32, each on the inputs
-    of its k*_time phase) through the public wrappers of whichever
-    egopose_tpu_torch is first on sys.path: with ``--device-times DIR``
-    that of the checkout in DIR, so that --ab reads a parent's kernels by
-    this script's method."""
+@contextlib.contextmanager
+def forecast_workdir():
+    """A scratch working directory for the forecast CLIs: a copy of
+    config/egoforecast/subject_03_syn.yml that saves a checkpoint every
+    FORECAST_ITERS iterations, config/egomimic and the committed mimic
+    models (the warm start's iter_3000.p) linked in."""
+    import yaml
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = yaml.safe_load(open(os.path.join(
+            REPO, "config", "egoforecast", FORECAST + ".yml")))
+        cfg["save_model_interval"] = FORECAST_ITERS
+        os.makedirs(os.path.join(tmp, "config", "egoforecast"))
+        with open(os.path.join(tmp, "config", "egoforecast",
+                               FORECAST + ".yml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+        os.symlink(os.path.join(REPO, "config", "egomimic"),
+                   os.path.join(tmp, "config", "egomimic"))
+        mimic = os.path.join(tmp, "results", "egomimic", "subject_03")
+        os.makedirs(mimic)
+        os.symlink(os.path.join(REPO, "results", "egomimic", "subject_03",
+                                "models"), os.path.join(mimic, "models"))
+        os.chdir(tmp)
+        try:
+            yield cfg
+        finally:
+            os.chdir(cwd)
+
+
+def phase_forecast_train(device, cfg):
+    """ego_forecast --cfg subject_03_syn --synthetic at the shipped widths
+    (1024 lanes, episodes of 90 steps, min batch 50000: one segment of
+    92,160 env steps per iteration, 10 PPO epochs) for FORECAST_ITERS
+    iterations, warm-started from the committed ego-mimic iter_3000.p:
+    every control step is one K1 launch over the 1024 lanes."""
     import torch
-    from egopose_tpu_torch.physics import engine, fk, linalg, nvcc, substep
-    nvcc.build_all()
-    spec, m, gains = load_world(torch.float32, device)
-    params = engine.DEFAULT_CONTACT
-    dense = params._replace(**DENSE)
-    extra = (m.timestep, params.iters, params.relax)
-    out = {}
-    for bsz in (1024, 4):
-        lane = lambda x: x.expand(bsz, -1).contiguous()
-        st = lambda seed: contact_states(spec, m, bsz, seed + bsz,
-                                         torch.float32, device)
-        q1, v1, c1 = st(10)
-        gk = [lane(g) for g in gains]
-        a2, rhs = k2_systems(m, *st(30)[:2], params)
-        q5, v5, c5 = st(50)
-        a3 = k3_systems(m, q5, v5, params)
-        a4 = k4_systems(m, gains, q5, v5, c5, params)
-        q7 = st(70)[0]
-        calls = dict(
-            k1=lambda: substep.pd_control_step_cuda(m, q1, v1, c1, *gk,
-                                                    N_FRAMES, params),
-            k1_dense=lambda: substep.pd_control_step_cuda(
-                m, q1, v1, c1, *gk, N_FRAMES, dense),
-            k2=lambda: linalg.spd_solve_cuda(a2, rhs),
-            k3=lambda: linalg.fused_contact_cuda(*a3, *extra),
-            k4=lambda: linalg.pd_fused_cuda(*a4, *extra),
-            k5=lambda: fk.fk_cuda(m, q7))
-        rec = {name: device_ms(fn, KERNEL_KEYS[name])
-               for name, fn in calls.items()}
-        emit("device_times", B=bsz, dtype="float32", **rec)
-        out[bsz] = rec
+    from egopose_tpu_torch.cli import ego_forecast
+    from egopose_tpu_torch.convert import load_checkpoint_pickle, \
+        params_to_jax
+    from egopose_tpu_torch.physics import substep
+    from egopose_tpu_torch.rl.agent_forecast import AgentForecast
+    lanes = 1024
+    args = ["--cfg", FORECAST, "--synthetic", "--device", str(device),
+            "--batch-lanes", str(lanes)]
+    # the warm start alone (no iteration): the copied leaves are the
+    # mimic checkpoint's
+    warm = ego_forecast.main(args + ["--max-iter", "0"])
+    mimic = load_checkpoint_pickle(os.path.join(
+        "results", "egomimic", "subject_03", "models", "iter_3000.p"))
+    pol, _, val, _ = params_to_jax(*[n.state_dict() for n in warm.nets])
+    warm_ok = True
+    for mine, theirs in ((pol, mimic["policy_dict"]),
+                         (val, mimic["value_dict"])):
+        for key in ("Dense_0", "Dense_1"):
+            a, b = mine["params"]["net"][key], theirs["params"]["net"][key]
+            warm_ok &= bool(np.array_equal(a["bias"], b["bias"]))
+            warm_ok &= (key == "Dense_0") != bool(
+                a["kernel"].shape == b["kernel"].shape
+                and np.array_equal(a["kernel"], b["kernel"]))
+    warm_ok &= bool(np.array_equal(
+        pol["params"]["action_mean"]["kernel"],
+        mimic["policy_dict"]["params"]["action_mean"]["kernel"]))
+    del warm
+
+    iters = []
+    hook = lambda i, log, metrics, t_update: iters.append(dict(
+        iter=i, T_sample=log.sample_time, T_update=t_update,
+        env_steps=log.num_steps,
+        env_steps_per_s=log.num_steps / log.sample_time,
+        R_avg=log.avg_c_reward, R_min=log.min_c_reward,
+        R_max=log.max_c_reward, R_info=[float(x) for x in log.avg_c_info],
+        eps_len_avg=log.avg_episode_len, **metrics))
+    reset_counts()
+    t0 = time.time()
+    agent = ego_forecast.main(args + ["--max-iter", str(FORECAST_ITERS)],
+                              iter_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    n_seg = -(-cfg["min_batch_size"] // (lanes * cfg["env_episode_len"]))
+    steps = FORECAST_ITERS * n_seg * cfg["env_episode_len"]
+    path = os.path.join("results", "egoforecast", FORECAST, "models",
+                        "iter_%04d.p" % FORECAST_ITERS)
+    saved = os.path.exists(path)
+    same = False
+    if saved:
+        back = AgentForecast(agent.model, agent.spec, agent.p, agent.tables,
+                             agent.expert, agent.cnn_feat.cpu().numpy(),
+                             agent.cfg, batch_lanes=lanes, seed=99,
+                             dtype=agent.dtype, device=device)
+        back.load(path)
+        same = all(torch.equal(x, y) for n1, n2 in zip(agent.nets,
+                                                       back.nets)
+                   for x, y in zip(n1.state_dict().values(),
+                                   n2.state_dict().values())) \
+            and all(torch.equal(x, y) for x, y in zip(agent.zstat,
+                                                      back.zstat))
+    # the config decays the reward over the episode (reward_weights.decay)
+    # and gives no end bonus, so rewards lie in [0, 1]; the components in
+    # (0, 1]
+    rewards_ok = all(0 <= it["R_min"] and it["R_max"] <= 1
+                     and 0 < it["R_avg"]
+                     and all(0 < x <= 1 for x in it["R_info"])
+                     for it in iters)
+    others = {k: v for k, v in counts.items() if k != "k1"}
+    rec = dict(lanes=lanes, episode_len=cfg["env_episode_len"],
+               iters=iters, control_steps=steps, k1_launches=counts["k1"],
+               other_launches=others, wall_s=wall,
+               warm_start_verified=warm_ok, checkpoint_written=saved,
+               checkpoint_reloads_equal=same)
+    ok = bool(counts["k1"] == steps and not any(others.values())
+              and train_finite(iters) and rewards_ok and warm_ok and saved
+              and same)
+    emit("forecast_train", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"forecast_train out of bounds: {rec}")
+    return rec
+
+
+def first_step_hook(out):
+    """A forecast eval step hook that keeps the first control step's
+    inputs (qpos, qvel, action) and output (qpos, qvel)."""
+    def hook(t, st, action, new_st):
+        if t == 0:
+            out.extend([st.qpos, st.qvel, action, new_st.qpos, new_st.qvel])
+    return hook
+
+
+def run_forecast_eval(device, extra=(), f64=False):
+    """ego_forecast_eval on the FORECAST_ITERS checkpoint, the launch
+    counts zeroed just before; returns (results, meta, first step, launch
+    counts)."""
+    import torch
+    from egopose_tpu_torch.cli import ego_forecast_eval
+    first = []
+    reset_counts()
+    results, meta = ego_forecast_eval.main(
+        ["--cfg", FORECAST, "--synthetic", "--iter", str(FORECAST_ITERS),
+         "--device", str(device)] + (["--f64"] if f64 else []) + list(extra),
+        step_hook=first_step_hook(first))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return results, meta, first, read_counts()
+
+
+def forecast_step_inputs(first, dtype, device):
+    """(model, qpos, qvel, ctrl, jkp, jkd, torque_lim) of the eval's first
+    control step (``first``: first_step_hook's record) in ``dtype`` on
+    ``device``, with the forecast config's gains."""
+    import torch
+    from egopose_tpu_torch.utils.config import EgoForecastConfig
+    cfg = EgoForecastConfig(FORECAST)
+    q, v, action = [x.to(device=device, dtype=dtype) for x in first[:3]]
+    lane = lambda x: torch.as_tensor(np.asarray(x, np.float64)).to(
+        device=device, dtype=dtype).expand(q.shape[0], -1).contiguous()
+    ctrl = lane(cfg.a_ref) + action * lane(cfg.a_scale)
+    return (load_world(dtype, device)[1], q, v, ctrl, lane(cfg.jkp),
+            lane(cfg.jkd), lane(cfg.torque_lim))
+
+
+def first_step_vs_plain(first):
+    """(ok, record) of the card's first control step of the eval (K1 over
+    every window) against the plain split path on the CPU from the same
+    qpos, qvel and action, in f64 (K1's f32 RMS bar: qpos <= 1e-6, qvel
+    <= 1e-4).  Where it misses and the plain f32 step misses too against
+    the f64 one, the card is held to the bar against the plain f32 step
+    (decided_by)."""
+    import torch
+    from egopose_tpu_torch.physics import engine
+    qk, vk = [x.cpu() for x in first[3:]]
+
+    def plain(dtype):
+        return engine.pd_control_step_split(
+            *forecast_step_inputs(first, dtype, "cpu"), N_FRAMES,
+            engine.DEFAULT_CONTACT)
+    ref = plain(torch.float64)
+    ok, rec = k1_bars(torch.float32, (qk, vk), ref)
+    rec["decided_by"] = "plain_f64"
+    if not ok:
+        p32 = plain(torch.float32)
+        p32_ok, rec["plain_f32_vs_f64"] = k1_bars(torch.float32, p32, ref)
+        if not p32_ok:
+            ok, rec["vs_plain_f32"] = k1_bars(torch.float32, (qk, vk), p32)
+            rec["decided_by"] = "plain_f32"
+    return ok, rec
+
+
+def horizon_pose_dist(results, margin, horizon=30):
+    """eval_forecast's pose dist at ``horizon`` (hands zeroed as its
+    stats mode does), on a copy of ``results``."""
+    from egopose_tpu_torch.cli.eval_forecast import compute_metrics
+    from egopose_tpu_torch.utils.tools import remove_noisy_hands
+    res = {k: {t: a.copy() for t, a in v.items()} for k, v in results.items()}
+    remove_noisy_hands(res)
+    return compute_metrics(res, "forecast", horizon, margin,
+                           verbose=False)[0]
+
+
+def horizon_band(results, ref, margin):
+    """(ok, record): horizon-30 pose dist of ``results`` within 5% of
+    ``ref``'s, the cross-engine band of tests/test_cross_engine.py."""
+    got, want = horizon_pose_dist(results, margin), \
+        horizon_pose_dist(ref, margin)
+    rel = abs(got - want) / want
+    return rel <= 0.05, dict(horizon30_pose_dist=got, ref=want, rel=rel)
+
+
+def phase_forecast_eval(device, cfg, em_results=None):
+    """ego_forecast_eval on forecast_train's checkpoint, every window of
+    the 4 synthetic takes one lane of one batch (one K1 launch per control
+    step over all windows), initialised from the eval phase's estimation
+    results (ego_mimic_eval runs here when that phase did not), then with
+    --gt-init.  The card's f32 em-init run is held against the port's own
+    CPU f64 run of the same windows and checkpoint: its first control step
+    (first_step_vs_plain) and its horizon-30 pose dist within 5%; where
+    the card misses that band and the CPU f32 run misses it too against
+    the f64 run, the card is held to the band against the CPU f32 run,
+    and the record says which decided."""
+    import pickle
+    import torch
+    from egopose_tpu_torch.cli import ego_mimic_eval
+    from egopose_tpu_torch.physics import engine, substep
+    em_path = os.path.join("results", "egomimic", "subject_03", "results",
+                           "iter_3000_test.p")
+    if em_results is None:
+        ego_mimic_eval.main(EVAL_ARGS + ["--device", str(device)])
+    else:
+        os.makedirs(os.path.dirname(em_path), exist_ok=True)
+        with open(em_path, "wb") as f:
+            pickle.dump(em_results, f)
+    steps, margin = cfg["env_episode_len"], cfg["fr_margin"]
+    res_path = os.path.join("results", "egoforecast", FORECAST, "results",
+                            "iter_%04d_test.p" % FORECAST_ITERS)
+    cpu = torch.device("cpu")
+    t0 = time.time()
+    ref = run_forecast_eval(cpu, f64=True)[0]
+    cpu_s = time.time() - t0
+    runs, ok = {}, True
+    for mode, extra in (("em_init", ()), ("gt_init", ("--gt-init",))):
+        results, meta, first, counts = run_forecast_eval(device, extra)
+        finite = bool(all(np.isfinite(a).all()
+                          for a in results["traj_pred"].values()))
+        others = {k: v for k, v in counts.items() if k != "k1"}
+        step_ok, step_rec = first_step_vs_plain(first)
+        rec = dict(windows=meta["n_windows"], control_steps=steps,
+                   k1_launches=counts["k1"], other_launches=others,
+                   wall_s=meta["wall_s"],
+                   frames_per_sec=meta["frames_per_sec"],
+                   num_fail=meta["num_fail"], finite=finite,
+                   first_step=step_rec)
+        good = counts["k1"] == steps and not any(others.values()) \
+            and finite and step_ok
+        if mode == "em_init":
+            # K1 alone on this step's inputs: its share of a control step
+            k1 = device_ms(lambda: substep.pd_control_step_cuda(
+                *forecast_step_inputs(first, torch.float32, device),
+                N_FRAMES, engine.DEFAULT_CONTACT), KERNEL_KEYS["k1"])
+            rec.update(k1_device_ms=k1, step_ms=meta["wall_s"] * 1e3 / steps)
+            rec["k1_share"] = k1 / rec["step_ms"]
+            band_ok, rec["vs_cpu_f64"] = horizon_band(results, ref, margin)
+            rec.update(cpu_f64_s=cpu_s, decided_by="cpu_f64")
+            if not band_ok:
+                f32 = run_forecast_eval(cpu)[0]
+                with open(res_path, "wb") as f:     # the card's, for stats
+                    pickle.dump((results, meta), f)
+                f32_ok, rec["cpu_f32_vs_f64"] = horizon_band(f32, ref,
+                                                             margin)
+                if not f32_ok:
+                    band_ok, rec["vs_cpu_f32"] = horizon_band(results, f32,
+                                                              margin)
+                    rec["decided_by"] = "cpu_f32"
+            good = good and band_ok
+        runs[mode] = rec
+        ok = ok and good
+        emit("forecast_eval", mode=mode, ok=bool(good), **rec)
+    if not ok:
+        raise AssertionError(f"forecast_eval out of bounds: {runs}")
+    return runs
+
+
+def phase_forecast_stats():
+    """eval_forecast --mode stats on both pickles of forecast_eval:
+    horizon-30 and horizon-90 pose, velocity and acceleration metrics,
+    all finite."""
+    import io
+    from egopose_tpu_torch.cli import eval_forecast
+    out, ok = {}, True
+    for mode, extra in (("em_init", []), ("gt_init", ["--suffix", "_gt"])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = eval_forecast.main(
+                ["--egoforecast-cfg", FORECAST, "--egoforecast-iter",
+                 str(FORECAST_ITERS)] + extra)
+        rec = {h: dict(zip(("pose_dist", "vel_dist", "accel"), v))
+               for h, v in stats.items()}
+        finite = bool(np.isfinite([list(v) for v in stats.values()]).all())
+        ok = ok and finite
+        out[mode] = rec
+        emit("forecast_stats", mode=mode, ok=finite, **rec)
+    if not ok:
+        raise AssertionError(f"forecast_stats not finite: {out}")
     return out
+
+
+AB_PHASES = "k1_time,k1_dense_time,k2_time,k3_time,k4_time,k5_time"
 
 
 def run_ab(parent_dir, phases=AB_PHASES):
@@ -1588,11 +1885,9 @@ def run_ab(parent_dir, phases=AB_PHASES):
     parent: each a subprocess running ``--only`` ``phases`` (AB_PHASES
     unless ``--only`` is given beside ``--ab``), which builds its own
     kernels.  Records each phase's ``ms``, ``ms_b2b`` and ``device_ms`` at
-    each B, keyed by the whole phase name.  A checkout whose phases print
-    no ``device_ms`` (d4a5506) gets it from this script's
-    ``--device-times`` on its package, by the same method.  Prints one
-    ``ab`` line per run and one summary line; returns 0 when every run
-    passed."""
+    each B, keyed by the whole phase name (the parent's phases must print
+    ``device_ms``: 649cfae and later do).  Prints one ``ab`` line per run
+    and one summary line; returns 0 when every run passed."""
     runs = []
     for who in ("parent", "tree", "tree", "parent"):
         root = parent_dir if who == "parent" else REPO
@@ -1604,19 +1899,7 @@ def run_ab(parent_dir, phases=AB_PHASES):
                 if x.startswith('{"phase": "k')]
         times = {f"{r['phase']}_B{r['B']}_{f}": r[f] for r in recs
                  for f in ("ms", "ms_b2b", "device_ms") if f in r}
-        rc = out.returncode
-        if not any(f.endswith("_device_ms") for f in times):
-            dev = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--device-times",
-                 root], cwd=root, capture_output=True, text=True,
-                timeout=900)
-            rc = max(rc, dev.returncode)
-            for r in (json.loads(x) for x in dev.stdout.splitlines()
-                      if x.startswith('{"phase": "device_times"')):
-                times.update({f"{k}_time_B{r['B']}_device_ms": r[k]
-                              for k in KERNEL_KEYS
-                              if f"{k}_time" in phases.split(",")})
-        runs.append(dict(who=who, rc=rc, **times))
+        runs.append(dict(who=who, rc=out.returncode, **times))
         emit("ab", **runs[-1])
     keys = sorted({k for r in runs for k in r
                    if k.endswith(("_ms", "_ms_b2b"))})
@@ -1630,20 +1913,14 @@ def run_ab(parent_dir, phases=AB_PHASES):
 
 
 def main():
-    if "--ab" in sys.argv or "--device-times" in sys.argv:
-        flag = "--ab" if "--ab" in sys.argv else "--device-times"
-        root = os.path.abspath(sys.argv[sys.argv.index(flag) + 1])
-        if flag == "--device-times":       # that checkout's package first
-            sys.path.insert(0, root)
+    if "--ab" in sys.argv:
+        root = os.path.abspath(sys.argv[sys.argv.index("--ab") + 1])
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             return 2
-        if flag == "--ab":
-            return run_ab(root, *(sys.argv[sys.argv.index("--only") + 1:][:1]
-                                  if "--only" in sys.argv else ()))
-        phase_device_times(torch.device("cuda", 0))
-        return 0
+        return run_ab(root, *(sys.argv[sys.argv.index("--only") + 1:][:1]
+                              if "--only" in sys.argv else ()))
     only = sys.argv[sys.argv.index("--only") + 1].split(",") \
         if "--only" in sys.argv else None
     want = lambda p: only is None or p in only
@@ -1699,6 +1976,17 @@ def main():
     rt = phase_rollout_torque_fused(device) \
         if want("rollout_torque_fused") else None
     rd = phase_rollout_dense(device) if want("rollout_dense") else None
+    ft = fe = None
+    if any(want(p) for p in ("forecast_train", "forecast_eval",
+                             "forecast_stats")):
+        with forecast_workdir() as fcfg:
+            ft = phase_forecast_train(device, fcfg) \
+                if want("forecast_train") else None
+            fe = phase_forecast_eval(
+                device, fcfg, ev["em_results"] if ev else None) \
+                if want("forecast_eval") else None
+            if want("forecast_stats"):
+                phase_forecast_stats()
     if only is None:
         t4, t2 = times[4], times2[1024]
         fused = lambda key: rp["launches"][key] + rt["launches"][key] \
@@ -1714,7 +2002,9 @@ def main():
         print(json.dumps({"kernels": [
             row("substep_control_step", "substep.cu", "substep_pallas.py:694",
                 ev["launches"] + tr["k1_launches"] + tq["k1_launches"]
-                + fused("k1"), errs["float32"], t4),
+                + fused("k1") + ft["k1_launches"]
+                + sum(r["k1_launches"] for r in fe.values()),
+                errs["float32"], t4),
             row("substep_control_step_dense", "substep.cu",
                 "substep_pallas.py:784", fused("k1_dense"), errs1d["float32"],
                 times1d[1024]),

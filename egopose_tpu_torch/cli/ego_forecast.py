@@ -1,0 +1,174 @@
+"""Ego-forecast PPO training (counterpart of egopose_tpu/cli/ego_forecast.py):
+the same flags, config schema, checkpoint naming
+(results/egoforecast/<cfg>/models/iter_%04d.p, the JAX package's pickle
+layout), warm start from the ego-mimic checkpoint
+results/egomimic/<ego_mimic_cfg>/models/iter_<ego_mimic_iter>.p, adaptive
+init-noise schedule and end-reward flag.
+
+    python -m egopose_tpu_torch.cli.ego_forecast --cfg subject_03_syn \\
+        --synthetic [--batch-lanes 1024] [--max-iter N] [--iter N] \\
+        [--device cuda|cpu]
+
+On the card every control step of the rollout is one launch of the K1
+control-step kernel.  Reads config/ and results/egomimic/ and writes
+results/egoforecast/ relative to the working directory.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+
+
+def main(argv=None, iter_hook=None):
+    """Train; returns the agent.  ``iter_hook(i_iter, log, metrics,
+    t_update)``, if given, is called after each iteration."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cfg", default=None)
+    parser.add_argument("--render", action="store_true", default=False)
+    parser.add_argument("--num-threads", type=int, default=12,
+                        help="accepted for CLI parity; lanes come from "
+                             "--batch-lanes")
+    parser.add_argument("--gpu-index", type=int, default=0,
+                        help="accepted for CLI parity (see --device)")
+    parser.add_argument("--iter", type=int, default=0)
+    parser.add_argument("--show-noise", action="store_true", default=False)
+    parser.add_argument("--batch-lanes", type=int, default=1024)
+    parser.add_argument("--max-iter", type=int, default=None)
+    parser.add_argument("--synthetic", action="store_true", default=False)
+    parser.add_argument("--f64", action="store_true", default=False)
+    parser.add_argument("--min-batch", type=int, default=None,
+                        help="override cfg.min_batch_size (debug)")
+    parser.add_argument("--episode-len", type=int, default=None,
+                        help="override cfg.env_episode_len (debug)")
+    parser.add_argument("--dp-devices", type=int, default=None)
+    parser.add_argument("--profile-dir", default=None)
+    parser.add_argument("--ckpt-format", default="pickle",
+                        choices=("pickle", "orbax"))
+    parser.add_argument("--kl-target", type=float, default=None,
+                        help="PPO trust-region early stop (config key "
+                             "policy_kl_target)")
+    parser.add_argument("--device", default=None,
+                        help="torch device; default cuda (raises without "
+                             "CUDA), cpu runs the plain PyTorch path")
+    args = parser.parse_args(argv)
+    for flag, on, item in (
+            ("--dp-devices", args.dp_devices is not None, 10),
+            ("--profile-dir", args.profile_dir is not None, 5),
+            ("--render", args.render, 5),
+            ("--ckpt-format orbax", args.ckpt_format == "orbax", 11)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP §1 item {item})")
+
+    import torch
+    from .. import resolve_device
+    from ..convert import load_checkpoint_pickle
+    from ..physics import nvcc
+    from ..rl.agent_forecast import AgentForecast, warmstart_from_mimic
+    from ..utils.config import EgoForecastConfig
+    from ..utils.log import ScalarWriter, create_logger
+    from .ego_mimic import build_world
+
+    device = resolve_device(args.device)
+    dtype = torch.float64 if args.f64 else torch.float32
+    cfg = EgoForecastConfig(args.cfg, create_dirs=args.iter == 0)
+    if args.min_batch is not None:
+        cfg.min_batch_size = args.min_batch
+    if args.kl_target is not None:
+        cfg.policy_kl_target = args.kl_target
+    if args.episode_len is not None:
+        cfg.env_episode_len = args.episode_len
+    np.random.seed(cfg.seed)
+    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"))
+    tb = ScalarWriter(cfg.tb_dir)
+    if device.type == "cuda":
+        nvcc.build_all()              # nvcc at first use, outside the loop
+
+    spec, model, tables, p, expert, cnn_feat = build_world(
+        cfg, dtype, device, synthetic=args.synthetic)
+    logger.info(f"device: {device}  lanes: {args.batch_lanes}  "
+                f"experts: {tuple(expert.qpos.shape)}")
+    agent = AgentForecast(model, spec, p, tables, expert, cnn_feat, cfg,
+                          batch_lanes=args.batch_lanes, seed=cfg.seed,
+                          dtype=dtype, device=device)
+    if args.iter > 0:
+        cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
+        logger.info("loading model from checkpoint: %s" % cp_path)
+        agent.load(cp_path)
+    elif cfg.ego_mimic_cfg is not None:
+        em_path = "results/egomimic/%s/models/iter_%04d.p" % (
+            cfg.ego_mimic_cfg, cfg.ego_mimic_iter or 0)
+        if os.path.exists(em_path):
+            mimic_cp = load_checkpoint_pickle(em_path)
+            if "params" not in mimic_cp["policy_dict"]:
+                raise NotImplementedError(
+                    f"{em_path} is a reference-format (torch state_dict) "
+                    "checkpoint, which is not ported yet (ROADMAP §1 item "
+                    "4)")
+            copied = warmstart_from_mimic(agent, mimic_cp)
+            logger.info("warm start from ego mimic checkpoint: %s (%s)"
+                        % (em_path, copied))
+        else:
+            logger.info("no ego mimic checkpoint at %s, cold start"
+                        % em_path)
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed)
+    max_iter = args.max_iter if args.max_iter is not None \
+        else cfg.max_iter_num
+    base_p = p
+    for i_iter in range(args.iter, max_iter):
+        cfg.update_adaptive_params(i_iter)
+        agent.set_noise_rate(cfg.adp_noise_rate)
+        agent.set_policy_lr(cfg.adp_policy_lr)
+        if cfg.fix_std:
+            agent.fill_log_std(cfg.adp_log_std)
+        # the episode init noise follows its schedule
+        agent.p = dataclasses.replace(
+            base_p, env_init_noise=float(cfg.adp_init_noise))
+
+        batch, log = agent.sample(generator, cfg.min_batch_size)
+        if cfg.end_reward:
+            agent.end_reward = log.avg_c_reward * cfg.gamma / (1 - cfg.gamma)
+        t0 = time.time()
+        metrics = agent.update_params(batch)   # reads its losses back
+        t_update = time.time() - t0
+
+        info_str = np.array2string(log.avg_c_info,
+                                   formatter={"all": lambda x: "%.4f" % x},
+                                   separator=",")
+        skips = metrics["policy_grad_skips"] + metrics["value_grad_skips"]
+        steps_per_s = log.num_steps / max(log.sample_time, 1e-9)
+        logger.info(
+            "{}\tT_sample {:.2f}\tT_update {:.2f}\tR_avg {:.4f} {}"
+            "\tR_range ({:.4f}, {:.4f})\teps_len_avg {:.2f}"
+            "\tP_loss {:.4f}\tV_loss {:.4f}\tsteps/s {:.0f}{}{}"
+            .format(i_iter, log.sample_time, t_update, log.avg_c_reward,
+                    info_str, log.min_c_reward, log.max_c_reward,
+                    log.avg_episode_len, metrics["policy_loss"],
+                    metrics["value_loss"], steps_per_s,
+                    "\tgrad_skips %d" % skips if skips else "",
+                    "\tkl_stop" if metrics.get("kl_stopped") else ""))
+        tb.scalar("total_reward", log.avg_c_reward, i_iter)
+        tb.scalar("episode_len", log.avg_episode_len, i_iter)
+        tb.scalar("env_steps_per_sec", steps_per_s, i_iter)
+
+        if cfg.save_model_interval > 0 \
+                and (i_iter + 1) % cfg.save_model_interval == 0:
+            cp_path = "%s/iter_%04d.p" % (cfg.model_dir, i_iter + 1)
+            agent.save(cp_path)
+            logger.info("saved checkpoint %s" % cp_path)
+        if iter_hook is not None:
+            iter_hook(i_iter, log, metrics, t_update)
+
+    tb.close()
+    logger.info("training done!")
+    return agent
+
+
+if __name__ == "__main__":
+    main()

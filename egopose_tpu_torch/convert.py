@@ -1,8 +1,9 @@
 """Weights carried across to and from the JAX package.
 
-``params_from_jax`` turns the flax parameter trees of an ego-mimic agent
-(nested dicts of numpy arrays, as the JAX package pickles them) into the
-port's ``state_dict``s; ``params_to_jax`` is its inverse.
+``params_from_jax`` turns the flax parameter trees of an ego-mimic or an
+ego-forecast agent (nested dicts of numpy arrays, as the JAX package
+pickles them) into the port's ``state_dict``s; ``params_to_jax`` is its
+inverse.
 ``load_checkpoint_pickle`` reads the committed
 ``results/egomimic/<cfg>/models/iter_*.p`` without importing the JAX
 package: the one class those pickles reference,
@@ -45,7 +46,7 @@ class _CheckpointUnpickler(pickle.Unpickler):
 
 
 def load_checkpoint_pickle(path: str) -> dict:
-    """Load an ego-mimic checkpoint pickle (our format: flax trees + a
+    """Load an agent's checkpoint pickle (our format: flax trees + a
     RunningStat) with numpy leaves, importing nothing of the JAX package.
     Only load checkpoints this project wrote: unpickling runs code."""
     with open(path, "rb") as f:
@@ -103,19 +104,29 @@ def _mlp(sd, prefix, net):
         _linear(sd, f"{prefix}.layers.{i}", net[f"Dense_{i}"])
 
 
-def _vsnet(tree):
+# the LSTMs of a context net: v_net (both workloads), s_net (forecast's
+# state LSTM); each with a forward cell rnn_f and, bidirectional, rnn_b
+_RNNS, _CELLS = ("v_net", "s_net"), ("rnn_f", "rnn_b")
+
+
+def context_from_jax(tree) -> dict:
+    """A context net's flax tree (VideoStateNet or VideoForecastNet) ->
+    its state_dict."""
     sd = {}
-    v_net = _params(tree)["v_net"]
-    for cell in ("rnn_f", "rnn_b"):
-        if cell in v_net:
-            for gate in ("ih", "hh"):
-                _linear(sd, f"v_net.{cell}.{gate}", v_net[cell][gate])
+    params = _params(tree)
+    for rnn in _RNNS:
+        for cell in _CELLS:
+            if cell in params.get(rnn, {}):
+                for gate in ("ih", "hh"):
+                    _linear(sd, f"{rnn}.{cell}.{gate}",
+                            params[rnn][cell][gate])
     return sd
 
 
 def params_from_jax(policy, policy_vs, value, value_vs):
-    """flax trees of (PolicyGaussian, VideoStateNet, Value, VideoStateNet)
-    -> the port's state_dicts in the same order."""
+    """flax trees of (PolicyGaussian, context net, Value, context net) ->
+    the port's state_dicts in the same order; a context net is a
+    VideoStateNet or a VideoForecastNet."""
     p = _params(policy)
     sd_p = {}
     _mlp(sd_p, "net", p["net"])
@@ -125,7 +136,7 @@ def params_from_jax(policy, policy_vs, value, value_vs):
     sd_v = {}
     _mlp(sd_v, "net", v["net"])
     _linear(sd_v, "value_head", v["value_head"])
-    return sd_p, _vsnet(policy_vs), sd_v, _vsnet(value_vs)
+    return sd_p, context_from_jax(policy_vs), sd_v, context_from_jax(value_vs)
 
 
 def _np(t):
@@ -145,23 +156,26 @@ def _mlp_tree(sd, prefix):
             for i in range(n)}
 
 
-def _vsnet_tree(sd):
-    v_net = {}
-    for cell in ("rnn_f", "rnn_b"):
-        if f"v_net.{cell}.ih.weight" in sd:
-            v_net[cell] = {gate: _dense(sd, f"v_net.{cell}.{gate}")
-                           for gate in ("ih", "hh")}
-    return {"params": {"v_net": v_net}}
+def context_to_jax(sd: dict) -> dict:
+    """A context net's state_dict -> its flax variable tree."""
+    tree = {}
+    for rnn in _RNNS:
+        cells = {cell: {gate: _dense(sd, f"{rnn}.{cell}.{gate}")
+                        for gate in ("ih", "hh")}
+                 for cell in _CELLS if f"{rnn}.{cell}.ih.weight" in sd}
+        if cells:
+            tree[rnn] = cells
+    return {"params": tree}
 
 
 def params_to_jax(policy, policy_vs, value, value_vs):
-    """The port's state_dicts of (PolicyGaussian, VideoStateNet, Value,
-    VideoStateNet) -> flax variable trees of numpy arrays in the same
-    order (the inverse of params_from_jax)."""
+    """The port's state_dicts of (PolicyGaussian, context net, Value,
+    context net) -> flax variable trees of numpy arrays in the same order
+    (the inverse of params_from_jax)."""
     pol = {"net": _mlp_tree(policy, "net"),
            "action_mean": _dense(policy, "action_mean"),
            "action_log_std": _np(policy["action_log_std"])}
     val = {"net": _mlp_tree(value, "net"),
            "value_head": _dense(value, "value_head")}
-    return ({"params": pol}, _vsnet_tree(policy_vs), {"params": val},
-            _vsnet_tree(value_vs))
+    return ({"params": pol}, context_to_jax(policy_vs), {"params": val},
+            context_to_jax(value_vs))

@@ -176,13 +176,22 @@ def _end_bonus(is_end, end_reward, dtype):
     return is_end.to(dtype) * end_reward
 
 
+def expert_frame(expert: ExpertBatch, state: EnvState) -> torch.Tensor:
+    """The expert frame of each lane's current step, start_ind + cur_t,
+    clamped to the stacked takes' last frame as the JAX env's gathers
+    clamp it (a forecast window that ends at its take's end reads it at
+    its last step)."""
+    return torch.clamp(state.start_ind + state.cur_t,
+                       max=expert.qpos.shape[1] - 1)
+
+
 def quat_space_reward_v3(p: EnvParams, expert: ExpertBatch, state: EnvState,
                          cur_ee, dt, end_reward, is_end):
     """Weighted product-of-exponential-kernels imitation reward
     (reward_function.py:4-60)."""
     w_p, w_v, w_e, w_rp, w_rv = p.w
     k_p, k_v, k_e, k_rh, k_rq, k_rl, k_ra = p.k
-    ind = state.start_ind + state.cur_t
+    ind = expert_frame(expert, state)
     e = state.expert_ind
 
     cur_qpos = state.qpos
@@ -230,7 +239,7 @@ def constant_reward(p, expert, state, cur_ee, dt, end_reward, is_end):
 
 
 def pose_dist_reward(p, expert, state, cur_ee, dt, end_reward, is_end):
-    ind = state.start_ind + state.cur_t
+    ind = expert_frame(expert, state)
     diff = expert.qpos[state.expert_ind, ind] - state.qpos
     pose_dist = torch.linalg.vector_norm(diff[:, 2:], dim=-1)
     r = 5.0 - 3.0 * pose_dist + _end_bonus(is_end, end_reward,
@@ -384,3 +393,28 @@ def finish_step(model: PhysicsModel, p: EnvParams, tables: BodyTables,
 def observe(p: EnvParams, state: EnvState) -> torch.Tensor:
     """Observation of the current state (used after reset)."""
     return get_obs(p, state.qpos, state.qvel, state.cur_t)
+
+
+def select_state(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+    """Per-lane choice between two EnvStates: ``a`` where ``mask``."""
+    return type(a)(*[torch.where(
+        mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y)
+        for x, y in zip(a, b)])
+
+
+def step_autoreset(model: PhysicsModel, p: EnvParams, tables: BodyTables,
+                   expert: ExpertBatch, state: EnvState, action: torch.Tensor,
+                   reset_draw, end_reward=0.0):
+    """step plus a masked reset: a lane whose previous step ended its
+    episode (``state.done``) starts a new one from ``reset_draw`` (the
+    draws of ``draw_reset``) instead of stepping, and yields no transition
+    (reward 0, done False).  Returns (state, StepOut, the reset mask)."""
+    fresh = reset_from(model, p, tables, expert, *reset_draw)
+    stepped, out = step(model, p, tables, expert, state, action, end_reward)
+    was_done = state.done
+    out = out._replace(
+        obs=torch.where(was_done[:, None], observe(p, fresh), out.obs),
+        reward=torch.where(was_done, torch.zeros_like(out.reward),
+                           out.reward),
+        done=out.done & ~was_done)
+    return select_state(was_done, fresh, stepped), out, was_done

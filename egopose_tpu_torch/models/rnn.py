@@ -1,6 +1,7 @@
 """LSTM (counterpart of egopose_tpu/models/rnn.py, LSTM path): a
 torch.nn.LSTMCell-compatible cell with gates ordered (i, f, g, o), run over
-time in batch mode, optionally bidirectional."""
+time in batch mode, optionally bidirectional, or one step at a time with
+an explicit carry (step mode)."""
 from __future__ import annotations
 
 import torch
@@ -51,3 +52,7 @@ class RNN(nn.Module):
             return out_f
         return torch.cat([out_f, self.scan_dir(self.rnn_b, x, reverse=True)],
                          -1)
+
+    def step(self, carry, x: torch.Tensor):
+        """One forward-cell step: (carry, (B, D)) -> (carry, (B, out))."""
+        return self.rnn_f(carry, x)

@@ -27,6 +27,12 @@ class VideoStateNet(nn.Module):
         out = self.v_net(windows.transpose(0, 1)).transpose(0, 1)
         return out[:, self.v_margin:-self.v_margin]
 
+    def context(self, windows: torch.Tensor,
+                states: torch.Tensor) -> torch.Tensor:
+        """Network input (T, B, v_hdim + obs): each step's context from the
+        lane's window, joined with the recorded states."""
+        return torch.cat([self(windows).transpose(0, 1), states], -1)
+
     def causal_encode(self, feats: torch.Tensor) -> torch.Tensor:
         """Online-inference context: at step t the net sees video up to
         frame t + 2*v_margin.  The forward pass is the full pass; the

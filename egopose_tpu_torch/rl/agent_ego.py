@@ -51,22 +51,13 @@ class AgentEgo:
         self.end_reward = 0.0
         self.noise_rate = 1.0
         obs_dim = params.obs_dim
-        cnn_fdim = self.cnn_feat.shape[-1]
         # fresh weights come from a seeded generator without touching the
         # caller's global random state
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.policy_net = PolicyGaussian(
-                obs_dim + cfg.policy_v_hdim, spec.nu, cfg.policy_hsize,
-                cfg.policy_htype, cfg.log_std, cfg.fix_std)
-            self.value_net = Value(obs_dim + cfg.value_v_hdim,
-                                   cfg.value_hsize, cfg.value_htype)
-            self.policy_vs_net = VideoStateNet(
-                cnn_fdim, cfg.policy_v_hdim, cfg.fr_margin,
-                cfg.policy_v_net, cfg.causal)
-            self.value_vs_net = VideoStateNet(
-                cnn_fdim, cfg.value_v_hdim, cfg.fr_margin, cfg.value_v_net,
-                cfg.causal)
+            (self.policy_net, self.value_net, self.policy_vs_net,
+             self.value_vs_net) = self._make_nets(
+                obs_dim, self.cnn_feat.shape[-1], spec.nu, cfg)
         for net in self.nets:
             net.to(device=self.device, dtype=dtype).eval()
         self.zstat = running_norm.init_stat(obs_dim, dtype, self.device)
@@ -92,6 +83,20 @@ class AgentEgo:
             self.mini_batch_lanes = max(1, int(mbs) // params.env_episode_len)
         self.update_generator = torch.Generator(device=self.device)
         self.update_generator.manual_seed(seed + 17)
+
+    @staticmethod
+    def _make_nets(obs_dim, cnn_fdim, nu, cfg):
+        """(policy, value, policy context, value context) nets with fresh
+        weights, made in this order."""
+        return (PolicyGaussian(obs_dim + cfg.policy_v_hdim, nu,
+                               cfg.policy_hsize, cfg.policy_htype,
+                               cfg.log_std, cfg.fix_std),
+                Value(obs_dim + cfg.value_v_hdim, cfg.value_hsize,
+                      cfg.value_htype),
+                VideoStateNet(cnn_fdim, cfg.policy_v_hdim, cfg.fr_margin,
+                              cfg.policy_v_net, cfg.causal),
+                VideoStateNet(cnn_fdim, cfg.value_v_hdim, cfg.fr_margin,
+                              cfg.value_v_net, cfg.causal))
 
     @property
     def nets(self):
@@ -122,10 +127,7 @@ class AgentEgo:
             noise = rollout.draw_segment_noise(
                 self.p, self.expert, self.batch_lanes, self.noise_rate,
                 generator)
-            seg, self.zstat = rollout.rollout_segment(
-                self.model, self.p, self.tables, self.expert, self.cnn_feat,
-                self.policy_net, self.policy_vs_net, self.zstat, noise,
-                mean_action, self.end_reward)
+            seg, self.zstat = self._rollout(noise, mean_action)
             segs.append(seg)
         batch = rollout.SegmentBatch(*[
             torch.cat(xs, 1 if xs[0].dim() > 1 else 0)
@@ -133,6 +135,13 @@ class AgentEgo:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return batch, self._make_log(batch, time.time() - t0)
+
+    def _rollout(self, noise, mean_action):
+        """One segment from ``noise``: (SegmentBatch, new zstat)."""
+        return rollout.rollout_segment(
+            self.model, self.p, self.tables, self.expert, self.cnn_feat,
+            self.policy_net, self.policy_vs_net, self.zstat, noise,
+            mean_action, self.end_reward)
 
     def _make_log(self, batch, dt):
         valid = batch.valids.double().cpu().numpy()
@@ -161,11 +170,8 @@ class AgentEgo:
             raise NotImplementedError(
                 f"policy_objective {objective!r} is not ported yet (ROADMAP "
                 "§1 item 9: the a2c objective and TRPO)")
-        windows = rollout.gather_windows(
-            self.cnn_feat, batch.expert_ind, batch.start_ind,
-            self.p.fr_margin, self.p.env_episode_len)
         _, metrics = ppo.ppo_update(
-            self.train_state, self.hyper, batch, windows,
+            self.train_state, self.hyper, batch, self._windows(batch),
             mini_batch_lanes=self.mini_batch_lanes,
             generator=self.update_generator)
         out = {k: float(v) for k, v in metrics.items()}
@@ -174,6 +180,12 @@ class AgentEgo:
             opt = getattr(self.train_state, "opt_" + name)
             out[f"{name}_grad_skips"] = int(opt.total_notfinite)
         return out
+
+    def _windows(self, batch):
+        """The context nets' video windows of a batch's lanes."""
+        return rollout.gather_windows(
+            self.cnn_feat, batch.expert_ind, batch.start_ind,
+            self.p.fr_margin, self.p.env_episode_len)
 
     # -- checkpoints ----------------------------------------------------------
     def checkpoint(self) -> dict:
@@ -199,8 +211,8 @@ class AgentEgo:
         if "params" not in cp["policy_dict"]:
             raise NotImplementedError(
                 "reference-format (torch state_dict) checkpoints are not "
-                "ported; load a checkpoint written by egopose_tpu or "
-                "egopose_tpu_torch")
+                "ported yet (ROADMAP §1 item 4); load a checkpoint written "
+                "by egopose_tpu or egopose_tpu_torch")
         sds = params_from_jax(cp["policy_dict"], cp["policy_vs_dict"],
                               cp["value_dict"], cp["value_vs_dict"])
         for net, sd in zip(self.nets, sds):

@@ -8,6 +8,10 @@ Semantics, as in the JAX package:
 - the policy optimizer covers the policy and its video-context net, with a
   global-norm clip at 40; the context nets are re-run inside each loss so
   their parameters receive gradients;
+- each net's input is its context net's ``context(windows, states)``
+  (the JAX package's ``*_ctx_apply``): per-step video context joined with
+  the states for ego-mimic, the episode's past-video context joined with
+  the state LSTM's unroll for ego-forecast;
 - the optional ``kl_target`` stop (Schulman's KL3 estimate against the
   sampling policy, decided before each policy step): once it trips, the
   remaining policy steps change neither the parameters nor the optimizer
@@ -137,18 +141,12 @@ def make_optimizers(policy_params, value_params, policy_lr, value_lr,
             Adam(value_params, value_lr, weight_decay=value_weight_decay))
 
 
-def _ctx(vs_net, windows, states):
-    """Network input (T,B,v_hdim+obs) from the context of each lane's
-    window and the recorded states."""
-    return torch.cat([vs_net(windows).transpose(0, 1), states], -1)
-
-
 def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
                windows: torch.Tensor, mini_batch_lanes: int = 0, perms=None,
                generator: torch.Generator | None = None):
     """Run ``hyper.num_epochs`` PPO epochs on one sampled batch (time-major
-    (T,B,...) tensors; windows (B,W,feat)), updating ``ts``'s nets and
-    optimizers in place.
+    (T,B,...) tensors; windows (B,W,feat), the input of the context nets'
+    ``context``), updating ``ts``'s nets and optimizers in place.
 
     ``mini_batch_lanes`` in (0, B): the minibatch path; ``perms`` (epochs,
     n_mb * mini_batch_lanes) gives each epoch's lane order, else it is drawn
@@ -157,11 +155,11 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
     valid = batch.valids
 
     def policy_logprob(states, win, actions):
-        mean, log_std = ts.policy(_ctx(ts.policy_vs, win, states))
+        mean, log_std = ts.policy(ts.policy_vs.context(win, states))
         return diag_gaussian_log_prob(actions, mean, log_std)
 
     def values_of(states, win):
-        return ts.value(_ctx(ts.value_vs, win, states))
+        return ts.value(ts.value_vs.context(win, states))
 
     with torch.no_grad():
         fixed_log_probs = policy_logprob(batch.states, windows,

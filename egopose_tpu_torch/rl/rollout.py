@@ -75,20 +75,20 @@ def gather_windows(cnn_feat: torch.Tensor, expert_ind: torch.Tensor,
     negative start counts from the take's end, and a window that would
     leave the take is shifted back inside.  (Resets draw start_ind >=
     margin, so the rollout's windows never need either.)"""
-    w = ep_len + 2 * margin
+    return slice_windows(cnn_feat, expert_ind, start_ind - margin,
+                         ep_len + 2 * margin)
+
+
+def slice_windows(cnn_feat: torch.Tensor, expert_ind: torch.Tensor,
+                  start: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-lane frames [start, start+width) of each lane's take (N, width,
+    feat), as jax.lax.dynamic_slice_in_dim slices: a negative start counts
+    from the take's end, then the window is clamped inside the take."""
     t_max = cnn_feat.shape[1]
-    start = start_ind - margin
     start = torch.clamp(torch.where(start < 0, start + t_max, start), 0,
-                        t_max - w)
-    idx = start[:, None] + torch.arange(w, device=cnn_feat.device)
+                        t_max - width)
+    idx = start[:, None] + torch.arange(width, device=cnn_feat.device)
     return cnn_feat[expert_ind[:, None], idx]
-
-
-def _select(mask, a, b):
-    """Per-lane choice between two EnvStates."""
-    return type(a)(*[torch.where(
-        mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y)
-        for x, y in zip(a, b)])
 
 
 def rollout_segment(model, p: envs.EnvParams, tables, expert: envs.ExpertBatch,
@@ -137,8 +137,8 @@ def rollout_segment(model, p: envs.EnvParams, tables, expert: envs.ExpertBatch,
             new_st, out = envs.step(model, p, tables, expert, st, action,
                                     end_reward)
             trigger = out.done if p.random_cur_t else out.fail
-            new_st = _select(trigger, reanchor(new_st, noise.anchor_noise[t]),
-                             new_st)
+            new_st = envs.select_state(
+                trigger, reanchor(new_st, noise.anchor_noise[t]), new_st)
             next_obs = torch.where(trigger[:, None], envs.observe(p, new_st),
                                    out.obs)
             zstat = running_norm.push_batch(zstat, next_obs)

@@ -1,5 +1,5 @@
-"""YAML config for the ego-mimic workload (counterpart of
-egopose_tpu/utils/config.py): the same schema, results-directory contract
+"""YAML config for the ego-mimic and ego-forecast workloads (counterpart of
+egopose_tpu/utils/config.py): the same schemas, results-directory contract
 and adaptive schedules, plus ``make_env_params`` which compiles the
 env-relevant subset into the port's EnvParams."""
 from __future__ import annotations
@@ -196,6 +196,38 @@ class EgoMimicConfig(ConfigBase):
                                             self.adp_log_std_cp, i_iter)
         self.adp_policy_lr = _interp_schedule(self.adp_iter_cp,
                                               self.adp_policy_lr_cp, i_iter)
+
+
+class EgoForecastConfig(EgoMimicConfig):
+    """The ego-forecast schema (egoforecast_config.py:7-138): the ego-mimic
+    keys plus the warm-start source, the state nets, the end-reward flag
+    and the adaptive init-noise schedule."""
+
+    workload = "egoforecast"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        g = self._cfg.get
+        self.ego_mimic_cfg = g("ego_mimic_cfg")
+        self.ego_mimic_iter = g("ego_mimic_iter")
+        self.fr_margin = g("fr_margin", 30)
+        self.policy_s_net = g("policy_s_net", "id")
+        self.policy_s_hdim = g("policy_s_hdim", None)
+        self.policy_dyn_v = g("policy_dyn_v", False)
+        self.value_s_net = g("value_s_net", "id")
+        self.value_s_hdim = g("value_s_hdim", None)
+        self.value_dyn_v = g("value_dyn_v", False)
+        self.end_reward = g("end_reward", True)
+        n = self.adp_iter_cp.size
+        v = np.array(g("adp_init_noise_cp", [self.env_init_noise]),
+                     dtype=float)
+        self.adp_init_noise_cp = np.pad(v, (0, n - v.size), "edge")
+        self.adp_init_noise = None
+
+    def update_adaptive_params(self, i_iter):
+        super().update_adaptive_params(i_iter)
+        self.adp_init_noise = _interp_schedule(self.adp_iter_cp,
+                                               self.adp_init_noise_cp, i_iter)
 
 
 def apply_model_params(spec: ModelSpec, cfg) -> ModelSpec:
