@@ -44,7 +44,8 @@ any failure exits non-zero:
                launch per step, num_reset <= 3, every take's average
                reward >= 0.80, pose_dist <= 0.50, all finite; times the
                steady-state steps WINDOW
-  eval_profile the same eval again under torch.profiler, recording only
+  eval_profile the same eval again under torch.profiler, its takes cut
+               to the window's end (180 frames, 160 steps), recording only
                the steps WINDOW: device time by kernel, kernels launched
                per step, device busy share of the window's wall time
   k2_vs_plain  the SPD-solve kernel against torch.cholesky_solve on the
@@ -66,7 +67,8 @@ any failure exits non-zero:
                (0, 1], iter_0002.p written and loaded back into AgentEgo with
                equal weights; T_sample, T_update, env-steps/s
   train_torque the same CLI with action_type: torque in a scratch copy of
-               the config, --episode-len 20 --max-iter 1 (3 segments):
+               the config, --episode-len 20 --min-batch 20480 --max-iter 1
+               (one segment):
                K2 launches == 15 x control steps, K1 launches == 0, finite
   k3_vs_plain  the fused contact-solve kernel (K3) against its plain
                version on the torque path's systems at contact-rich states
@@ -147,11 +149,50 @@ any failure exits non-zero:
   forecast_stats
                eval_forecast --mode stats on both pickles: horizon-30 and
                horizon-90 pose, velocity and acceleration metrics, finite
+  statereg_train
+               state_reg --mode train --synthetic at the shipped
+               config/statereg/subject_03.yml widths (ResNet-18, bi-LSTM
+               v_hdim 128, cnn_fdim 128, MLP 300/200, chunks of 120 + 30
+               frames, 4 chunks a step) on the 224x224 synthetic flow, 4
+               takes x 240 frames (2 steps an epoch), 4 epochs (depth cut
+               from 100), in a scratch directory: finite losses, a loss
+               that falls, the checkpoint written; frames/s per epoch, ms
+               a step, peak device memory, and one step split by section,
+               each in its own torch.profiler session (host batch
+               assembly, host->device copy, CNN forward, temporal net
+               forward, its backward, CNN backward, Adam); every statereg
+               phase runs it first
+  statereg_test
+               state_reg --mode test on that checkpoint (every take, the
+               per-take trajectory assembly): 4 takes, finite; the first
+               take's predictions on the card (f32) against the port's
+               CPU f64 run of the same checkpoint within 1e-4 relative RMS
+               (STATEREG_TOL)
+  gen_cnn_feature
+               gen_cnn_feature over the 4 takes in batches of 256 frames:
+               frames/s, (240, 128) features a take, the first batch
+               against the CPU f64 CNN within 1e-4 relative RMS
+  statereg_eval
+               the same statereg config at cnn_fdim 64 (the synthetic
+               ego-mimic world's feature width) trained 4 epochs and saved
+               with save_inf, then ego_mimic_eval --cfg subject_03
+               --synthetic --iter 3000 re-anchored on it (state_net_cfg /
+               state_net_iter): one K1 launch a step and no other kernel,
+               the state net's predictions on the card against its CPU f64
+               run on the same features within 1e-4 relative RMS, the
+               first control step against the plain f64 step on its
+               inputs within K1's f32 bar; frames/s, num_reset and
+               pose_dist printed, not gated
+  statereg_variants
+               one training step each of cnn_type mobile and of v_net tcn
+               (non-causal and causal) at the same widths on
+               statereg_train's first batch: finite losses
   kernels      every kernel of the port with its TPU counterpart (K1's
                two branches on two rows), launches on the main paths (eval
                + train + train_torque + the three one-step phases + the
-               three rollouts + forecast_train + forecast_eval), error
-               against the plain version and times
+               three rollouts + forecast_train + forecast_eval +
+               statereg_eval), error against the plain version and
+               times
 
 With ``--only a,b`` only the phases named run (the device and build
 phases always do).  ``--ab DIR`` instead times every kernel of the
@@ -795,7 +836,9 @@ def phase_eval_profile(device, step_ms=None):
     from egopose_tpu_torch.cli import ego_mimic_eval
     lo, hi = WINDOW
     saved, marks = [], []
-    with eval_workdir():
+    # takes cut to hi + 2 * fr_margin frames, so the eval stops at the
+    # window's end (PR 9: the steps after it were run and not recorded)
+    with eval_workdir({"EGOPOSE_SYNTHETIC_LEN": str(hi + 20)}):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=lo - 5, warmup=5,
@@ -1448,14 +1491,16 @@ def phase_train(device):
 def phase_train_torque(device):
     """Torque-mode PPO (action_type: torque): every control step is 15
     substeps of step_raw, each one K2 launch over the 1024 lanes; the
-    episode cut to 20 steps."""
+    episode cut to 20 steps and the iteration to one segment of them
+    (--min-batch 20480; PR 9 cut it from the shipped min batch's 3
+    segments to make room for the statereg phases)."""
     lanes, ep_len = 1024, 20
-    with train_workdir(action_type="torque") as cfg:
+    with train_workdir(action_type="torque"):
         _, iters, k1, k2, wall = run_train(
             device, ["--batch-lanes", str(lanes), "--episode-len",
-                     str(ep_len), "--max-iter", "1"])
-    n_seg = -(-cfg["min_batch_size"] // (lanes * ep_len))
-    steps = n_seg * ep_len
+                     str(ep_len), "--min-batch", str(lanes * ep_len),
+                     "--max-iter", "1"])
+    steps = ep_len
     rec = dict(lanes=lanes, episode_len=ep_len, iters=iters,
                control_steps=steps, k1_launches=k1, k2_launches=k2,
                wall_s=wall)
@@ -1718,13 +1763,11 @@ def run_forecast_eval(device, extra=(), f64=False):
     return results, meta, first, read_counts()
 
 
-def forecast_step_inputs(first, dtype, device):
-    """(model, qpos, qvel, ctrl, jkp, jkd, torque_lim) of the eval's first
-    control step (``first``: first_step_hook's record) in ``dtype`` on
-    ``device``, with the forecast config's gains."""
+def step_inputs(first, cfg, dtype, device):
+    """(model, qpos, qvel, ctrl, jkp, jkd, torque_lim) of an eval's first
+    control step (``first``: its qpos, qvel and action, then the step's
+    output) in ``dtype`` on ``device``, with the gains of ``cfg``."""
     import torch
-    from egopose_tpu_torch.utils.config import EgoForecastConfig
-    cfg = EgoForecastConfig(FORECAST)
     q, v, action = [x.to(device=device, dtype=dtype) for x in first[:3]]
     lane = lambda x: torch.as_tensor(np.asarray(x, np.float64)).to(
         device=device, dtype=dtype).expand(q.shape[0], -1).contiguous()
@@ -1733,12 +1776,19 @@ def forecast_step_inputs(first, dtype, device):
             lane(cfg.jkd), lane(cfg.torque_lim))
 
 
-def first_step_vs_plain(first):
-    """(ok, record) of the card's first control step of the eval (K1 over
-    every window) against the plain split path on the CPU from the same
+def forecast_step_inputs(first, dtype, device):
+    """step_inputs with the forecast config's gains."""
+    from egopose_tpu_torch.utils.config import EgoForecastConfig
+    return step_inputs(first, EgoForecastConfig(FORECAST), dtype, device)
+
+
+def first_step_vs_plain(first, inputs=forecast_step_inputs):
+    """(ok, record) of the card's first control step of an eval (K1 over
+    every lane) against the plain split path on the CPU from the same
     qpos, qvel and action, in f64 (K1's f32 RMS bar: qpos <= 1e-6, qvel
-    <= 1e-4).  Where it misses and the plain f32 step misses too against
-    the f64 one, the card is held to the bar against the plain f32 step
+    <= 1e-4); ``inputs(first, dtype, device)`` builds the step's inputs.
+    Where it misses and the plain f32 step misses too against the f64
+    one, the card is held to the bar against the plain f32 step
     (decided_by)."""
     import torch
     from egopose_tpu_torch.physics import engine
@@ -1746,8 +1796,7 @@ def first_step_vs_plain(first):
 
     def plain(dtype):
         return engine.pd_control_step_split(
-            *forecast_step_inputs(first, dtype, "cpu"), N_FRAMES,
-            engine.DEFAULT_CONTACT)
+            *inputs(first, dtype, "cpu"), N_FRAMES, engine.DEFAULT_CONTACT)
     ref = plain(torch.float64)
     ok, rec = k1_bars(torch.float32, (qk, vk), ref)
     rec["decided_by"] = "plain_f64"
@@ -1876,6 +1925,473 @@ def phase_forecast_stats():
     return out
 
 
+# ---------------------------------------------------------------------------
+# State regression: the shipped config/statereg/subject_03.yml widths
+# ---------------------------------------------------------------------------
+
+STATEREG = "subject_03"
+# The re-anchoring state net of phase statereg_eval: the same config with
+# cnn_fdim 64, the width of the synthetic ego-mimic world's CNN features,
+# which the committed iter_3000.p's context nets read (the state net runs
+# over the same features as the policy).
+STATEREG_EVAL = "subject_03_eval"
+STATEREG_EPOCHS = 4           # depth cut from the shipped 100
+STATEREG_SYN = {"EGOPOSE_SYN_RES": "224", "EGOPOSE_SYN_TAKES": "4",
+                "EGOPOSE_SYN_LEN": "240"}
+# Relative RMS bar of the card's float32 state-regression outputs against
+# the port's CPU float64 run of the same checkpoint and inputs: TF32 is
+# off, so each float32 convolution or matmul rounds at ~6e-8 per term,
+# ~sqrt(4608) * 6e-8 ~ 4e-6 relative for a 3x3x512 convolution, compounded
+# over ResNet-18's 20 weighted layers and the LSTM (~2e-5); the bar is 5x
+# that.
+STATEREG_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def statereg_workdir():
+    """A scratch working directory for the statereg CLIs and the
+    re-anchored eval: config/statereg/subject_03.yml as shipped (a
+    checkpoint after STATEREG_EPOCHS epochs), its cnn_fdim-64 copy
+    STATEREG_EVAL, config/egomimic/subject_03.yml re-anchored on that
+    net's iter_%04d_inf.p, the committed mimic models; the synthetic flow
+    at 224x224, 4 takes x 240 frames (STATEREG_SYN)."""
+    import yaml
+    saved = {k: os.environ.get(k) for k in STATEREG_SYN}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        sr = yaml.safe_load(open(os.path.join(REPO, "config", "statereg",
+                                              STATEREG + ".yml")))
+        sr["save_model_interval"] = STATEREG_EPOCHS
+        os.makedirs(os.path.join(tmp, "config", "statereg"))
+        os.makedirs(os.path.join(tmp, "config", "egomimic"))
+        for name, cfg in ((STATEREG, sr),
+                          (STATEREG_EVAL, dict(sr, cnn_fdim=64))):
+            with open(os.path.join(tmp, "config", "statereg",
+                                   name + ".yml"), "w") as f:
+                yaml.safe_dump(cfg, f)
+        em = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
+                                              "subject_03.yml")))
+        em.update(state_net_cfg=STATEREG_EVAL,
+                  state_net_iter=STATEREG_EPOCHS)
+        with open(os.path.join(tmp, "config", "egomimic", "subject_03.yml"),
+                  "w") as f:
+            yaml.safe_dump(em, f)
+        models = os.path.join(tmp, "results", "egomimic", "subject_03")
+        os.makedirs(models)
+        os.symlink(os.path.join(REPO, "results", "egomimic", "subject_03",
+                                "models"), os.path.join(models, "models"))
+        os.environ.update(STATEREG_SYN)
+        os.chdir(tmp)
+        try:
+            yield sr
+        finally:
+            os.chdir(cwd)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+
+class SectionProfiler:
+    """Runs each section of a step in a torch.profiler session of its own:
+    ``mark(name)`` waits for the card, closes the running session as
+    section ``name`` (its device time: kernels and copies; its host wall
+    time; its kernel count) and opens the next."""
+
+    def __init__(self):
+        self.out = {}
+        self._open()
+
+    def _open(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def _close(self):
+        import torch
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        dtime = lambda e: getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0))
+        dev = [e for e in self.prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return dict(device_ms=sum(dtime(e) for e in dev) / 1e3,
+                    wall_ms=wall * 1e3, kernels=sum(e.count for e in dev))
+
+    def mark(self, name):
+        self.out[name] = self._close()
+        self._open()
+
+    def close(self):
+        self._close()
+        return self.out
+
+
+def statereg_step_split(net, dataset, cfg, device):
+    """One training step of the trained net on the epoch's first batch,
+    each section in its own profiler session (SectionProfiler): the host's
+    batch assembly, the host->device copy, the CNN's forward, the temporal
+    net's (the LSTM's unroll, with the MLP head and the loss) forward and
+    backward, the CNN's backward and the Adam update."""
+    import torch
+    from egopose_tpu_torch.cli.state_reg import (host_batches, to_device,
+                                                 train_step)
+    opt = torch.optim.Adam(net.parameters(), lr=cfg["lr"])
+    batches = host_batches(dataset, 4, cfg["fr_margin"], dataset.traj_dim,
+                           np.float32, np.float32, pin=True)
+    torch.cuda.synchronize()
+    split = SectionProfiler()
+    batch = next(batches)
+    split.mark("host_batch_assembly")
+    of, gt, mask, frames = to_device(batch, device)
+    split.mark("host_to_device_copy")
+    loss = train_step(net, opt, of, gt, mask, cfg["fr_margin"],
+                      torch.float32, marks=split.mark)
+    out = split.close()
+    total = sum(r["wall_ms"] for r in out.values())
+    # the CNN's forward operations a frame (torch's flop counter: 2 per
+    # multiply-add of every convolution and matmul), and the rate the
+    # section's device time gives them
+    from torch.utils.flop_counter import FlopCounterMode
+    net.eval()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        net.cnn_feature(torch.zeros((1,) + frame_shape(dataset),
+                                    device=device))
+    flops = counter.get_total_flops()
+    fwd = out["cnn_forward"]
+    fwd["flops"] = flops * of.shape[0] * of.shape[1]
+    fwd["tflop_per_s"] = fwd["flops"] / fwd["device_ms"] / 1e9 \
+        if fwd["device_ms"] else None
+    return dict(sections=out, step_wall_ms=total, cnn_flops_per_frame=flops,
+                step_device_ms=sum(r["device_ms"] for r in out.values()),
+                frames=int(of.shape[0] * of.shape[1]),
+                loss=float(loss))
+
+
+def phase_statereg_train(device, cfg):
+    """state_reg --mode train --synthetic at the shipped widths (ResNet-18,
+    bi-LSTM v_hdim 128, cnn_fdim 128, MLP 300/200, chunks of 120 frames
+    with 10 frames of margin, 4 chunks a step) on the 224x224 synthetic
+    flow, 4 takes x 240 frames (8 chunks, 2 steps an epoch), for
+    STATEREG_EPOCHS epochs: finite losses, a loss that falls, the
+    checkpoint written; frames/s per epoch, ms a step, peak device memory,
+    and the profiler's split of one step."""
+    import torch
+    from egopose_tpu_torch.cli import state_reg
+    epochs = []
+    hook = lambda e, dt, n, loss, steps: epochs.append(dict(
+        epoch=e, seconds=dt, frames=n, frames_per_s=n / dt, loss=loss,
+        steps=steps))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    net, dataset = state_reg.main(
+        ["--cfg", STATEREG, "--mode", "train", "--synthetic", "--max-epoch",
+         str(STATEREG_EPOCHS), "--device", str(device)], epoch_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_epoch = epochs[-1]["steps"]
+    # ms a step past the first epoch (cuDNN's first calls, the allocator)
+    step_ms = [e["seconds"] * 1e3 / per_epoch for e in epochs[1:]]
+    split = statereg_step_split(net, dataset, cfg, device)
+    losses = [e["loss"] for e in epochs]
+    saved = os.path.exists(os.path.join(
+        "results", "statereg", STATEREG, "models",
+        "iter_%04d.p" % STATEREG_EPOCHS))
+    rec = dict(epochs=epochs, steps_per_epoch=per_epoch, step_ms=step_ms,
+               peak_memory_gib=peak, wall_s=wall, step_split=split,
+               checkpoint_written=saved)
+    ok = bool(np.isfinite(losses).all() and losses[-1] < losses[0]
+              and per_epoch == 2 and saved and np.isfinite(split["loss"]))
+    emit("statereg_train", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"statereg_train out of bounds: {rec}")
+    return net, dataset
+
+
+def frame_shape(dataset):
+    """(H, W, 3): the CNN's frames of a statereg dataset's flow."""
+    return dataset.load_of(0, 0, 1).shape[1:3] + (3,)
+
+
+def rel_rms(got, want):
+    import torch
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt())
+
+
+def take_predictions(device, dtype):
+    """The statereg checkpoint's normalised predictions over the first
+    synthetic take (its two chunks, each padded to fr_num + 30 frames, as
+    test mode runs them), on ``device`` in ``dtype``.  The first take's
+    flow, trajectory and normalisation do not depend on the take count,
+    so one take is generated."""
+    import torch
+    from egopose_tpu_torch.cli.state_reg import (load_state_net, make_net,
+                                                 pad_flow_channels,
+                                                 prepare_of)
+    from egopose_tpu_torch.data.dataset import Dataset
+    from egopose_tpu_torch.utils.config import StateRegConfig
+    cfg = StateRegConfig(STATEREG)
+    saved = os.environ["EGOPOSE_SYN_TAKES"]
+    os.environ["EGOPOSE_SYN_TAKES"] = "1"
+    try:
+        ds = Dataset(cfg.meta_id, "test", cfg.fr_num, "iter", False,
+                     2 * cfg.fr_margin, synthetic=True, seed=cfg.seed)
+    finally:
+        os.environ["EGOPOSE_SYN_TAKES"] = saved
+    sd, meta = load_state_net(cfg, os.path.join(
+        cfg.model_dir, "iter_%04d.p" % STATEREG_EPOCHS), no_cnn=False)
+    ds.set_mean_std(meta["mean"], meta["std"])
+    net = make_net(cfg, ds.traj_dim, False, frame_shape(ds), cfg.seed).to(
+        device=device, dtype=dtype)
+    net.load_state_dict(sd)
+    net.eval()
+    m, preds = cfg.fr_margin, []
+    with torch.no_grad():
+        for of_np, traj_np, _ in ds:
+            num = traj_np.shape[0] - 2 * m
+            of, _ = prepare_of(of_np, cfg.fr_num + 30, np.float32,
+                               pad_channels=False)
+            x = pad_flow_channels(torch.from_numpy(of).to(device).to(dtype))
+            preds.append(net(x)[m:m + num, 0].cpu())
+    return torch.cat(preds)
+
+
+def phase_statereg_test(device):
+    """state_reg --mode test on the checkpoint statereg_train wrote (every
+    take through the net on the card, per-take trajectory assembly), and
+    the card's float32 predictions for the first take against the port's
+    CPU float64 run of the same checkpoint, within STATEREG_TOL relative
+    RMS."""
+    import pickle
+    import torch
+    from egopose_tpu_torch.cli import state_reg
+    t0 = time.time()
+    results = state_reg.main(["--cfg", STATEREG, "--mode", "test", "--iter",
+                              str(STATEREG_EPOCHS), "--synthetic",
+                              "--device", str(device)])
+    wall = time.time() - t0
+    with open(os.path.join("results", "statereg", STATEREG, "results",
+                           "iter_%04d_test.p" % STATEREG_EPOCHS), "rb") as f:
+        _, meta = pickle.load(f)
+    card = take_predictions(device, torch.float32)
+    t0 = time.time()
+    cpu = take_predictions(torch.device("cpu"), torch.float64)
+    cpu_s = time.time() - t0
+    err = rel_rms(card, cpu)
+    finite = bool(all(np.isfinite(a).all()
+                      for a in results["traj_pred"].values()))
+    rec = dict(takes_assembled=len(results["traj_pred"]),
+               frames=meta["num_sample"], loss=meta["epoch_loss"],
+               wall_s=wall, take0_frames=int(card.shape[0]),
+               take0_rel_rms_vs_cpu_f64=err, tol=STATEREG_TOL,
+               cpu_f64_s=cpu_s, finite=finite)
+    ok = bool(finite and len(results["traj_pred"]) == 4
+              and np.isfinite(meta["epoch_loss"]) and err <= STATEREG_TOL)
+    emit("statereg_test", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"statereg_test out of bounds: {rec}")
+    return rec
+
+
+def feature_batch_split(sd, cfg, state_dim, device, batch=256):
+    """gen_cnn_feature's work on one batch of the first take, each section
+    in its own profiler session (SectionProfiler), after a warm-up batch:
+    the host's read and padding to ``batch`` frames, the copy to the card,
+    the CNN's forward and the features' copy back."""
+    import torch
+    from egopose_tpu_torch.cli.state_reg import make_net, pad_flow_channels
+    from egopose_tpu_torch.data.dataset import Dataset
+    saved = os.environ["EGOPOSE_SYN_TAKES"]
+    os.environ["EGOPOSE_SYN_TAKES"] = "1"
+    try:
+        ds = Dataset("synthetic", "all", 0, "iter", False, 0, synthetic=True)
+    finally:
+        os.environ["EGOPOSE_SYN_TAKES"] = saved
+    net = make_net(cfg, state_dim, False, frame_shape(ds), cfg.seed).to(
+        device)
+    net.load_state_dict(sd)
+    net.eval()
+    marks = None
+    with torch.no_grad():
+        for _ in range(2):                  # warm-up, then the timed one
+            split = SectionProfiler()
+            of = ds.load_of(0, 0, ds.msync[ds.takes[0]][2])
+            of = np.concatenate([of, np.repeat(of[-1:], batch - len(of), 0)])
+            split.mark("host_read_and_pad")
+            frames = torch.from_numpy(of).to(device)
+            split.mark("host_to_device_copy")
+            feats = net.cnn_feature(pad_flow_channels(frames))
+            split.mark("cnn_forward")
+            feats.cpu()
+            split.mark("device_to_host_copy")
+            marks = split.close()
+    return marks
+
+
+def phase_gen_cnn_feature(device):
+    """gen_cnn_feature over the 4 synthetic takes at 224x224 in batches of
+    256 frames on the card; the first batch's features against the port's
+    CPU float64 CNN on the same frames, within STATEREG_TOL relative
+    RMS."""
+    import pickle
+    import torch
+    from egopose_tpu_torch.cli import gen_cnn_feature
+    from egopose_tpu_torch.cli.state_reg import load_state_net, make_net
+    from egopose_tpu_torch.utils.config import StateRegConfig
+    stamps, first = [], []
+
+    def hook(take, start, frames, feats):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), frames.shape[0]))
+        if not first:
+            first.extend([frames.cpu(), feats.cpu()])
+    gen_cnn_feature.main(["--meta-id", "synthetic", "--out-id", "smoke",
+                          "--statereg-cfg", STATEREG, "--statereg-iter",
+                          str(STATEREG_EPOCHS), "--batch", "256",
+                          "--synthetic", "--device", str(device)],
+                         batch_hook=hook)
+    with open(os.path.join("datasets", "features", "cnn_feat_smoke.p"),
+              "rb") as f:
+        feats, mean = pickle.load(f)
+    cfg = StateRegConfig(STATEREG)
+    sd, _ = load_state_net(cfg, os.path.join(
+        cfg.model_dir, "iter_%04d.p" % STATEREG_EPOCHS), no_cnn=False)
+    net = make_net(cfg, mean.size, False, tuple(first[0].shape[1:]),
+                   cfg.seed).double()
+    net.load_state_dict(sd)
+    net.eval()
+    t0 = time.time()
+    with torch.no_grad():
+        ref = net.cnn_feature(first[0].double())
+    cpu_s = time.time() - t0
+    err = rel_rms(first[1], ref)
+    split = feature_batch_split(sd, cfg, mean.size, device)
+    # frames/s over every batch after the first (its time holds cuDNN's
+    # first calls)
+    frames = sum(n for _, n in stamps[1:])
+    fps = frames / (stamps[-1][0] - stamps[0][0])
+    shapes = {t: list(a.shape) for t, a in feats.items()}
+    finite = bool(all(np.isfinite(a).all() for a in feats.values()))
+    rec = dict(takes=shapes, batches=len(stamps), frames_per_s=fps,
+               batch_split=split,
+               batch0_rel_rms_vs_cpu_f64=err, tol=STATEREG_TOL,
+               cpu_f64_s=cpu_s, finite=finite)
+    ok = bool(finite and len(feats) == 4 and err <= STATEREG_TOL
+              and all(s == [240, cfg.cnn_fdim] for s in shapes.values()))
+    emit("gen_cnn_feature", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"gen_cnn_feature out of bounds: {rec}")
+    return rec
+
+
+def phase_statereg_eval(device):
+    """The state net STATEREG_EVAL (the shipped widths at cnn_fdim 64)
+    trained STATEREG_EPOCHS epochs on the 224x224 synthetic flow and saved
+    with save_inf, then ego_mimic_eval --cfg subject_03 --synthetic --iter
+    3000 on the card (4 takes x 380 steps, one K1 launch a step)
+    re-anchored on it: its initial states and every fail-safe reset come
+    from the state net's predictions.  Holds the state net's predictions
+    on the card against the port's CPU float64 run of the same net on the
+    same features (STATEREG_TOL relative RMS) and the first control step
+    against the plain f64 step on its own inputs (K1's f32 bar).
+    pose_dist and num_reset are printed, not gated: the state net is
+    STATEREG_EPOCHS epochs old and learned another synthetic world."""
+    import torch
+    from egopose_tpu_torch.cli import ego_mimic_eval, state_reg
+    from egopose_tpu_torch.cli.ego_mimic import build_world
+    from egopose_tpu_torch.cli.eval_pose import compute_stats
+    from egopose_tpu_torch.utils.config import EgoMimicConfig
+    t0 = time.time()
+    state_reg.main(["--cfg", STATEREG_EVAL, "--mode", "train", "--synthetic",
+                    "--max-epoch", str(STATEREG_EPOCHS), "--device",
+                    str(device)])
+    state_reg.main(["--cfg", STATEREG_EVAL, "--mode", "save_inf", "--iter",
+                    str(STATEREG_EPOCHS), "--synthetic", "--device",
+                    str(device)])
+    train_s = time.time() - t0
+    first = []
+    reset_counts()
+    t0 = time.time()
+    results, meta = ego_mimic_eval.main(
+        EVAL_ARGS + ["--device", str(device)],
+        phys_hook=first_step_hook(first))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    stats = compute_stats(results)
+    cfg = EgoMimicConfig("subject_03")
+    feats = build_world(cfg, torch.float32, "cpu", synthetic=True)[-1]
+    card = ego_mimic_eval.state_net_pred(cfg, feats, device, torch.float32)
+    ref = ego_mimic_eval.state_net_pred(cfg, feats, torch.device("cpu"),
+                                        torch.float64)
+    err = rel_rms(card.cpu(), ref)
+    step_ok, step_rec = first_step_vs_plain(
+        first, lambda f, dt, dev: step_inputs(f, cfg, dt, dev))
+    others = {k: v for k, v in counts.items() if k != "k1"}
+    finite = bool(all(np.isfinite(np.asarray(a)).all()
+                      for key in ("traj_pred", "vel_pred")
+                      for a in results[key].values()))
+    rec = dict(state_net=STATEREG_EVAL, state_net_train_s=train_s,
+               frames_per_sec=meta["frames_per_sec"], wall_s=wall,
+               steps=meta["steps"], k1_launches=counts["k1"],
+               other_launches=others, num_reset=meta["num_reset"],
+               pose_dist=stats["pose_dist"], vel_dist=stats["vel_dist"],
+               accel=stats["accel"], avg_reward=meta["avg_reward"],
+               state_net_rel_rms_vs_cpu_f64=err, tol=STATEREG_TOL,
+               first_step=step_rec, finite=finite)
+    ok = bool(counts["k1"] == meta["steps"] and not any(others.values())
+              and err <= STATEREG_TOL and step_ok and finite)
+    emit("statereg_eval", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"statereg_eval out of bounds: {rec}")
+    return rec
+
+
+def phase_statereg_variants(device, dataset, cfg):
+    """One training step each of cnn_type mobile (with the bi-LSTM) and of
+    v_net tcn (v_net_param's default [64, 128], non-causal and causal, with
+    ResNet-18) at the shipped widths, on the first batch of statereg_train's
+    dataset: finite losses; ms and peak memory of each step."""
+    import torch
+    from egopose_tpu_torch.cli.state_reg import (host_batches, make_net,
+                                                 to_device, train_step)
+    from egopose_tpu_torch.utils.config import StateRegConfig
+    batch = to_device(next(host_batches(
+        dataset, 4, cfg["fr_margin"], dataset.traj_dim, np.float32,
+        np.float32, pin=True)), device)
+    out, ok = {}, True
+    for name, over in (("mobile_lstm", dict(cnn_type="mobile")),
+                       ("resnet_tcn", dict(v_net="tcn")),
+                       ("resnet_tcn_causal", dict(v_net="tcn",
+                                                  causal=True))):
+        vcfg = StateRegConfig(STATEREG, cfg_dict=dict(cfg, **over))
+        net = make_net(vcfg, dataset.traj_dim, False, frame_shape(dataset),
+                       vcfg.seed).to(device)
+        opt = torch.optim.Adam(net.parameters(), lr=vcfg.lr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(train_step(net, opt, *batch[:3], vcfg.fr_margin,
+                                torch.float32))
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = dict(loss=loss, first_step_ms=ms,
+                         peak_memory_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30)
+        ok = ok and bool(np.isfinite(loss))
+        del net, opt
+    emit("statereg_variants", ok=ok, **out)
+    if not ok:
+        raise AssertionError(f"statereg_variants not finite: {out}")
+    return out
+
+
 AB_PHASES = "k1_time,k1_dense_time,k2_time,k3_time,k4_time,k5_time"
 
 
@@ -1987,6 +2503,23 @@ def main():
                 if want("forecast_eval") else None
             if want("forecast_stats"):
                 phase_forecast_stats()
+    se = None
+    statereg = ("statereg_train", "statereg_test", "gen_cnn_feature",
+                "statereg_eval", "statereg_variants")
+    if any(want(p) for p in statereg):
+        # every statereg phase reads statereg_train's checkpoint or data,
+        # so it runs first whenever one of them is asked for
+        with statereg_workdir() as scfg:
+            net, dataset = phase_statereg_train(device, scfg)
+            del net
+            if want("statereg_test"):
+                phase_statereg_test(device)
+            if want("gen_cnn_feature"):
+                phase_gen_cnn_feature(device)
+            if want("statereg_eval"):
+                se = phase_statereg_eval(device)
+            if want("statereg_variants"):
+                phase_statereg_variants(device, dataset, scfg)
     if only is None:
         t4, t2 = times[4], times2[1024]
         fused = lambda key: rp["launches"][key] + rt["launches"][key] \
@@ -2003,7 +2536,8 @@ def main():
             row("substep_control_step", "substep.cu", "substep_pallas.py:694",
                 ev["launches"] + tr["k1_launches"] + tq["k1_launches"]
                 + fused("k1") + ft["k1_launches"]
-                + sum(r["k1_launches"] for r in fe.values()),
+                + sum(r["k1_launches"] for r in fe.values())
+                + se["k1_launches"],
                 errs["float32"], t4),
             row("substep_control_step_dense", "substep.cu",
                 "substep_pallas.py:784", fused("k1_dense"), errs1d["float32"],

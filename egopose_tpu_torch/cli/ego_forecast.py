@@ -66,10 +66,10 @@ def main(argv=None, iter_hook=None):
 
     import torch
     from .. import resolve_device
-    from ..convert import load_checkpoint_pickle
+    from ..models import torch_import as ti
     from ..physics import nvcc
     from ..rl.agent_forecast import AgentForecast, warmstart_from_mimic
-    from ..utils.config import EgoForecastConfig
+    from ..utils.config import EgoForecastConfig, EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
     from .ego_mimic import build_world
 
@@ -103,12 +103,13 @@ def main(argv=None, iter_hook=None):
         em_path = "results/egomimic/%s/models/iter_%04d.p" % (
             cfg.ego_mimic_cfg, cfg.ego_mimic_iter or 0)
         if os.path.exists(em_path):
-            mimic_cp = load_checkpoint_pickle(em_path)
-            if "params" not in mimic_cp["policy_dict"]:
-                raise NotImplementedError(
-                    f"{em_path} is a reference-format (torch state_dict) "
-                    "checkpoint, which is not ported yet (ROADMAP §1 item "
-                    "4)")
+            mimic_cp = ti.tolerant_pickle_load(em_path)
+            if ti.looks_torch_state_dict(mimic_cp.get("policy_dict")):
+                em_cfg = EgoMimicConfig(cfg.ego_mimic_cfg, create_dirs=False)
+                mimic_cp = ti.import_mimic_checkpoint(
+                    mimic_cp, bi_dir=not em_cfg.causal,
+                    v_net_type=em_cfg.policy_v_net,
+                    value_v_net_type=em_cfg.value_v_net)
             copied = warmstart_from_mimic(agent, mimic_cp)
             logger.info("warm start from ego mimic checkpoint: %s (%s)"
                         % (em_path, copied))

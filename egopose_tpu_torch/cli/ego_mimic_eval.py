@@ -3,7 +3,10 @@ egopose_tpu/cli/ego_mimic_eval.py).
 
 Rolls the trained policy (mean actions) through every test take at once --
 the takes are the batch -- with the value-based fail-safe re-anchoring a
-take to the state prediction when the critic signals failure.  Each step
+take to the state prediction when the critic signals failure.  The state
+prediction is the trained state-regression net's (``state_net_cfg`` /
+``state_net_iter``, its results/statereg/<cfg>/models/iter_%04d_inf.p)
+where that checkpoint exists, else the ground-truth kinematic state.  Each step
 runs all takes through ``envs.step``, whose physics is one launch of the
 CUDA control-step kernel on the card.
 
@@ -38,6 +41,34 @@ def kinematic_state_pred(expert, take_idx):
     return torch.cat([pos, qvel_fd], 1)
 
 
+def state_net_pred(cfg, cnn_feat, device, dtype):
+    """The trained state-regression net's predictions over every take
+    (B, T, nq-2+nv), de-normalised with its checkpoint's mean and std: the
+    no_cnn VideoRegNet of ``cfg.state_net_model`` (either package's layout
+    or the reference's) run over the full takes' CNN features."""
+    from ..models import torch_import as ti
+    from ..models.video_reg_net import VideoRegNet
+    from ..utils.config import StateRegConfig
+    model_cp, meta = ti.tolerant_pickle_load(cfg.state_net_model)
+    sr_cfg = StateRegConfig(cfg.state_net_cfg, create_dirs=False)
+    sd, mean, std = ti.maybe_import_statereg(
+        model_cp, meta, cnn_type=sr_cfg.cnn_type, v_net_type=sr_cfg.v_net,
+        causal=sr_cfg.causal, no_cnn=True)
+    net = VideoRegNet(mean.size, sr_cfg.v_hdim, sr_cfg.cnn_fdim, no_cnn=True,
+                      mlp_dim=tuple(sr_cfg.mlp_dim), cnn_type=sr_cfg.cnn_type,
+                      v_net_type=sr_cfg.v_net,
+                      v_net_param=sr_cfg.v_net_param, causal=sr_cfg.causal)
+    net.to(device=device, dtype=dtype).eval()
+    net.load_state_dict(sd)
+    f64 = lambda x: torch.as_tensor(np.asarray(x, np.float64),
+                                    device=device)
+    with torch.no_grad():
+        feats = f64(cnn_feat).to(dtype).transpose(0, 1)     # (T, B, F)
+        pred = net(feats).transpose(0, 1)                   # (B, T, D)
+    # de-normalised in float64, as the JAX package does it in numpy
+    return (pred.double() * f64(std) + f64(mean)).to(dtype)
+
+
 def _select(mask, a, b):
     """Per-lane choice between two EnvStates (or tensors)."""
     if isinstance(a, tuple):
@@ -45,9 +76,11 @@ def _select(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def main(argv=None, step_hook=None):
+def main(argv=None, step_hook=None, phys_hook=None):
     """``step_hook(t)``, if given, is called after each step t of the timed
-    rollout loop (to time or profile a window of steady-state steps)."""
+    rollout loop (to time or profile a window of steady-state steps);
+    ``phys_hook(t, state, action, new_state)`` after each step's physics,
+    before the fail-safe."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg", default=None)
     parser.add_argument("--render", action="store_true", default=False)
@@ -126,11 +159,11 @@ def main(argv=None, step_hook=None):
 
     if getattr(cfg, "state_net_cfg", None) and \
             os.path.exists(getattr(cfg, "state_net_model", "")):
-        raise NotImplementedError(
-            "the trained state-regression net is not ported yet "
-            f"({cfg.state_net_model})")
-    state_preds = torch.stack([kinematic_state_pred(expert, i)
-                               for i in range(n_takes)])
+        state_preds = state_net_pred(cfg, cnn_feat, device, dtype)
+        logger.info("loaded state net from %s" % cfg.state_net_model)
+    else:
+        state_preds = torch.stack([kinematic_state_pred(expert, i)
+                                   for i in range(n_takes)])
 
     with torch.no_grad():
         feats = torch.as_tensor(cnn_feat).to(device=device, dtype=dtype)
@@ -208,6 +241,8 @@ def main(argv=None, step_hook=None):
 
             new_st, out = envs.step(model, p, tables, expert, st, action,
                                     0.0, fix_head_lb=fix_head_lb)
+            if phys_hook is not None:
+                phys_hook(t, st, action, new_st)
             if args.fail_safe == "valuefs":
                 trigger = value < 0.6 * vstat_mean
             elif args.fail_safe == "naivefs":

@@ -3,7 +3,8 @@
 ``params_from_jax`` turns the flax parameter trees of an ego-mimic or an
 ego-forecast agent (nested dicts of numpy arrays, as the JAX package
 pickles them) into the port's ``state_dict``s; ``params_to_jax`` is its
-inverse.
+inverse.  ``video_reg_net_from_jax`` / ``video_reg_net_to_jax`` do the
+same for the state-regression net, BatchNorm statistics included.
 ``load_checkpoint_pickle`` reads the committed
 ``results/egomimic/<cfg>/models/iter_*.p`` without importing the JAX
 package: the one class those pickles reference,
@@ -91,91 +92,161 @@ def _params(tree):
     return tree["params"] if "params" in tree else tree
 
 
-def _linear(sd, prefix, dense):
-    """flax Dense {kernel (in,out), bias} -> torch Linear (out,in)."""
-    sd[prefix + ".weight"] = torch.as_tensor(
-        np.ascontiguousarray(np.asarray(dense["kernel"]).T))
-    sd[prefix + ".bias"] = torch.as_tensor(np.asarray(dense["bias"]))
+def _kernel_to_torch(k):
+    """flax kernel -> torch weight: Conv2d (H, W, I, O) -> (O, I, H, W),
+    Conv1d (K, I, O) -> (O, I, K), Dense (I, O) -> (O, I)."""
+    k = np.asarray(k)
+    perm = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}[k.ndim]
+    return torch.as_tensor(np.ascontiguousarray(np.transpose(k, perm)))
 
 
-def _mlp(sd, prefix, net):
-    n = len([k for k in net if k.startswith("Dense_")])
-    for i in range(n):
-        _linear(sd, f"{prefix}.layers.{i}", net[f"Dense_{i}"])
+def _kernel_to_jax(w):
+    """The inverse of _kernel_to_torch."""
+    w = _np(w)
+    perm = {4: (2, 3, 1, 0), 3: (2, 1, 0), 2: (1, 0)}[w.ndim]
+    return np.ascontiguousarray(np.transpose(w, perm))
 
 
-# the LSTMs of a context net: v_net (both workloads), s_net (forecast's
-# state LSTM); each with a forward cell rnn_f and, bidirectional, rnn_b
-_RNNS, _CELLS = ("v_net", "s_net"), ("rnn_f", "rnn_b")
+def _torch_part(name):
+    """A flax module name -> the port's attribute path: an MLP's
+    ``Dense_i`` is its ``layers.i``; every other name is the same."""
+    return "layers." + name[len("Dense_"):] if name.startswith("Dense_") \
+        else name
+
+
+def tree_to_state_dict(params: dict, stats: dict | None = None,
+                       prefix: str = "") -> dict:
+    """A flax parameter tree (with its ``batch_stats`` tree) of one of the
+    port's modules -> its state_dict.  Leaves map by kind: a Dense or Conv
+    ``kernel`` -> ``weight`` (transposed to torch's layout), a kernel under
+    a ``WeightNorm_j`` -> ``weight_v`` with the scale as ``weight_g`` (out,
+    1, 1), a BatchNorm ``scale``/``bias`` + stats ``mean``/``var`` ->
+    ``weight``/``bias``/``running_mean``/``running_var``."""
+    stats = stats or {}
+    sd = {}
+    scales = {name.split("/")[0]: np.asarray(s)
+              for key, wn in params.items() if key.startswith("WeightNorm_")
+              for name, s in wn.items()}
+    for key, val in params.items():
+        if key.startswith("WeightNorm_"):
+            continue
+        name = prefix + _torch_part(key)
+        if not isinstance(val, dict):
+            sd[name] = torch.as_tensor(np.asarray(val))
+        elif "kernel" in val:
+            w = _kernel_to_torch(val["kernel"])
+            if key in scales:
+                sd[name + ".weight_v"] = w
+                sd[name + ".weight_g"] = torch.as_tensor(
+                    scales[key].reshape(-1, 1, 1))
+            else:
+                sd[name + ".weight"] = w
+            if "bias" in val:
+                sd[name + ".bias"] = torch.as_tensor(np.asarray(val["bias"]))
+        elif "scale" in val:
+            sd[name + ".weight"] = torch.as_tensor(np.asarray(val["scale"]))
+            sd[name + ".bias"] = torch.as_tensor(np.asarray(val["bias"]))
+            sd[name + ".running_mean"] = torch.as_tensor(
+                np.asarray(stats[key]["mean"]))
+            sd[name + ".running_var"] = torch.as_tensor(
+                np.asarray(stats[key]["var"]))
+        else:
+            sd.update(tree_to_state_dict(val, stats.get(key), name + "."))
+    return sd
+
+
+# a TemporalBlock's convs in flax's creation order: conv1's WeightNorm is
+# WeightNorm_0, conv2's WeightNorm_1
+_WN_INDEX = {"conv1": 0, "conv2": 1}
+
+
+def state_dict_to_tree(sd: dict):
+    """The inverse of tree_to_state_dict: a state_dict -> (params,
+    batch_stats) flax trees of numpy arrays."""
+    params, stats = {}, {}
+    modules = {}
+    for key, val in sd.items():
+        path, _, leaf = key.rpartition(".")
+        modules.setdefault(path, {})[leaf] = val
+
+    def node(tree, parts):
+        for part in parts:
+            tree = tree.setdefault(part, {})
+        return tree
+
+    for path, leaves in modules.items():
+        parts = path.split(".") if path else []
+        merged = []
+        for part in parts:          # layers.i -> Dense_i
+            if merged and merged[-1] == "layers" and part.isdigit():
+                merged[-1] = f"Dense_{part}"
+            else:
+                merged.append(part)
+        if "running_mean" in leaves:
+            node(params, merged).update(scale=_np(leaves["weight"]),
+                                        bias=_np(leaves["bias"]))
+            node(stats, merged).update(mean=_np(leaves["running_mean"]),
+                                       var=_np(leaves["running_var"]))
+            continue
+        if "weight_v" in leaves:
+            conv = merged[-1]
+            node(params, merged[:-1])[f"WeightNorm_{_WN_INDEX[conv]}"] = {
+                f"{conv}/kernel/scale": _np(leaves["weight_g"]).reshape(-1)}
+            mod = node(params, merged)
+            mod["kernel"] = _kernel_to_jax(leaves["weight_v"])
+        elif "weight" in leaves:
+            mod = node(params, merged)
+            mod["kernel"] = _kernel_to_jax(leaves["weight"])
+        else:                       # bare parameters (action_log_std)
+            node(params, merged).update({k: _np(v)
+                                         for k, v in leaves.items()})
+            continue
+        if "bias" in leaves:
+            mod["bias"] = _np(leaves["bias"])
+    return params, stats
+
+
+def video_reg_net_from_jax(variables: dict) -> dict:
+    """A VideoRegNet's flax variables ({params, batch_stats}) -> the port's
+    state_dict: conv kernels HWIO -> OIHW and KIO -> OIK, WeightNorm scales
+    -> weight_g, BatchNorm scale/bias/mean/var -> weight/bias/
+    running_mean/running_var."""
+    return tree_to_state_dict(variables["params"],
+                              variables.get("batch_stats"))
+
+
+def video_reg_net_to_jax(sd: dict) -> dict:
+    """A VideoRegNet's state_dict -> flax variables of numpy arrays (the
+    inverse of video_reg_net_from_jax; ``batch_stats`` only where the net
+    has BatchNorm layers)."""
+    params, stats = state_dict_to_tree(sd)
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
 
 
 def context_from_jax(tree) -> dict:
-    """A context net's flax tree (VideoStateNet or VideoForecastNet) ->
-    its state_dict."""
-    sd = {}
-    params = _params(tree)
-    for rnn in _RNNS:
-        for cell in _CELLS:
-            if cell in params.get(rnn, {}):
-                for gate in ("ih", "hh"):
-                    _linear(sd, f"{rnn}.{cell}.{gate}",
-                            params[rnn][cell][gate])
-    return sd
+    """A net's flax tree (the policy, the value, or a context net:
+    VideoStateNet or VideoForecastNet, LSTM or TCN) -> its state_dict."""
+    return tree_to_state_dict(_params(tree))
+
+
+def context_to_jax(sd: dict) -> dict:
+    """A net's state_dict -> its flax variable tree."""
+    return {"params": state_dict_to_tree(sd)[0]}
 
 
 def params_from_jax(policy, policy_vs, value, value_vs):
     """flax trees of (PolicyGaussian, context net, Value, context net) ->
     the port's state_dicts in the same order; a context net is a
     VideoStateNet or a VideoForecastNet."""
-    p = _params(policy)
-    sd_p = {}
-    _mlp(sd_p, "net", p["net"])
-    _linear(sd_p, "action_mean", p["action_mean"])
-    sd_p["action_log_std"] = torch.as_tensor(np.asarray(p["action_log_std"]))
-    v = _params(value)
-    sd_v = {}
-    _mlp(sd_v, "net", v["net"])
-    _linear(sd_v, "value_head", v["value_head"])
-    return sd_p, context_from_jax(policy_vs), sd_v, context_from_jax(value_vs)
+    return tuple(map(context_from_jax, (policy, policy_vs, value, value_vs)))
 
 
 def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _dense(sd, prefix):
-    """torch Linear (out,in) -> flax Dense {kernel (in,out), bias}."""
-    return {"kernel": np.ascontiguousarray(_np(sd[prefix + ".weight"]).T),
-            "bias": _np(sd[prefix + ".bias"])}
-
-
-def _mlp_tree(sd, prefix):
-    n = len([k for k in sd if k.startswith(prefix + ".layers.")
-             and k.endswith(".weight")])
-    return {f"Dense_{i}": _dense(sd, f"{prefix}.layers.{i}")
-            for i in range(n)}
-
-
-def context_to_jax(sd: dict) -> dict:
-    """A context net's state_dict -> its flax variable tree."""
-    tree = {}
-    for rnn in _RNNS:
-        cells = {cell: {gate: _dense(sd, f"{rnn}.{cell}.{gate}")
-                        for gate in ("ih", "hh")}
-                 for cell in _CELLS if f"{rnn}.{cell}.ih.weight" in sd}
-        if cells:
-            tree[rnn] = cells
-    return {"params": tree}
-
-
 def params_to_jax(policy, policy_vs, value, value_vs):
     """The port's state_dicts of (PolicyGaussian, context net, Value,
     context net) -> flax variable trees of numpy arrays in the same order
     (the inverse of params_from_jax)."""
-    pol = {"net": _mlp_tree(policy, "net"),
-           "action_mean": _dense(policy, "action_mean"),
-           "action_log_std": _np(policy["action_log_std"])}
-    val = {"net": _mlp_tree(value, "net"),
-           "value_head": _dense(value, "value_head")}
-    return ({"params": pol}, context_to_jax(policy_vs), {"params": val},
-            context_to_jax(value_vs))
+    return tuple(map(context_to_jax, (policy, policy_vs, value, value_vs)))

@@ -1,7 +1,7 @@
 """Context network for ego-forecast (counterpart of
-egopose_tpu/models/video_forecast_net.py, LSTM path).
+egopose_tpu/models/video_forecast_net.py).
 
-The context is the final hidden state of a causal LSTM over only the
+The context is the final hidden state of a causal LSTM or TCN over only the
 ``v_margin`` past video frames, fixed for the episode, joined with an
 optional per-step state LSTM (``s_net_type`` ``lstm``; ``id`` passes the
 state through):
@@ -17,18 +17,15 @@ import torch
 from torch import nn
 
 from .rnn import RNN
+from .tcn import make_tcn
 
 
 class VideoForecastNet(nn.Module):
     def __init__(self, cnn_feat_dim: int, state_dim: int, v_hdim: int = 128,
                  v_margin: int = 10, v_net_type: str = "lstm",
                  s_hdim: int | None = None, s_net_type: str = "id",
-                 dynamic_v: bool = False):
+                 dynamic_v: bool = False, v_net_param: dict | None = None):
         super().__init__()
-        if v_net_type != "lstm":
-            raise NotImplementedError(
-                f"context net {v_net_type!r}: only the LSTM is ported (the "
-                "TCN is ROADMAP §1 item 4)")
         if dynamic_v:
             # the JAX sampler indexes the per-step context at t in an empty
             # (B, 0, v_hdim) unroll, since its windows hold only v_margin
@@ -41,14 +38,23 @@ class VideoForecastNet(nn.Module):
         self.v_hdim = v_hdim
         self.s_dim = state_dim if s_hdim is None else s_hdim
         self.out_dim = v_hdim + self.s_dim
-        self.v_net = RNN(cnn_feat_dim, v_hdim)
+        self.v_net_type = v_net_type
+        if v_net_type == "lstm":
+            self.v_net = RNN(cnn_feat_dim, v_hdim)
+        elif v_net_type == "tcn":
+            self.v_net = make_tcn(cnn_feat_dim, v_hdim, v_net_param,
+                                  causal=True)
+        else:
+            raise ValueError(v_net_type)
         if s_net_type == "lstm":
             self.s_net = RNN(state_dim, self.s_dim)
 
     def encode_video(self, windows: torch.Tensor) -> torch.Tensor:
-        """(B, W, feat) past-frame windows -> (B, v_hdim), the last hidden
-        state of the causal LSTM."""
-        return self.v_net(windows.transpose(0, 1))[-1]
+        """(B, W, feat) past-frame windows -> (B, v_hdim), the causal
+        net's output at the last frame."""
+        if self.v_net_type == "lstm":
+            return self.v_net(windows.transpose(0, 1))[-1]
+        return self.v_net(windows)[:, -1]
 
     def s_init_carry(self, batch_shape, like: torch.Tensor):
         """The state LSTM's zero carry (``()`` without one)."""

@@ -1,30 +1,37 @@
 """Video context network for ego-mimic (counterpart of
-egopose_tpu/models/video_state_net.py, LSTM path): encode a window of
-per-frame CNN features into per-step context vectors, trimming
-``v_margin`` frames on both sides."""
+egopose_tpu/models/video_state_net.py): encode a window of per-frame CNN
+features into per-step context vectors with an LSTM (bidirectional unless
+``causal``) or a TCN, trimming ``v_margin`` frames on both sides."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from .rnn import RNN
+from .tcn import make_tcn
 
 
 class VideoStateNet(nn.Module):
     def __init__(self, cnn_feat_dim: int, v_hdim: int = 128,
                  v_margin: int = 10, v_net_type: str = "lstm",
-                 causal: bool = False):
+                 causal: bool = False, v_net_param: dict | None = None):
         super().__init__()
-        if v_net_type != "lstm":
-            raise NotImplementedError(
-                f"context net {v_net_type!r}: only the LSTM is ported")
         self.v_margin = v_margin
         self.causal = causal
-        self.v_net = RNN(cnn_feat_dim, v_hdim, bi_dir=not causal)
+        self.v_net_type = v_net_type
+        if v_net_type == "lstm":
+            self.v_net = RNN(cnn_feat_dim, v_hdim, bi_dir=not causal)
+        elif v_net_type == "tcn":
+            self.v_net = make_tcn(cnn_feat_dim, v_hdim, v_net_param, causal)
+        else:
+            raise ValueError(v_net_type)
 
     def forward(self, windows: torch.Tensor) -> torch.Tensor:
         """(N, W, feat) windows -> (N, W - 2*v_margin, v_hdim) context."""
-        out = self.v_net(windows.transpose(0, 1)).transpose(0, 1)
+        if self.v_net_type == "lstm":
+            out = self.v_net(windows.transpose(0, 1)).transpose(0, 1)
+        else:
+            out = self.v_net(windows)
         return out[:, self.v_margin:-self.v_margin]
 
     def context(self, windows: torch.Tensor,
@@ -38,10 +45,15 @@ class VideoStateNet(nn.Module):
         frame t + 2*v_margin.  The forward pass is the full pass; the
         backward pass restarts from a zero carry v_margin frames ahead of
         each output position (equal to the reference's per-step
-        recomputation, in O(T * v_margin))."""
+        recomputation, in O(T * v_margin)).  A causal net's full pass is
+        its answer; a non-causal TCN raises, as in the JAX package."""
         m = self.v_margin
         if self.causal:
             return self(feats)
+        if self.v_net_type != "lstm":
+            raise NotImplementedError(
+                "--causal with a non-causal TCN context net would need the "
+                "reference's per-prefix recomputation; use causal: true")
         x = feats.transpose(0, 1)                  # (T, N, F)
         t_len, n = x.shape[0], x.shape[1]
         l_out = t_len - 2 * m

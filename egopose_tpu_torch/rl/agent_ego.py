@@ -5,7 +5,8 @@ Holds the policy, value and video-context nets, the observation filter
 (zstat) and the two optimizers; samples batches of segments through
 rl/rollout.py and updates through rl/ppo.py.  Checkpoints are pickles in
 the JAX package's layout (flax trees of numpy arrays + RunningStat), so
-either package loads what the other saves.
+either package loads what the other saves; the reference code base's
+checkpoints (torch state_dicts + a pickled ZFilter) load too.
 """
 from __future__ import annotations
 
@@ -16,8 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import (load_checkpoint_pickle, params_from_jax,
-                       params_to_jax, save_checkpoint_pickle)
+from ..convert import params_from_jax, params_to_jax, save_checkpoint_pickle
 from ..models.video_state_net import VideoStateNet
 from ..ops import running_norm
 from . import ppo, rollout
@@ -94,9 +94,11 @@ class AgentEgo:
                 Value(obs_dim + cfg.value_v_hdim, cfg.value_hsize,
                       cfg.value_htype),
                 VideoStateNet(cnn_fdim, cfg.policy_v_hdim, cfg.fr_margin,
-                              cfg.policy_v_net, cfg.causal),
+                              cfg.policy_v_net, cfg.causal,
+                              cfg.policy_v_net_param),
                 VideoStateNet(cnn_fdim, cfg.value_v_hdim, cfg.fr_margin,
-                              cfg.value_v_net, cfg.causal))
+                              cfg.value_v_net, cfg.causal,
+                              cfg.value_v_net_param))
 
     @property
     def nets(self):
@@ -204,18 +206,36 @@ class AgentEgo:
 
     def load(self, path: str):
         """Load a checkpoint pickle written by either package's
-        AgentEgo.save (flax trees + RunningStat)."""
-        self.load_checkpoint(load_checkpoint_pickle(path))
+        AgentEgo.save (flax trees + RunningStat) or by the reference code
+        base (torch state_dicts + a pickled ZFilter), told apart by its
+        contents."""
+        from ..models.torch_import import tolerant_pickle_load
+        self.load_checkpoint(tolerant_pickle_load(path))
+
+    def _import_reference_checkpoint(self, cp: dict) -> dict:
+        """A reference-format checkpoint -> the port's state_dicts, with
+        the context nets' importer of this agent's kind."""
+        from ..models import torch_import as ti
+        cfg = self.cfg
+        return ti.import_mimic_checkpoint(
+            cp, bi_dir=not cfg.causal, v_net_type=cfg.policy_v_net,
+            value_v_net_type=cfg.value_v_net)
 
     def load_checkpoint(self, cp: dict):
-        if "params" not in cp["policy_dict"]:
-            raise NotImplementedError(
-                "reference-format (torch state_dict) checkpoints are not "
-                "ported yet (ROADMAP §1 item 4); load a checkpoint written "
-                "by egopose_tpu or egopose_tpu_torch")
-        sds = params_from_jax(cp["policy_dict"], cp["policy_vs_dict"],
-                              cp["value_dict"], cp["value_vs_dict"])
+        from ..models.torch_import import looks_torch_state_dict
+        stat = cp["running_state"]
+        if looks_torch_state_dict(cp["policy_dict"]):
+            cp = self._import_reference_checkpoint(cp)
+            # reference checkpoints are float64: the session's dtype wins,
+            # for the filter's statistics too (as in the JAX package)
+            stat = running_norm.RunningStat(*[
+                torch.as_tensor(np.asarray(x)).to(self.dtype)
+                for x in cp["running_state"]])
+            sds = [cp[k] for k in ("policy_dict", "policy_vs_dict",
+                                   "value_dict", "value_vs_dict")]
+        else:
+            sds = params_from_jax(cp["policy_dict"], cp["policy_vs_dict"],
+                                  cp["value_dict"], cp["value_vs_dict"])
         for net, sd in zip(self.nets, sds):
             net.load_state_dict({k: v.to(self.dtype) for k, v in sd.items()})
-        self.zstat = running_norm.to_tensors(cp["running_state"],
-                                             self.device)
+        self.zstat = running_norm.to_tensors(stat, self.device)

@@ -104,12 +104,17 @@ def warmstart_from_mimic(agent: "AgentForecast", mimic_cp: dict):
     agent wherever the parameter exists and its shape matches: the first
     hidden layer of each (mimic input obs + v_hdim, forecast input v_hdim
     + s_dim) and the context nets are not copied.  ``mimic_cp`` is the
-    JAX package's checkpoint dict (flax trees of numpy arrays).  Returns
-    the names of the copied parameters, per net."""
+    JAX package's checkpoint dict (flax trees of numpy arrays) or a
+    reference checkpoint already imported (the port's state_dicts,
+    models/torch_import.py).  Returns the names of the copied parameters,
+    per net."""
     from ..convert import params_from_jax
-    sd_p, _, sd_v, _ = params_from_jax(
-        mimic_cp["policy_dict"], {"params": {}}, mimic_cp["value_dict"],
-        {"params": {}})
+    if "params" in mimic_cp["policy_dict"]:
+        sd_p, _, sd_v, _ = params_from_jax(
+            mimic_cp["policy_dict"], {"params": {}},
+            mimic_cp["value_dict"], {"params": {}})
+    else:
+        sd_p, sd_v = mimic_cp["policy_dict"], mimic_cp["value_dict"]
     copied = {}
     for name, net, src in (("policy", agent.policy_net, sd_p),
                            ("value", agent.value_net, sd_v)):
@@ -131,12 +136,19 @@ class AgentForecast(AgentEgo):
         pvs, vvs = (VideoForecastNet(
             cnn_fdim, obs_dim, getattr(cfg, f"{who}_v_hdim"), cfg.fr_margin,
             getattr(cfg, f"{who}_v_net"), getattr(cfg, f"{who}_s_hdim"),
-            getattr(cfg, f"{who}_s_net"), getattr(cfg, f"{who}_dyn_v"))
+            getattr(cfg, f"{who}_s_net"), getattr(cfg, f"{who}_dyn_v"),
+            getattr(cfg, f"{who}_v_net_param"))
             for who in ("policy", "value"))
         return (PolicyGaussian(pvs.out_dim, nu, cfg.policy_hsize,
                                cfg.policy_htype, cfg.log_std, cfg.fix_std),
                 Value(vvs.out_dim, cfg.value_hsize, cfg.value_htype),
                 pvs, vvs)
+
+    def _import_reference_checkpoint(self, cp: dict) -> dict:
+        from ..models import torch_import as ti
+        return ti.import_forecast_checkpoint(
+            cp, policy_v_net=self.cfg.policy_v_net,
+            value_v_net=self.cfg.value_v_net)
 
     def _rollout(self, noise, mean_action):
         return rollout_segment_forecast(

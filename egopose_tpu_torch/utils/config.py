@@ -1,7 +1,8 @@
-"""YAML config for the ego-mimic and ego-forecast workloads (counterpart of
-egopose_tpu/utils/config.py): the same schemas, results-directory contract
-and adaptive schedules, plus ``make_env_params`` which compiles the
-env-relevant subset into the port's EnvParams."""
+"""YAML config for the state-regression, ego-mimic and ego-forecast
+workloads (counterpart of egopose_tpu/utils/config.py): the same schemas,
+results-directory contract and adaptive schedules, plus
+``make_env_params`` which compiles the env-relevant subset into the
+port's EnvParams."""
 from __future__ import annotations
 
 import os
@@ -62,6 +63,37 @@ class ConfigBase:
                 self.meta = yaml.safe_load(open(meta_path))
                 self.takes = {x: self.meta.get(x, []) for x in ("train", "test")}
         self.seed = cfg.get("seed", 1)
+
+
+class StateRegConfig(ConfigBase):
+    """Mirrors statereg_config.Config (statereg_config.py:6-50)."""
+
+    workload = "statereg"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        g = self._cfg.get
+        self.norm_type = g("norm_type", "batch")
+        self.lr = g("lr", 1e-3)
+        self.weightdecay = g("weightdecay", 0.0)
+        self.num_epoch = g("num_epoch", 100)
+        self.num_epoch_fix = g("num_epoch_fix", 10)
+        self.save_model_interval = g("save_model_interval", 20)
+        self.fr_num = g("fr_num", 120)
+        self.v_net = g("v_net", "lstm")
+        self.v_net_param = g("v_net_param", None)
+        self.v_hdim = g("v_hdim", 128)
+        self.cnn_fdim = g("cnn_fdim", 128)
+        self.mlp_dim = g("mlp_dim", [300, 200])
+        self.cnn_type = g("cnn_type", "resnet")
+        self.mocap_fr = g("mocap_fr", 30)
+        self.batch_size = g("batch_size", 1)
+        self.shuffle = g("shuffle", False)
+        self.iter_method = g("iter_method", "iter")
+        self.num_sample = g("num_sample", 20000)
+        self.fr_margin = g("fr_margin", 10)
+        self.pose_only = g("pose_only", False)
+        self.causal = g("causal", False)
 
 
 class EgoMimicConfig(ConfigBase):

@@ -139,8 +139,10 @@ def test_rnn_step_is_one_step_of_the_unroll():
 
 
 def test_unported_context_options_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        VideoForecastNet(FEAT, 9, VH, M, "tcn")
+    # the TCN context net is ported (tests/test_torch_statereg_nets.py);
+    # an unknown context net type is refused, as by the JAX package
+    with pytest.raises(ValueError, match="gru"):
+        VideoForecastNet(FEAT, 9, VH, M, "gru")
     with pytest.raises(NotImplementedError, match="ROADMAP §3"):
         VideoForecastNet(FEAT, 9, VH, M, "lstm", dynamic_v=True)
 

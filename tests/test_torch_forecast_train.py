@@ -13,6 +13,7 @@ committed ego-mimic iter_3000.p linked in:
 - the options that are not ported raise, citing their ROADMAP item, and
   without CUDA the CLIs raise unless --device cpu is given."""
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -194,6 +195,9 @@ def test_cli_refuses_unported_options(workdir, main, extra, item):
 
 def test_reference_format_mimic_checkpoint_is_refused(tmp_path,
                                                       monkeypatch):
+    """Reference-format mimic checkpoints warm-start the forecast agent
+    (tests/test_torch_refckpt.py); a truncated one, whose policy lacks its
+    layers, is refused."""
     from egopose_tpu_torch.cli import ego_forecast
     from egopose_tpu_torch.convert import save_checkpoint_pickle
     os.makedirs(tmp_path / "config" / "egoforecast")
@@ -202,6 +206,9 @@ def test_reference_format_mimic_checkpoint_is_refused(tmp_path,
     cfg.pop("meta_id", None)
     yaml.safe_dump(cfg, open(tmp_path / "config" / "egoforecast" /
                              "tiny.yml", "w"))
+    os.makedirs(tmp_path / "config" / "egomimic")
+    shutil.copy(f"{REPO}/config/egomimic/subject_03.yml",
+                tmp_path / "config" / "egomimic" / "ref.yml")
     os.makedirs(tmp_path / "results" / "egomimic" / "ref" / "models")
     save_checkpoint_pickle(
         str(tmp_path / "results" / "egomimic" / "ref" / "models" /
@@ -210,7 +217,7 @@ def test_reference_format_mimic_checkpoint_is_refused(tmp_path,
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("EGOPOSE_SYNTHETIC_TAKES", "1")
     monkeypatch.setenv("EGOPOSE_SYNTHETIC_LEN", "40")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(KeyError):
         ego_forecast.main(TRAIN + ["--max-iter", "0"])
 
 
