@@ -45,9 +45,10 @@ any failure exits non-zero:
                reward >= 0.80, pose_dist <= 0.50, all finite; times the
                steady-state steps WINDOW
   eval_profile the same eval again under torch.profiler, its takes cut
-               to the window's end (180 frames, 160 steps), recording only
-               the steps WINDOW: device time by kernel, kernels launched
-               per step, device busy share of the window's wall time
+               to the profiled steps' end (150 frames, 130 steps),
+               recording only the first PROFILE_STEPS (20) steps of
+               WINDOW: device time by kernel, kernels launched per step,
+               device busy share of their wall time
   k2_vs_plain  the SPD-solve kernel against torch.cholesky_solve on the
                torque path's systems (M + dt diag(damping), rhs [qfrc | J^T])
                at contact-rich states, B=1024 and B=4, r=25 and r=1: f64
@@ -183,6 +184,37 @@ any failure exits non-zero:
                first control step against the plain f64 step on its
                inputs within K1's f32 bar; frames/s, num_reset and
                pose_dist printed, not gated
+  wild_setup   the in-the-wild world written into the statereg workdir
+               (host only): the synthetic mimic world's 4 takes x 400
+               frames of 64 CNN features as
+               datasets/features/cnn_feat_wild_syn.p, and each take's
+               expert projected by the port's Pose2DContext (CPU, f64)
+               into OpenPose keypoint files under datasets/tpv/poses/
+  wild_eval    state_reg --mode test --test-feat wild_syn on
+               statereg_eval's state net, then ego_mimic_eval_wild --cfg
+               subject_03 --iter 3000 --test-feat wild_syn in f32 on the
+               card re-anchored on it (4 takes x 380 steps): one K1 launch
+               a step and no other kernel, finite, the first control step
+               within K1's f32 bar of the plain f64 step on its inputs;
+               frames/s, resets per take and the steady-state ms a step
+               over WINDOW printed
+  wild_stats   eval_pose_wild on both wild results (ego-mimic and
+               statereg) on the card: one K5 launch per take and
+               algorithm, no other kernel, finite metrics, the card's f32
+               projection of every frame within WILD_TOL (1e-4) of the CPU
+               f64 projection in the metric's units; both 2D pose
+               distances and accels, K5's time at B=380
+  wild_forecast_eval
+               ego_forecast_eval_wild --cfg subject_03_syn --test-feat
+               wild_syn --egomimic-iter 3000 on forecast_train's checkpoint
+               (the warm start from iter_3000.p without it), the 40 windows
+               of the 4 takes one batch: 90 K1 launches, no other kernel,
+               the first step within K1's f32 bar, finite, the lane rule's
+               window count; frames/s
+  wild_forecast_stats
+               eval_forecast_wild --horizons 30 90 on the card: one K5
+               launch per take with windows, no other kernel, finite;
+               both horizons, K5's time at B=1200
   statereg_variants
                one training step each of cnn_type mobile and of v_net tcn
                (non-causal and causal) at the same widths on
@@ -191,11 +223,14 @@ any failure exits non-zero:
                two branches on two rows), launches on the main paths (eval
                + train + train_torque + the three one-step phases + the
                three rollouts + forecast_train + forecast_eval +
-               statereg_eval), error against the plain version and
-               times
+               statereg_eval + wild_eval + wild_forecast_eval for K1,
+               wild_stats + wild_forecast_stats for K5), error against the
+               plain version and times
 
 With ``--only a,b`` only the phases named run (the device and build
-phases always do).  ``--ab DIR`` instead times every kernel of the
+phases always do, statereg_train before any statereg or wild phase,
+statereg_eval before any wild phase, and each wild phase's inputs'
+phases before it).  ``--ab DIR`` instead times every kernel of the
 checkout in DIR (a parent commit, unpacked with git archive) and of this
 tree in turns, parent, tree, tree, parent (phase ``ab``: ``ms``,
 ``ms_b2b`` and ``device_ms`` of each phase at each B), each run a
@@ -763,17 +798,20 @@ def eval_workdir(env=None):
 
 EVAL_ARGS = ["--cfg", "subject_03", "--synthetic", "--iter", "3000"]
 # Steady-state steps [lo, hi) of the 380-step eval that are timed (phase
-# eval) and profiled (phase eval_profile): past the first steps' warm-up
-# and between the expert syncs at t % 100 == 0.
+# eval): past the first steps' warm-up and between the expert syncs at
+# t % 100 == 0.  Phase eval_profile profiles the first PROFILE_STEPS of
+# them: the profiler's processing of all 50 steps' ~200k kernel records
+# took ~100 s of the script.
 WINDOW = (110, 160)
+PROFILE_STEPS = 20
 
 
-def window_hook(marks, after=None):
+def window_hook(marks, after=None, window=WINDOW):
     """An eval step hook: at the window's edges (after steps lo-1 and
     hi-1) it waits for the card and stamps the host clock into ``marks``;
     then it calls ``after`` (the profiler's step)."""
     import torch
-    lo, hi = WINDOW
+    lo, hi = window
 
     def hook(t):
         if t in (lo - 1, hi - 1):
@@ -826,15 +864,16 @@ def phase_eval(device):
 
 
 def phase_eval_profile(device, step_ms=None):
-    """torch.profiler over the steady-state window of the full eval (4
-    takes x 380 steps; only steps WINDOW recorded, no setup): device time
-    by kernel, CUDA kernels launched per step, and the device's busy share
-    of the window's wall time, profiled and (from phase eval's
-    ``window_step_ms``) unprofiled."""
+    """torch.profiler over the first PROFILE_STEPS steps of the
+    steady-state window of the eval (4 takes; only those steps recorded,
+    no setup): device time by kernel, CUDA kernels launched per step, and
+    the device's busy share of the profiled steps' wall time, profiled
+    and (from phase eval's ``window_step_ms`` over WINDOW) unprofiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from egopose_tpu_torch.cli import ego_mimic_eval
-    lo, hi = WINDOW
+    lo = WINDOW[0]
+    hi = lo + PROFILE_STEPS
     saved, marks = [], []
     # takes cut to hi + 2 * fr_margin frames, so the eval stops at the
     # window's end (PR 9: the steps after it were run and not recorded)
@@ -846,7 +885,8 @@ def phase_eval_profile(device, step_ms=None):
                      on_trace_ready=lambda p: saved.append(
                          p.key_averages())) as prof:
             ego_mimic_eval.main(EVAL_ARGS + ["--device", str(device)],
-                                step_hook=window_hook(marks, prof.step))
+                                step_hook=window_hook(marks, prof.step,
+                                                      (lo, hi)))
     # device activity only: kernels and copies, not the profiler's own
     # per-step range (reported on the device too)
     dev = [e for e in saved[0]
@@ -1976,6 +2016,8 @@ def statereg_workdir():
         with open(os.path.join(tmp, "config", "egomimic", "subject_03.yml"),
                   "w") as f:
             yaml.safe_dump(em, f)
+        os.symlink(os.path.join(REPO, "config", "egoforecast"),
+                   os.path.join(tmp, "config", "egoforecast"))
         models = os.path.join(tmp, "results", "egomimic", "subject_03")
         os.makedirs(models)
         os.symlink(os.path.join(REPO, "results", "egomimic", "subject_03",
@@ -2392,6 +2434,300 @@ def phase_statereg_variants(device, dataset, cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# In-the-wild evaluation: the synthetic world standing in for wild video
+# ---------------------------------------------------------------------------
+
+WILD_FEAT = "wild_syn"
+# Max-abs bar of the card's float32 2D projection (K5) against the CPU
+# float64 one, in the metric's units (the ground truth's shoulder-to-hip
+# height is 0.5): float32 FK rounds at ~1e-7 m over ~1 m of body, ~1e-6
+# of that height; the bar is 100x that.
+WILD_TOL = 1e-4
+
+
+def phase_wild_setup():
+    """The wild world, written into the working directory from the
+    synthetic mimic world (host only, float64): its 4 takes x 400 frames
+    of 64 CNN features as datasets/features/cnn_feat_wild_syn.p =
+    (features, None), keyed wild_00 ... wild_03, and every frame of each
+    take's expert projected by the port's Pose2DContext into the
+    OpenPose-25 layout (x 100 + 300, tests/test_wild_eval.py's scale) as
+    datasets/tpv/poses/<take>/%05d_keypoints.json."""
+    import pickle
+    import torch
+    from egopose_tpu_torch.cli.eval_pose_wild import keypoint_file
+    from egopose_tpu_torch.cli.ego_mimic import build_world
+    from egopose_tpu_torch.utils.config import EgoMimicConfig
+    from egopose_tpu_torch.utils.pose2d import JOINTS_MAP, Pose2DContext
+    t0 = time.time()
+    cfg = EgoMimicConfig("subject_03")
+    spec, model, _, _, expert, feats = build_world(cfg, torch.float64, "cpu",
+                                                   synthetic=True)
+    takes = ["wild_%02d" % i for i in range(feats.shape[0])]
+    os.makedirs(os.path.join(cfg.data_dir, "features"), exist_ok=True)
+    with open(os.path.join(cfg.data_dir, "features",
+                           f"cnn_feat_{WILD_FEAT}.p"), "wb") as f:
+        pickle.dump((dict(zip(takes, feats)), None), f)
+    ctx = Pose2DContext(model, spec)
+    n_files = 0
+    for i, take in enumerate(takes):
+        os.makedirs(os.path.dirname(keypoint_file(cfg.data_dir, take, 0)))
+        p2 = ctx.project_traj(expert.qpos[i].numpy()) * 100.0 + 300.0
+        for fr in range(p2.shape[0]):
+            kp = np.zeros(25 * 3)
+            for op_idx, body in JOINTS_MAP:
+                kp[3 * op_idx:3 * op_idx + 3] = [*p2[fr, ctx.body2id[body]],
+                                                 1.0]
+            with open(keypoint_file(cfg.data_dir, take, fr), "w") as f:
+                json.dump({"people": [{"pose_keypoints_2d": kp.tolist()}]},
+                          f)
+            n_files += 1
+    rec = dict(takes=len(takes), frames=int(feats.shape[1]),
+               feature_dim=int(feats.shape[2]), keypoint_files=n_files,
+               seconds=time.time() - t0)
+    emit("wild_setup", ok=True, **rec)
+    return rec
+
+
+def phase_wild_eval(device):
+    """state_reg --mode test --test-feat wild_syn on the STATEREG_EVAL net
+    (the statereg wild results), then ego_mimic_eval_wild --cfg subject_03
+    --iter 3000 --test-feat wild_syn on the card, re-anchored on that net:
+    4 takes x 380 steps, one K1 launch a step and no other kernel, all
+    outputs finite, the first control step within K1's f32 bar of the
+    plain f64 step on its own inputs.  frames/s, the wall time, the resets
+    per take and the steady-state ms a step over WINDOW are printed, not
+    gated."""
+    import torch
+    from egopose_tpu_torch.cli import ego_mimic_eval_wild, state_reg
+    from egopose_tpu_torch.utils.config import EgoMimicConfig
+    t0 = time.time()
+    sr = state_reg.main(["--cfg", STATEREG_EVAL, "--mode", "test",
+                         "--test-feat", WILD_FEAT, "--iter",
+                         str(STATEREG_EPOCHS), "--synthetic", "--device",
+                         str(device)])
+    sr_s = time.time() - t0
+    first, marks = [], []
+    reset_counts()
+    t0 = time.time()
+    results, meta = ego_mimic_eval_wild.main(
+        ["--cfg", "subject_03", "--iter", "3000", "--test-feat", WILD_FEAT,
+         "--device", str(device)],
+        step_hook=window_hook(marks), phys_hook=first_step_hook(first))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    cfg = EgoMimicConfig("subject_03")
+    step_ok, step_rec = first_step_vs_plain(
+        first, lambda f, dt, dev: step_inputs(f, cfg, dt, dev))
+    others = {k: v for k, v in counts.items() if k != "k1"}
+    finite = bool(all(np.isfinite(a).all()
+                      for res in (results, sr) for key in res
+                      for a in res[key].values()))
+    rec = dict(takes=len(results["traj_pred"]), steps=meta["steps"],
+               k1_launches=counts["k1"], other_launches=others,
+               frames_per_sec=meta["frames_per_sec"], wall_s=wall,
+               window=list(WINDOW),
+               window_step_ms=(marks[1] - marks[0]) * 1e3
+               / (WINDOW[1] - WINDOW[0]),
+               num_reset=meta["num_reset_per_take"],
+               statereg_test_s=sr_s, first_step=step_rec, finite=finite)
+    ok = bool(counts["k1"] == meta["steps"] and not any(others.values())
+              and step_ok and finite)
+    emit("wild_eval", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"wild_eval out of bounds: {rec}")
+    return dict(rec, results=results)
+
+
+def wild_projection_err(card, cpu, traj_pred, data_dir, margin):
+    """Max over every frame of every take, and over its keypoints, of the
+    distance between the card's aligned projection (``card``, a
+    Pose2DContext on the card) and the CPU's (``cpu``), in the metric's
+    units, against the keypoints eval_pose_wild reads for that frame."""
+    from egopose_tpu_torch.cli.eval_pose_wild import keypoint_file
+    worst = 0.0
+    for take, traj in traj_pred.items():
+        pk, pc = card.project_traj(traj), cpu.project_traj(traj)
+        for fr in range(traj.shape[0]):
+            gt = cpu.load_gt_pose(keypoint_file(data_dir, take,
+                                                fr + margin))
+            d = cpu.align_qpos(None, gt, p=pk[fr]) \
+                - cpu.align_qpos(None, gt, p=pc[fr])
+            worst = max(worst, float(np.linalg.norm(d, axis=1).max()
+                                     * cpu.dist_scale(gt)))
+    return worst
+
+
+def k5_at(m, traj, device):
+    """K5's ms (events), device ms and bound on a trajectory's frames."""
+    import torch
+    from egopose_tpu_torch.physics import fk
+    q = torch.as_tensor(traj).to(device=device, dtype=torch.float32)
+    return dict(B=int(q.shape[0]), ms=time_ms(lambda: fk.fk_cuda(m, q)),
+                device_ms=device_ms(lambda: fk.fk_cuda(m, q),
+                                    KERNEL_KEYS["k5"]),
+                **bound(*k5_work(m, q.shape[0], 4)))
+
+
+def phase_wild_stats(device, em_results):
+    """eval_pose_wild --egomimic-cfg subject_03 --egomimic-iter 3000
+    --statereg-cfg STATEREG_EVAL --data wild_syn on the card: one K5
+    launch per take and algorithm (the whole take's 2D projection), no
+    other kernel; both metrics finite; the card's float32 projection of
+    every frame of both results within WILD_TOL of the CPU float64
+    projection in the metric's units.  Both algorithms' pose dist and
+    accels are printed, and K5's time on one take's frames."""
+    import io
+    import pickle
+    import torch
+    from egopose_tpu_torch.cli import eval_pose_wild
+    from egopose_tpu_torch.utils.config import EgoMimicConfig
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = eval_pose_wild.main(
+            ["--egomimic-cfg", "subject_03", "--egomimic-iter", "3000",
+             "--statereg-cfg", STATEREG_EVAL, "--statereg-iter",
+             str(STATEREG_EPOCHS), "--data", WILD_FEAT, "--device",
+             str(device)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cfg = EgoMimicConfig("subject_03")
+    with open(os.path.join("results", "statereg", STATEREG_EVAL, "results",
+                           "iter_%04d_%s.p" % (STATEREG_EPOCHS, WILD_FEAT)),
+              "rb") as f:
+        sr_results = pickle.load(f)[0]
+    card = eval_pose_wild.pose_context(cfg.mujoco_model, device)
+    cpu = eval_pose_wild.pose_context(cfg.mujoco_model, "cpu", torch.float64)
+    err = max(wild_projection_err(card, cpu, res["traj_pred"], cfg.data_dir,
+                                  cfg.fr_margin)
+              for res in (em_results, sr_results))
+    n_takes = len(em_results["traj_pred"])
+    others = {k: v for k, v in counts.items() if k != "k5"}
+    finite = bool(np.isfinite([out["ego_mimic"], out["state_reg"]]).all())
+    rec = dict(takes=n_takes, k5_launches=counts["k5"],
+               other_launches=others,
+               ego_mimic=dict(zip(("pose_dist", "accels"), out["ego_mimic"])),
+               state_reg=dict(zip(("pose_dist", "accels"), out["state_reg"])),
+               projection_max_abs_err=err, tol=WILD_TOL,
+               k5=k5_at(card.model, next(iter(
+                   em_results["traj_pred"].values())), device),
+               finite=finite)
+    ok = bool(counts["k5"] == 2 * n_takes and not any(others.values())
+              and err <= WILD_TOL and finite)
+    emit("wild_stats", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"wild_stats out of bounds: {rec}")
+    return rec
+
+
+def wild_forecast_checkpoint(device, forecast_ckpt):
+    """results/egoforecast/FORECAST/models/iter_FORECAST_ITERS.p: the
+    bytes forecast_train wrote (``forecast_ckpt``), or without them the
+    warm start from the mimic iter_3000.p saved as a forecast checkpoint.
+    Returns which."""
+    from egopose_tpu_torch.cli import ego_forecast
+    path = os.path.join("results", "egoforecast", FORECAST, "models",
+                        "iter_%04d.p" % FORECAST_ITERS)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if forecast_ckpt is not None:
+        with open(path, "wb") as f:
+            f.write(forecast_ckpt)
+        return "forecast_train"
+    ego_forecast.main(["--cfg", FORECAST, "--synthetic", "--device",
+                       str(device), "--batch-lanes", "4", "--max-iter",
+                       "0"]).save(path)
+    return "warm_start"
+
+
+def phase_wild_forecast_eval(device, forecast_ckpt=None):
+    """ego_forecast_eval_wild --cfg subject_03_syn --test-feat wild_syn
+    --egomimic-iter 3000 on the card, on forecast_train's checkpoint (the
+    warm start without it): every window of the 4 wild takes one lane of
+    one batch, 90 K1 launches and no other kernel, the first control step
+    within K1's f32 bar of the plain f64 step on its own inputs, finite
+    outputs, the window count the lane rule's; frames/s printed."""
+    import pickle
+    import torch
+    from egopose_tpu_torch.cli import ego_forecast_eval_wild as efw
+    from egopose_tpu_torch.utils.config import (EgoForecastConfig,
+                                                EgoMimicConfig)
+    source = wild_forecast_checkpoint(device, forecast_ckpt)
+    first = []
+    reset_counts()
+    results, meta = efw.main(
+        ["--cfg", FORECAST, "--iter", str(FORECAST_ITERS), "--test-feat",
+         WILD_FEAT, "--egomimic-iter", "3000", "--device", str(device)],
+        step_hook=first_step_hook(first))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cfg = EgoForecastConfig(FORECAST)
+    em_cfg = EgoMimicConfig(cfg.ego_mimic_cfg)
+    with open(os.path.join(em_cfg.result_dir,
+                           "iter_3000_%s.p" % WILD_FEAT), "rb") as f:
+        em_traj = pickle.load(f)[0]["traj_pred"]
+    from egopose_tpu_torch.cli.ego_mimic_eval_wild import load_wild_features
+    feats = load_wild_features(cfg, WILD_FEAT)
+    want = len(efw.wild_window_lanes(list(feats), feats, em_traj,
+                                     cfg.fr_margin, em_cfg.fr_margin,
+                                     cfg.env_episode_len)[0])
+    step_ok, step_rec = first_step_vs_plain(first)
+    others = {k: v for k, v in counts.items() if k != "k1"}
+    finite = bool(all(np.isfinite(a).all()
+                      for a in results["traj_pred"].values()))
+    steps = cfg.env_episode_len
+    rec = dict(checkpoint=source, windows=meta["n_windows"],
+               lane_rule_windows=want, control_steps=steps,
+               k1_launches=counts["k1"], other_launches=others,
+               wall_s=meta["wall_s"], frames_per_sec=meta["frames_per_sec"],
+               first_step=step_rec, finite=finite)
+    ok = bool(counts["k1"] == steps and not any(others.values())
+              and step_ok and finite and meta["n_windows"] == want)
+    emit("wild_forecast_eval", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"wild_forecast_eval out of bounds: {rec}")
+    return dict(rec, results=results)
+
+
+def phase_wild_forecast_stats(device, fc_results):
+    """eval_forecast_wild --horizons 30 90 on the card: one K5 launch per
+    take with windows (all its windows' frames at once) and no other
+    kernel, finite metrics; both horizons printed, and K5's time on one
+    take's windows."""
+    import io
+    import torch
+    from egopose_tpu_torch.cli import eval_forecast_wild
+    from egopose_tpu_torch.cli.eval_pose_wild import pose_context
+    from egopose_tpu_torch.utils.config import EgoForecastConfig
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = eval_forecast_wild.main(
+            ["--egoforecast-cfg", FORECAST, "--egoforecast-iter",
+             str(FORECAST_ITERS), "--data", WILD_FEAT, "--horizons", "30",
+             "90", "--device", str(device)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with_windows = [w for w in fc_results["traj_pred"].values()
+                    if w.shape[0]]
+    others = {k: v for k, v in counts.items() if k != "k5"}
+    finite = bool(np.isfinite(list(out.values())).all())
+    ctx = pose_context(EgoForecastConfig(FORECAST).mujoco_model, device)
+    rec = dict(takes_with_windows=len(with_windows),
+               k5_launches=counts["k5"], other_launches=others,
+               horizons={h: dict(zip(("pose_dist", "accels"), v))
+                         for h, v in out.items()},
+               k5=k5_at(ctx.model, with_windows[0].reshape(
+                   -1, with_windows[0].shape[-1]), device),
+               finite=finite)
+    ok = bool(counts["k5"] == len(with_windows) and not any(others.values())
+              and finite)
+    emit("wild_forecast_stats", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"wild_forecast_stats out of bounds: {rec}")
+    return rec
+
+
 AB_PHASES = "k1_time,k1_dense_time,k2_time,k3_time,k4_time,k5_time"
 
 
@@ -2492,23 +2828,39 @@ def main():
     rt = phase_rollout_torque_fused(device) \
         if want("rollout_torque_fused") else None
     rd = phase_rollout_dense(device) if want("rollout_dense") else None
-    ft = fe = None
+    ft = fe = forecast_ckpt = None
     if any(want(p) for p in ("forecast_train", "forecast_eval",
                              "forecast_stats")):
         with forecast_workdir() as fcfg:
             ft = phase_forecast_train(device, fcfg) \
                 if want("forecast_train") else None
+            if ft is not None:      # carried to phase wild_forecast_eval
+                with open(os.path.join(
+                        "results", "egoforecast", FORECAST, "models",
+                        "iter_%04d.p" % FORECAST_ITERS), "rb") as f:
+                    forecast_ckpt = f.read()
             fe = phase_forecast_eval(
                 device, fcfg, ev["em_results"] if ev else None) \
                 if want("forecast_eval") else None
             if want("forecast_stats"):
                 phase_forecast_stats()
-    se = None
+    se = we = ws = wfe = wfs = None
     statereg = ("statereg_train", "statereg_test", "gen_cnn_feature",
                 "statereg_eval", "statereg_variants")
-    if any(want(p) for p in statereg):
+    # each wild phase reads what the phase it names wrote, so asking for
+    # one runs those first
+    wild_reads = dict(wild_eval="wild_setup", wild_stats="wild_eval",
+                      wild_forecast_eval="wild_eval",
+                      wild_forecast_stats="wild_forecast_eval")
+    wild = ("wild_setup", *wild_reads)
+
+    def need(p):
+        return want(p) or any(need(q) for q, r in wild_reads.items()
+                              if r == p)
+    if any(want(p) for p in statereg + wild):
         # every statereg phase reads statereg_train's checkpoint or data,
-        # so it runs first whenever one of them is asked for
+        # so it runs first whenever one of them is asked for; the wild
+        # phases read statereg_eval's state net
         with statereg_workdir() as scfg:
             net, dataset = phase_statereg_train(device, scfg)
             del net
@@ -2516,8 +2868,18 @@ def main():
                 phase_statereg_test(device)
             if want("gen_cnn_feature"):
                 phase_gen_cnn_feature(device)
-            if want("statereg_eval"):
+            if want("statereg_eval") or any(want(p) for p in wild):
                 se = phase_statereg_eval(device)
+            if need("wild_setup"):
+                phase_wild_setup()
+            if need("wild_eval"):
+                we = phase_wild_eval(device)
+            if need("wild_stats"):
+                ws = phase_wild_stats(device, we["results"])
+            if need("wild_forecast_eval"):
+                wfe = phase_wild_forecast_eval(device, forecast_ckpt)
+            if need("wild_forecast_stats"):
+                wfs = phase_wild_forecast_stats(device, wfe["results"])
             if want("statereg_variants"):
                 phase_statereg_variants(device, dataset, scfg)
     if only is None:
@@ -2537,7 +2899,8 @@ def main():
                 ev["launches"] + tr["k1_launches"] + tq["k1_launches"]
                 + fused("k1") + ft["k1_launches"]
                 + sum(r["k1_launches"] for r in fe.values())
-                + se["k1_launches"],
+                + se["k1_launches"] + we["k1_launches"]
+                + wfe["k1_launches"],
                 errs["float32"], t4),
             row("substep_control_step_dense", "substep.cu",
                 "substep_pallas.py:784", fused("k1_dense"), errs1d["float32"],
@@ -2551,7 +2914,8 @@ def main():
             row("pd_fused_substep", "fused_contact.cu",
                 "linalg_pallas.py:495", fused("k4"), errs4["float32"],
                 times4[1024]),
-            row("fk_batched", "fk.cu", "fk_pallas.py:67", fused("k5"),
+            row("fk_batched", "fk.cu", "fk_pallas.py:67",
+                fused("k5") + ws["k5_launches"] + wfs["k5_launches"],
                 errs5["float32"], times5[1024])]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,25 @@ def state_net_pred(cfg, cnn_feat, device, dtype):
     return (pred.double() * f64(std) + f64(mean)).to(dtype)
 
 
+def reset_to_pred(p, tables, st, pred_row):
+    """``st`` (EnvState) re-anchored to the predicted states ``pred_row``
+    (B, nq-2+nv, the statereg layout), aligned to the sim's xy and
+    heading."""
+    from .. import envs
+    from ..ops import math_utils as M
+    from ..ops import quat as Q
+    ref = st.qpos
+    nq = p.nq
+    qpos = torch.cat([ref[:, :2], pred_row[:, :nq - 2]], 1)
+    qvel = pred_row[:, nq - 2:].clone()
+    hq = M.get_heading_q(ref[:, 3:7])
+    qpos[:, 3:7] = Q.quat_mul(hq, qpos[:, 3:7])
+    qvel[:, :3] = Q.quat_rotate(hq, qvel[:, :3])
+    bq = envs.get_body_quat(tables, qpos)
+    return st._replace(qpos=qpos, qvel=qvel, prev_qpos=qpos,
+                       prev_bquat=bq, bquat=bq)
+
+
 def _select(mask, a, b):
     """Per-lane choice between two EnvStates (or tensors)."""
     if isinstance(a, tuple):
@@ -174,25 +193,12 @@ def main(argv=None, step_hook=None, phys_hook=None):
             v_out_p = agent.policy_vs_net(feats)
             v_out_v = agent.value_vs_net(feats)
 
-    def reset_to_pred(st, pred_row):
-        """Take the predicted state, aligned to the sim's xy and heading."""
-        ref = st.qpos
-        nq = p.nq
-        qpos = torch.cat([ref[:, :2], pred_row[:, :nq - 2]], 1)
-        qvel = pred_row[:, nq - 2:].clone()
-        hq = M.get_heading_q(ref[:, 3:7])
-        qpos[:, 3:7] = Q.quat_mul(hq, qpos[:, 3:7])
-        qvel[:, :3] = Q.quat_rotate(hq, qvel[:, :3])
-        bq = envs.get_body_quat(tables, qpos)
-        return st._replace(qpos=qpos, qvel=qvel, prev_qpos=qpos,
-                           prev_bquat=bq, bquat=bq)
-
     take_idx = torch.arange(n_takes, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     st = envs.reset(model, p, tables, expert, gen, n_takes,
                     fix_expert_ind=take_idx, fix_start_ind=m)
-    st = reset_to_pred(st, state_preds[:, m])
+    st = reset_to_pred(p, tables, st, state_preds[:, m])
     fix_head_lb = 0.3 if args.fail_safe == "naivefs" else None
     sync_interval = int(getattr(cfg, "sync_exp_interval", 100))
     noise_gen = torch.Generator(device=device)
@@ -250,7 +256,8 @@ def main(argv=None, step_hook=None, phys_hook=None):
             else:
                 trigger = torch.zeros_like(active)
             trigger = trigger & active & (t + 1 < test_lens_t)
-            resetted = reset_to_pred(new_st, state_preds[:, m + t + 1])
+            resetted = reset_to_pred(p, tables, new_st,
+                                     state_preds[:, m + t + 1])
             new_st = _select(trigger, resetted, new_st)
             st = _select(active, new_st, st)        # frozen once inactive
             n_reset = n_reset + trigger.to(torch.int64)

@@ -3,8 +3,10 @@ the control step (csrc/substep.cu; its sparse branch, and its dense branch
 with ContactParams.sparse_ldl=False against the split path at R=1), K2, the batched SPD solve
 (csrc/spd_solve.cu), K3 and K4, the fused contact solve and the fused
 stable-PD substep (csrc/fused_contact.cu), and K5, forward kinematics
-(csrc/fk.cu).  Needs an NVIDIA GPU and nvcc: marked ``cuda`` and skipped
-without them.  Imports no JAX, so it runs on a machine that has only the port:
+(csrc/fk.cu), also under the wild metrics' 2D projection
+(utils/pose2d.py).  Needs an NVIDIA GPU and nvcc: marked ``cuda`` and
+skipped without them.  Imports no JAX, so it runs on a machine that has
+only the port:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -q
 
@@ -670,3 +672,33 @@ def test_fk_wrapper_rejects_bad_inputs(card):
     for bad in (q.cpu(), q.double(), q[:, :58], q.t()):
         with pytest.raises(ValueError):
             fk.fk_cuda(m, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("flip", [False, True])
+def test_pose2d_projection_on_card(card, dtype, tol, flip):
+    """utils/pose2d.py's project_traj on a model on the card (one K5
+    launch for every frame) against the CPU float64 projection of the same
+    frames: image coordinates of a camera 10 m from the hips (~0.1 in
+    size)."""
+    from egopose_tpu_torch.physics import fk, model
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    from egopose_tpu_torch.utils.pose2d import Pose2DContext
+    spec = parse_mjcf(XML)
+    rng = np.random.RandomState(5)
+    q = np.zeros((380, spec.nq))
+    q[:, :3] = rng.randn(380, 3)
+    q[:, 2] = 0.9
+    q[:, 3:7] = rng.randn(380, 4)
+    q[:, 7:] = rng.uniform(-0.5, 0.5, (380, spec.nq - 7))
+    ref = Pose2DContext(model.build_model(spec, dtype=torch.float64),
+                        spec).project_traj(q, flip)
+    ctx = Pose2DContext(model.build_model(spec, dtype=dtype, device=card),
+                        spec)
+    before = fk.launches
+    got = ctx.project_traj(q, flip)
+    assert fk.launches == before + 1
+    assert got.shape == ref.shape == (380, ctx.nbody, 2)
+    assert np.isfinite(got).all() and np.abs(got - ref).max() <= tol
