@@ -87,6 +87,19 @@ any failure exits non-zero:
                of the same work on this card (K2-K4 count the lower
                triangle of A / M as read, all that a Cholesky factor reads);
                also their resources as in k1_time (and systems per block)
+  data_pipeline
+               create_humanoid, then convert_clip on the card, on two
+               seeded BVH takes (4 s at 120 Hz) in a scratch directory:
+               the model parses, the (121, nq) trajectories are finite with
+               unit root quaternions and within 1e-12 of convert_clip
+               --device cpu
+  gen_expert   gen_expert on the card (float64) over 8 seeded takes of
+               3,600 frames (two minutes at 30 Hz each, nq 59: a size
+               chosen for this run, not the dataset's): one K5 launch a
+               take and no other kernel, every field of every take within
+               1e-9 of gen_expert --device cpu, the file loaded by the
+               non-synthetic build_world on the card; frames/s, K5's ms,
+               device ms and bound at B=3,600 in float64
   k34_stages   the stage-clock build of K3 and K4 (EGOPOSE_STAGE_CLOCKS:
                lane 0 of each warp stamps clock64() after each stage) at
                B=4 and B=1024, f32: the median over warps of each stage's
@@ -169,6 +182,10 @@ any failure exits non-zero:
                take's predictions on the card (f32) against the port's
                CPU f64 run of the same checkpoint within 1e-4 relative RMS
                (STATEREG_TOL)
+  statereg_stats
+               eval_pose --algo state_reg on statereg_test's results
+               pickle: finite pose, velocity and acceleration metrics for
+               the 4 takes
   gen_cnn_feature
                gen_cnn_feature over the 4 takes in batches of 256 frames:
                frames/s, (240, 128) features a take, the first batch
@@ -224,11 +241,19 @@ any failure exits non-zero:
                + train + train_torque + the three one-step phases + the
                three rollouts + forecast_train + forecast_eval +
                statereg_eval + wild_eval + wild_forecast_eval for K1,
-               wild_stats + wild_forecast_stats for K5), error against the
+               wild_stats + wild_forecast_stats + gen_expert + the
+               synthetic worlds' expert replays for K5), error against the
                plain version and times
 
+Every world is built through cli/ego_mimic.py's build_world, which the
+script wraps (count_world_builds): a synthetic world built on the card
+must launch K5 once a take (its experts' replay) and nothing else, and
+every launch count is zeroed after the build, so each phase's counts read
+only its own path.
+
 With ``--only a,b`` only the phases named run (the device and build
-phases always do, statereg_train before any statereg or wild phase,
+phases always do, statereg_test before statereg_stats, statereg_train
+before any statereg or wild phase,
 statereg_eval before any wild phase, and each wild phase's inputs'
 phases before it).  ``--ab DIR`` instead times every kernel of the
 checkout in DIR (a parent commit, unpacked with git archive) and of this
@@ -260,6 +285,7 @@ sys.path.insert(0, REPO)
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
+H100_F64_FLOPS = 34e12        # float64 outside the tensor cores (data sheet)
 N_FRAMES = 15                 # substeps per 30 Hz control step
 ROLLOUT_STEPS = 20            # control steps of the fused rollouts' segment
 ROLLOUT_LANES = 1024          # lanes of the fused rollouts
@@ -1074,9 +1100,9 @@ def k5_work(m, bsz, itemsize):
             bsz * (139 * (nd - 6) + 66 * nb + 131))
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=H100_F32_FLOPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
@@ -1257,6 +1283,279 @@ def phase_k5_time(device):
         emit("k5_time", **rec)
         out[bsz] = rec
     return out
+
+
+# ---------------------------------------------------------------------------
+# data processing: create_humanoid, convert_clip and gen_expert
+# ---------------------------------------------------------------------------
+
+# The BVH hierarchy of tests/test_torch_mocap.py's seeded take: a root with
+# translation, Spine and Head, LeftLeg and its LeftToe (which convert_clip's
+# EXCLUDE_BONES drops), offsets in inches.
+BVH_HIERARCHY = """HIERARCHY
+ROOT Hips
+{
+  OFFSET 0.0 0.0 0.0
+  CHANNELS 6 Xposition Yposition Zposition Xrotation Yrotation Zrotation
+  JOINT Spine
+  {
+    OFFSET 0.0 2.0 4.0
+    CHANNELS 3 Xrotation Yrotation Zrotation
+    JOINT Head
+    {
+      OFFSET 0.0 1.0 6.0
+      CHANNELS 3 Xrotation Yrotation Zrotation
+      End Site
+      {
+        OFFSET 0.0 0.0 3.0
+      }
+    }
+  }
+  JOINT LeftLeg
+  {
+    OFFSET 1.0 0.0 -4.0
+    CHANNELS 3 Xrotation Yrotation Zrotation
+    JOINT LeftToe
+    {
+      OFFSET 0.0 1.0 -8.0
+      CHANNELS 3 Xrotation Yrotation Zrotation
+      End Site
+      {
+        OFFSET 0.0 1.0 0.0
+      }
+    }
+  }
+}
+"""
+
+
+def seeded_bvh(n_frames, seed):
+    """BVH_HIERARCHY with ``n_frames`` of seeded motion at 120 Hz: a moving
+    root turning about all three axes, the joints within +-80 degrees."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n_frames)[:, None] / 120.0
+    frames = np.hstack([
+        np.hstack([t * 10, np.sin(t) * 5, 36 + np.cos(3 * t)]),
+        rng.uniform(-90, 90, 3) + 40 * np.sin(2 * t + rng.uniform(0, 6, 3)),
+        rng.uniform(-60, 60, (1, 12)) + 20 * np.sin(
+            t * rng.uniform(1, 4, 12) + rng.uniform(0, 6, 12))])
+    rows = "\n".join(" ".join("%.6f" % v for v in r) for r in frames)
+    return (f"{BVH_HIERARCHY}MOTION\nFrames: {n_frames}\n"
+            f"Frame Time: 0.008333\n{rows}\n")
+
+
+def phase_data_pipeline(device):
+    """create_humanoid, then convert_clip on the card, in a scratch
+    directory, on two seeded takes of BVH_HIERARCHY (4 s at 120 Hz each):
+    the generated model parses, the trajectories are finite (T, nq) with
+    unit root quaternions and within 1e-12 of convert_clip --device cpu."""
+    import io
+    from egopose_tpu_torch.cli import convert_clip, create_humanoid
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            os.makedirs("datasets/traj")
+            for i, take in enumerate(("take_01", "take_02")):
+                with open(f"datasets/traj/0000_{take}.bvh", "w") as f:
+                    f.write(seeded_bvh(481, i))
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                xml = create_humanoid.main(["--mocap-id", "0000",
+                                            "--out-id", "humanoid_0000"])
+                t_xml = time.time() - t0
+                t0 = time.time()
+                card = convert_clip.main(["--model-id", "humanoid_0000",
+                                          "--mocap-id", "0000",
+                                          "--device", str(device)])
+                t_card = time.time() - t0
+                cpu = convert_clip.main(["--model-id", "humanoid_0000",
+                                         "--mocap-id", "0000",
+                                         "--device", "cpu"])
+            spec = parse_mjcf(xml)
+        finally:
+            os.chdir(cwd)
+    trajs = list(card.values())
+    err = max(float(np.abs(card[k] - cpu[k]).max()) for k in card)
+    unit = max(float(np.abs(np.linalg.norm(q[:, 3:7], axis=1) - 1).max())
+               for q in trajs)
+    finite = bool(all(np.isfinite(q).all() for q in trajs))
+    rec = dict(takes=len(trajs), shape=list(trajs[0].shape), nq=spec.nq,
+               nbody=spec.nbody, finite=finite, max_abs_err_vs_cpu=err,
+               root_quat_norm_err=unit, create_humanoid_s=t_xml,
+               convert_clip_s=t_card)
+    ok = bool(finite and len(trajs) == 2 and err <= 1e-12 and unit <= 1e-12
+              and all(q.shape == (121, spec.nq) for q in trajs))
+    emit("data_pipeline", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"data_pipeline out of bounds: {rec}")
+    return rec
+
+
+# Takes of phase gen_expert: 8 x 3,600 frames (two minutes at 30 Hz each),
+# at the full width of humanoid_1205_v1 (nq 59): a size chosen for this
+# run, not the EgoPose dataset's.
+GEN_EXPERT_TAKES, GEN_EXPERT_LEN = 8, 3600
+GEN_EXPERT_TOL = 1e-9         # max-abs of every field, card against CPU f64
+
+
+def expert_workdir_files(spec):
+    """Write into the working directory the seeded takes of phase
+    gen_expert (datasets/traj/<take>_traj.p: a root walking and turning,
+    hinges moving within their ranges, as envs.synthetic_experts draws
+    them), their meta (6 train, 2 test, video_mocap_sync [0, 2, T-4]),
+    64-wide CNN features and an ego-mimic config that reads both files."""
+    import pickle
+    import yaml
+    rng = np.random.RandomState(11)
+    n_t = GEN_EXPERT_LEN
+    t = np.arange(n_t) / 30.0
+    takes = ["syn_%02d" % i for i in range(GEN_EXPERT_TAKES)]
+    for d in ("datasets/traj", "datasets/meta", "datasets/features",
+              "config/egomimic"):
+        os.makedirs(d)
+    lo = np.clip(spec.jnt_range[:, 0], -0.6, 0.0)
+    hi = np.clip(spec.jnt_range[:, 1], 0.0, 0.6)
+    for take in takes:
+        heading = 0.8 * np.sin(2 * np.pi * 0.01 * t + rng.uniform(0, 6))
+        q = np.zeros((n_t, spec.nq))
+        q[:, 0] = np.cumsum(np.cos(heading)) / 30.0
+        q[:, 1] = np.cumsum(np.sin(heading)) / 30.0
+        q[:, 2] = 0.92 + 0.02 * np.sin(2 * np.pi * t)
+        q[:, 3], q[:, 6] = np.cos(heading / 2), np.sin(heading / 2)
+        amp = 0.25 * (hi - lo) * rng.uniform(0.2, 1.0, spec.nq - 7)
+        q[:, 7:] = 0.5 * (lo + hi) + amp * np.sin(
+            2 * np.pi * rng.uniform(0.2, 0.7, spec.nq - 7) * t[:, None]
+            + rng.uniform(0, 2 * np.pi, spec.nq - 7))
+        with open(f"datasets/traj/{take}_traj.p", "wb") as f:
+            pickle.dump(q, f)
+    meta = {"train": takes[:6], "test": takes[6:], "capture": {"fps": 30},
+            "video_mocap_sync": {k: [0, 2, n_t - 4] for k in takes}}
+    with open("datasets/meta/gen_expert_syn.yml", "w") as f:
+        yaml.safe_dump(meta, f)
+    with open("datasets/features/cnn_feat_gen_expert_syn.p", "wb") as f:
+        pickle.dump(({k: rng.randn(n_t - 6, 64).astype(np.float32)
+                      for k in takes}, None), f)
+    em = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
+                                          "subject_03.yml")))
+    em.update(meta_id="gen_expert_syn", expert_feat="card",
+              cnn_feat="gen_expert_syn")
+    em.pop("state_net_cfg", None)
+    with open("config/egomimic/gen_expert_syn.yml", "w") as f:
+        yaml.safe_dump(em, f)
+    return takes
+
+
+def phase_gen_expert(device):
+    """gen_expert --meta-id gen_expert_syn on the card (float64) over
+    GEN_EXPERT_TAKES seeded takes of GEN_EXPERT_LEN frames, in a scratch
+    directory: one K5 launch a take and no other kernel; every field of
+    every take within GEN_EXPERT_TOL of gen_expert --device cpu; the
+    written file loads through the non-synthetic build_world on the card.
+    frames/s (every frame replayed, over the CLI's wall time), and K5's
+    time and bound at B=GEN_EXPERT_LEN in float64."""
+    import io
+    import torch
+    from egopose_tpu_torch.cli import gen_expert
+    from egopose_tpu_torch.cli.ego_mimic import build_world
+    from egopose_tpu_torch.physics import fk
+    from egopose_tpu_torch.physics.model import build_model
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    from egopose_tpu_torch.utils.config import EgoMimicConfig
+    spec = parse_mjcf(os.path.join(REPO, "assets", "mujoco_models",
+                                   "humanoid_1205_v1.xml"))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            takes = expert_workdir_files(spec)
+            argv = ["--meta-id", "gen_expert_syn", "--model-xml",
+                    "humanoid_1205_v1"]
+            with contextlib.redirect_stdout(io.StringIO()):
+                reset_counts()
+                t0 = time.time()
+                card = gen_expert.main(argv + ["--out-id", "card",
+                                               "--device", str(device)])
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                counts = read_counts()
+                t0 = time.time()
+                cpu = gen_expert.main(argv + ["--out-id", "cpu", "--device",
+                                              "cpu"])
+                cpu_s = time.time() - t0
+            world = build_world(EgoMimicConfig("gen_expert_syn"),
+                                torch.float32, device)
+        finally:
+            os.chdir(cwd)
+    errs = {key: max(float(np.abs(np.asarray(card[t][key])
+                                  - np.asarray(cpu[t][key])).max())
+                     for t in takes)
+            for key in cpu[takes[0]] if key != "len"}
+    same = list(card) == list(cpu) == takes and all(
+        card[t]["len"] == cpu[t]["len"] == GEN_EXPERT_LEN - 6
+        and sorted(card[t]) == sorted(cpu[t]) for t in takes)
+    expert = world[4]
+    loaded = tuple(expert.qpos.shape) == (6, GEN_EXPERT_LEN - 6, spec.nq) \
+        and bool(torch.isfinite(expert.obs).all())
+    m = build_model(spec, dtype=torch.float64, device=device)
+    q = torch.as_tensor(card[takes[0]]["qpos"], device=device)
+    # the file's cut take plus its last 6 frames again: B = GEN_EXPERT_LEN,
+    # the batch of one take's replay
+    q = torch.cat([q, q[-6:]])
+    k5 = dict(B=int(q.shape[0]), dtype="float64",
+              ms=time_ms(lambda: fk.fk_cuda(m, q)),
+              device_ms=device_ms(lambda: fk.fk_cuda(m, q),
+                                  KERNEL_KEYS["k5"]),
+              **bound(*k5_work(m, q.shape[0], 8), H100_F64_FLOPS))
+    others = {k: v for k, v in counts.items() if k != "k5"}
+    frames = GEN_EXPERT_TAKES * GEN_EXPERT_LEN
+    rec = dict(takes=GEN_EXPERT_TAKES, frames_per_take=GEN_EXPERT_LEN,
+               k5_launches=counts["k5"], other_launches=others,
+               wall_s=wall, frames_per_sec=frames / wall, cpu_f64_s=cpu_s,
+               cpu_frames_per_sec=frames / cpu_s, max_abs_err=errs,
+               tol=GEN_EXPERT_TOL, same_takes_and_fields=same,
+               build_world_loads=loaded, k5=k5)
+    ok = bool(counts["k5"] == GEN_EXPERT_TAKES and not any(others.values())
+              and max(errs.values()) <= GEN_EXPERT_TOL and same and loaded)
+    emit("gen_expert", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"gen_expert out of bounds: {rec}")
+    return rec
+
+
+# K5 launches of each synthetic world built on the card (one a take: its
+# experts' replay), recorded by count_world_builds
+WORLD_K5 = []
+
+
+def count_world_builds():
+    """Wrap cli/ego_mimic.py's build_world, through which every CLI and
+    phase builds its world: a synthetic world built on the card must have
+    launched K5 once a take (its experts' replay, envs/expert.py), any
+    other world no kernel; those launches go to WORLD_K5 and every count
+    is zeroed after the build, so a phase's counts, zeroed before it
+    starts, read only its own path past its world."""
+    from egopose_tpu_torch.cli import ego_mimic
+    build = ego_mimic.build_world
+
+    def counted(cfg, dtype, device, *args, **kw):
+        before = read_counts()
+        out = build(cfg, dtype, device, *args, **kw)
+        after = read_counts()
+        n = {k: after[k] - before[k] for k in after}
+        synthetic = kw.get("synthetic", args[0] if args else False)
+        on_card = str(device).startswith("cuda")
+        want = int(out[4].qpos.shape[0]) if synthetic and on_card else 0
+        if n["k5"] != want or any(v for k, v in n.items() if k != "k5"):
+            raise AssertionError(
+                f"build_world launched {n}, expected {want} K5 launches")
+        WORLD_K5.append(n["k5"])
+        if on_card:
+            reset_counts()
+        return out
+
+    ego_mimic.build_world = counted
 
 
 def reset_counts():
@@ -2242,6 +2541,28 @@ def phase_statereg_test(device):
     return rec
 
 
+def phase_statereg_stats():
+    """eval_pose --algo state_reg on the results pickle statereg_test
+    wrote (host numpy): finite pose, velocity and acceleration metrics for
+    each of the 4 takes."""
+    import io
+    from egopose_tpu_torch.cli import eval_pose
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = eval_pose.main(["--algo", "state_reg", "--statereg-cfg",
+                                STATEREG, "--statereg-iter",
+                                str(STATEREG_EPOCHS), "--data", "test"])
+    keys = ("pose_dist", "vel_dist", "accel")
+    finite = bool(np.isfinite([stats[k] for k in keys]).all()
+                  and all(np.isfinite([v[k] for k in keys]).all()
+                          for v in stats["per_take"].values()))
+    rec = dict(takes=len(stats["per_take"]), finite=finite,
+               **{k: stats[k] for k in keys})
+    ok = finite and len(stats["per_take"]) == 4
+    emit("statereg_stats", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"statereg_stats out of bounds: {rec}")
+    return rec
+
 def feature_batch_split(sd, cfg, state_dim, device, batch=256):
     """gen_cnn_feature's work on one batch of the first take, each section
     in its own profiler session (SectionProfiler), after a warm-up batch:
@@ -2783,6 +3104,7 @@ def main():
     import egopose_tpu_torch  # noqa: F401  (sets the TF32 policy)
     from egopose_tpu_torch.physics import nvcc
     device = torch.device("cuda", 0)
+    count_world_builds()
     smi = nvidia_smi_line()
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2813,6 +3135,9 @@ def main():
     times3 = phase_fused_time(device, "k3") if want("k3_time") else {}
     times4 = phase_fused_time(device, "k4") if want("k4_time") else {}
     times5 = phase_k5_time(device) if want("k5_time") else {}
+    if want("data_pipeline"):
+        phase_data_pipeline(device)
+    ge = phase_gen_expert(device) if want("gen_expert") else None
     if want("k34_stages"):
         phase_k34_stages(device)
     steps = {}
@@ -2845,8 +3170,8 @@ def main():
             if want("forecast_stats"):
                 phase_forecast_stats()
     se = we = ws = wfe = wfs = None
-    statereg = ("statereg_train", "statereg_test", "gen_cnn_feature",
-                "statereg_eval", "statereg_variants")
+    statereg = ("statereg_train", "statereg_test", "statereg_stats",
+                "gen_cnn_feature", "statereg_eval", "statereg_variants")
     # each wild phase reads what the phase it names wrote, so asking for
     # one runs those first
     wild_reads = dict(wild_eval="wild_setup", wild_stats="wild_eval",
@@ -2864,8 +3189,10 @@ def main():
         with statereg_workdir() as scfg:
             net, dataset = phase_statereg_train(device, scfg)
             del net
-            if want("statereg_test"):
+            if want("statereg_test") or want("statereg_stats"):
                 phase_statereg_test(device)
+            if want("statereg_stats"):
+                phase_statereg_stats()
             if want("gen_cnn_feature"):
                 phase_gen_cnn_feature(device)
             if want("statereg_eval") or any(want(p) for p in wild):
@@ -2915,7 +3242,8 @@ def main():
                 "linalg_pallas.py:495", fused("k4"), errs4["float32"],
                 times4[1024]),
             row("fk_batched", "fk.cu", "fk_pallas.py:67",
-                fused("k5") + ws["k5_launches"] + wfs["k5_launches"],
+                fused("k5") + ws["k5_launches"] + wfs["k5_launches"]
+                + ge["k5_launches"] + sum(WORLD_K5),
                 errs5["float32"], times5[1024])]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

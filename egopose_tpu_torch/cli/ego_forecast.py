@@ -56,10 +56,10 @@ def main(argv=None, iter_hook=None):
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
     for flag, on, item in (
-            ("--dp-devices", args.dp_devices is not None, 10),
-            ("--profile-dir", args.profile_dir is not None, 5),
-            ("--render", args.render, 5),
-            ("--ckpt-format orbax", args.ckpt_format == "orbax", 11)):
+            ("--dp-devices", args.dp_devices is not None, 5),
+            ("--profile-dir", args.profile_dir is not None, 2),
+            ("--render", args.render, 2),
+            ("--ckpt-format orbax", args.ckpt_format == "orbax", 3)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP §1 item {item})")

@@ -106,7 +106,7 @@ def main(argv=None, step_hook=None):
     args = parser.parse_args(argv)
     if args.mode == "vis" or args.render:
         raise NotImplementedError(
-            "--mode vis / --render are not ported yet (ROADMAP §1 item 5)")
+            "--mode vis / --render are not ported yet (ROADMAP §1 item 2)")
     if args.mode != "save":
         raise SystemExit("unknown --mode %s (save|vis)" % args.mode)
 

@@ -114,7 +114,7 @@ def main(argv=None, step_hook=None):
                       != "humanoid_1205_vis_forecast_v1")):
         if on:
             raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item 5)")
+                f"{flag} is not ported yet (ROADMAP §1 item 2)")
 
     import torch
     from .. import envs, resolve_device

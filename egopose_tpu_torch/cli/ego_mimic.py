@@ -113,11 +113,11 @@ def main(argv=None, iter_hook=None):
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
     for flag, on, item in (
-            ("--dp-devices", args.dp_devices is not None, 10),
-            ("--sp-devices", args.sp_devices is not None, 10),
-            ("--profile-dir", args.profile_dir is not None, 5),
-            ("--render", args.render, 5),
-            ("--ckpt-format orbax", args.ckpt_format == "orbax", 11)):
+            ("--dp-devices", args.dp_devices is not None, 5),
+            ("--sp-devices", args.sp_devices is not None, 5),
+            ("--profile-dir", args.profile_dir is not None, 2),
+            ("--render", args.render, 2),
+            ("--ckpt-format orbax", args.ckpt_format == "orbax", 3)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP §1 item {item})")
@@ -135,7 +135,7 @@ def main(argv=None, iter_hook=None):
     if getattr(cfg, "discriminator", None):
         raise NotImplementedError(
             "the discriminator block (VGAIL) is not ported yet (ROADMAP §1 "
-            "item 9)")
+            "item 4)")
     if args.min_batch is not None:
         cfg.min_batch_size = args.min_batch
     if args.episode_len is not None:

@@ -122,12 +122,14 @@ def main(argv=None, step_hook=None, phys_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    for flag, on in (("--engine mujoco", args.engine == "mujoco"),
-                     ("--profile-dir", args.profile_dir is not None),
-                     ("--sp-devices", args.sp_devices is not None),
-                     ("--render", args.render)):
+    for flag, on, item in (
+            ("--engine mujoco", args.engine == "mujoco", 2),
+            ("--profile-dir", args.profile_dir is not None, 2),
+            ("--sp-devices", args.sp_devices is not None, 5),
+            ("--render", args.render, 2)):
         if on:
-            raise NotImplementedError(f"{flag} is not ported yet")
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP §1 item {item})")
 
     from .. import envs, resolve_device
     from ..ops import math_utils as M

@@ -69,7 +69,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
     args = parser.parse_args(argv)
     if args.render:
         raise NotImplementedError(
-            "--render is not ported yet (ROADMAP §1 item 5)")
+            "--render is not ported yet (ROADMAP §1 item 2)")
 
     from .. import envs, resolve_device
     from ..ops import running_norm

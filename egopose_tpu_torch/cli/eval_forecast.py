@@ -72,10 +72,15 @@ def main(argv=None):
     parser.add_argument("--data", default="test")
     parser.add_argument("--suffix", default="")
     parser.add_argument("--mode", default="stats", choices=["stats", "vis"])
+    parser.add_argument("--multi", action="store_true", default=False,
+                        help="vis: time-staggered multi-window puppeting")
+    parser.add_argument("--vis-model", default="humanoid_1205_vis_ghost_v1")
+    parser.add_argument("--multi-vis-model",
+                        default="humanoid_1205_vis_forecast_v1")
     args = parser.parse_args(argv)
     if args.mode != "stats":
         raise NotImplementedError(
-            "--mode vis is not ported yet (ROADMAP §1 item 5)")
+            "--mode vis is not ported yet (ROADMAP §1 item 2)")
 
     from ..utils.config import EgoForecastConfig
     from ..utils.tools import remove_noisy_hands

@@ -1,5 +1,13 @@
-"""Pose-estimation metrics over an ego-mimic results pickle (counterpart of
-egopose_tpu/cli/eval_pose.py, ``--mode stats``)."""
+"""Pose-estimation metrics over an ego-mimic or state-regression results
+pickle (counterpart of egopose_tpu/cli/eval_pose.py, ``--mode stats``).
+
+    python -m egopose_tpu_torch.cli.eval_pose --egomimic-cfg CFG \
+        --egomimic-iter N [--data test] [--tag T]
+    python -m egopose_tpu_torch.cli.eval_pose --algo state_reg \
+        --statereg-cfg CFG --statereg-iter N [--data test]
+
+The vis flags (``--multi``, ``--vis-model``, ``--multi-vis-model``) are
+taken; ``--mode vis`` is not ported yet."""
 from __future__ import annotations
 
 import argparse
@@ -44,22 +52,37 @@ def compute_stats(results, dt=1.0 / 30.0, logger=None):
 
 
 def main(argv=None):
+    """Score an ego-mimic (``--algo ego_mimic``) or state-regression
+    (``--algo state_reg``) results pickle; returns compute_stats' dict."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--egomimic-cfg", default=None)
+    parser.add_argument("--statereg-cfg", default=None)
     parser.add_argument("--mode", default="stats", choices=["stats", "vis"])
     parser.add_argument("--data", default="test")
     parser.add_argument("--egomimic-iter", type=int, default=0)
-    parser.add_argument("--algo", default="ego_mimic", choices=["ego_mimic"])
+    parser.add_argument("--statereg-iter", type=int, default=0)
+    parser.add_argument("--algo", default="ego_mimic",
+                        choices=["ego_mimic", "state_reg"])
     parser.add_argument("--tag", "--egomimic-tag", dest="tag", default="",
                         help="results-file suffix")
+    parser.add_argument("--multi", action="store_true", default=False,
+                        help="vis: time-staggered multi-humanoid puppeting")
+    parser.add_argument("--vis-model", default="humanoid_1205_vis_double_v1")
+    parser.add_argument("--multi-vis-model",
+                        default="humanoid_1205_vis_multi_v1")
     args = parser.parse_args(argv)
     if args.mode != "stats":
-        raise NotImplementedError("--mode vis is not ported")
+        raise NotImplementedError(
+            "--mode vis is not ported yet (ROADMAP §1 item 2)")
 
     from ..utils.log import create_logger
     logger = create_logger(None, file_handle=False)
-    res_path = "results/egomimic/%s/results/iter_%04d_%s%s.p" % (
-        args.egomimic_cfg, args.egomimic_iter, args.data, args.tag)
+    if args.algo == "ego_mimic":
+        res_path = "results/egomimic/%s/results/iter_%04d_%s%s.p" % (
+            args.egomimic_cfg, args.egomimic_iter, args.data, args.tag)
+    else:
+        res_path = "results/statereg/%s/results/iter_%04d_%s%s.p" % (
+            args.statereg_cfg, args.statereg_iter, args.data, args.tag)
     with open(res_path, "rb") as f:
         results, meta = pickle.load(f)
     logger.info("loaded results from %s (meta: %s)" % (

@@ -24,7 +24,7 @@ def vis_refusals(args, vis_model_default):
                      ("--vis-model", args.vis_model != vis_model_default)):
         if on:
             raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item 5)")
+                f"{flag} is not ported yet (ROADMAP §1 item 2)")
     if args.mode != "stats":
         raise SystemExit("unknown --mode %s (stats|vis)" % args.mode)
 

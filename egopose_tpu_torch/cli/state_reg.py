@@ -233,7 +233,7 @@ def main(argv=None, epoch_hook=None):
     args = parser.parse_args(argv)
     if args.dp_devices is not None:
         raise NotImplementedError(
-            "--dp-devices is not ported yet (ROADMAP §1 item 10)")
+            "--dp-devices is not ported yet (ROADMAP §1 item 5)")
     if args.data is None:
         args.data = args.mode if args.mode in {"train", "test"} else "train"
 

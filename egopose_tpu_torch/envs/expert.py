@@ -9,6 +9,7 @@ import torch
 
 from ..ops import math_utils as M
 from ..physics import engine
+from ..physics.fk import fk_batched
 from ..physics.model import PhysicsModel
 from ..physics.spec import ModelSpec
 from .humanoid import (BodyTables, EnvParams, ExpertBatch, get_body_quat,
@@ -29,9 +30,12 @@ def gen_expert_features(model: PhysicsModel, p: EnvParams, tables: BodyTables,
                         qpos_traj: torch.Tensor, dt: float) -> dict:
     """Per-frame expert features of one take, (T, ...) tensors under the
     reference's field names.  The expert obs uses zero velocities, as the
-    reference's replay never writes qvel."""
+    reference's replay never writes qvel.  The take's FK is one
+    ``fk_batched`` call: one launch of the FK kernel K5 over its T frames
+    on a CUDA model (``qpos_traj`` in the model's dtype), the plain fk on
+    the CPU."""
     t_len = qpos_traj.shape[0]
-    kin = engine.fk(model, qpos_traj)
+    kin = fk_batched(model, qpos_traj)
     zero_qvel = qpos_traj.new_zeros(t_len, model.ndof)
     zero_t = torch.zeros(t_len, dtype=torch.int64, device=qpos_traj.device)
     bquat = get_body_quat(tables, qpos_traj)

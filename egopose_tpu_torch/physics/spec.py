@@ -1,9 +1,11 @@
 """MJCF model specification: parse -> numpy ModelSpec.
 
-Framework-free copy of the parsing half of egopose_tpu/physics/spec.py (the
-port never imports the JAX package).  Handles the reference's legacy
-global-coordinate MJCF as well as local-coordinate MJCF, and computes body
-inertials from geoms (``inertiafromgeom``).
+Framework-free copy of egopose_tpu/physics/spec.py (the port never imports
+the JAX package).  Handles the reference's legacy global-coordinate MJCF as
+well as local-coordinate MJCF, computes body inertials from geoms
+(``inertiafromgeom``), and exports local-coordinate MJCF: the physics model
+(``export_mjcf``), the visualization family (``export_vis_mjcf``,
+``write_vis_family``) and the humanoid generation template.
 
 Supported subset (everything the EgoPose humanoid family uses): free root +
 hinge joints, sphere/capsule/box body geoms, one world plane, motors on
@@ -370,3 +372,227 @@ def parse_mjcf(path_or_str: str, density: float = 1000.0) -> ModelSpec:
         actuator_ctrlrange=np.stack(act_cr) if act_cr else np.zeros((0, 2)),
         timestep=timestep, gravity=gravity,
     )
+
+
+# ---------------------------------------------------------------------------
+# local-coordinate MJCF export (for the MuJoCo golden oracle + visualization)
+# ---------------------------------------------------------------------------
+
+def export_mjcf(spec: ModelSpec, with_floor: bool = True) -> str:
+    """Emit a MuJoCo-3-loadable local-coordinate MJCF equivalent to the spec."""
+    lines = [
+        '<mujoco model="humanoid">',
+        '  <compiler angle="radian" inertiafromgeom="true"/>',
+        f'  <option timestep="{float(spec.timestep)!r}" gravity="{spec.gravity[0]} {spec.gravity[1]} {spec.gravity[2]}"/>',
+        '  <default>',
+        '    <joint damping="0.0" armature="0.01" stiffness="0.0" limited="true"/>',
+        '    <geom conaffinity="7" condim="1" contype="7" margin="0.001" rgba="0.8 0.6 .4 1"/>',
+        '  </default>',
+        '  <worldbody>',
+    ]
+    if with_floor:
+        lines.append('    <geom name="floor" type="plane" condim="3" '
+                     f'friction="{spec.floor_friction[0]} {spec.floor_friction[1]} {spec.floor_friction[2]}" '
+                     'pos="0 0 0" size="100 100 .2"/>')
+
+    children = [[] for _ in range(spec.nbody)]
+    roots = []
+    for b in range(spec.nbody):
+        if spec.parent[b] < 0:
+            roots.append(b)
+        else:
+            children[spec.parent[b]].append(b)
+
+    def f(x):
+        return repr(float(x))
+
+    def v3(v):
+        return f"{f(v[0])} {f(v[1])} {f(v[2])}"
+
+    def emit(b, indent):
+        pad = " " * indent
+        lines.append(f'{pad}<body name="{spec.body_names[b]}" pos="{v3(spec.body_pos[b])}">')
+        if b == 0:
+            lines.append(f'{pad}  <joint name="root" type="free" limited="false" '
+                         f'armature="{float(spec.dof_armature[3])!r}" damping="0" stiffness="0"/>')
+        for d in range(6, spec.ndof):
+            if spec.dof_body[d] != b:
+                continue
+            j = d - 6
+            rng = spec.jnt_range[j]
+            lim = 'limited="true" range="%r %r"' % (float(rng[0]), float(rng[1])) if spec.jnt_limited[j] \
+                else 'limited="false"'
+            lines.append(
+                f'{pad}  <joint name="{spec.jnt_names[j]}" type="hinge" '
+                f'pos="{v3(spec.dof_anchor[d])}" axis="{v3(spec.dof_axis[d])}" {lim} '
+                f'armature="{float(spec.dof_armature[d])!r}" damping="{float(spec.dof_damping[d])!r}" '
+                f'stiffness="{float(spec.dof_stiffness[d])!r}"/>')
+        for g in range(spec.ngeom):
+            if spec.geom_body[g] != b:
+                continue
+            t = {GEOM_SPHERE: "sphere", GEOM_CAPSULE: "capsule", GEOM_BOX: "box"}[int(spec.geom_type[g])]
+            size = spec.geom_size[g]
+            ssize = {GEOM_SPHERE: f"{f(size[0])}",
+                     GEOM_CAPSULE: f"{f(size[0])} {f(size[1])}",
+                     GEOM_BOX: v3(size)}[int(spec.geom_type[g])]
+            q = spec.geom_quat[g]
+            lines.append(
+                f'{pad}  <geom type="{t}" size="{ssize}" pos="{v3(spec.geom_pos[g])}" '
+                f'quat="{f(q[0])} {f(q[1])} {f(q[2])} {f(q[3])}" '
+                f'contype="{spec.geom_contype[g]}" conaffinity="{spec.geom_conaffinity[g]}" '
+                f'condim="{spec.geom_condim[g]}" '
+                f'friction="{spec.geom_friction[g][0]} {spec.geom_friction[g][1]} {spec.geom_friction[g][2]}"/>')
+        for c in children[b]:
+            emit(c, indent + 2)
+        lines.append(f"{pad}</body>")
+
+    for r in roots:
+        emit(r, 4)
+    lines.append("  </worldbody>")
+    lines.append("  <actuator>")
+    for i in range(spec.nu):
+        jn = spec.jnt_names[spec.actuator_dof[i] - 6]
+        lines.append(f'    <motor name="{spec.actuator_names[i]}" joint="{jn}" '
+                     f'gear="{f(spec.actuator_gear[i])}"/>')
+    lines.append("  </actuator>")
+    lines.append("</mujoco>")
+    return "\n".join(lines)
+
+
+# visualization-model family: copies of the humanoid (no actuators, contact
+# off) used by the trajectory viewer to puppet prediction/GT/ghost poses (the
+# committed assets/mujoco_models/humanoid_1205_vis*.xml)
+VIS_VARIANTS = {
+    # name suffix -> (n_copies, class name, class rgba)
+    "vis": (2, "expert", "0.5 0.0 0.0 1"),
+    "vis_double_v1": (2, "expert", "0.7 0.0 0.0 1"),
+    "vis_ghost_v1": (2, "trans", "0.8 0.6 .4 0.4"),
+    "vis_estimate_v1": (13, "trans", "0.8 0.6 .4 0.3"),
+    "vis_forecast_v1": (13, "trans", "0.8 0.6 .4 0.3"),
+    "vis_multi_v1": (20, "trans", "0.8 0.6 .4 0.3"),
+    "vis_single_v1": (1, "trans", "0.8 0.6 .4 0.3"),
+}
+
+
+def export_vis_mjcf(spec: ModelSpec, n_copies: int, cls_name: str = "trans",
+                    cls_rgba: str = "0.8 0.6 .4 0.3") -> str:
+    """Emit a visualization model: ``n_copies`` kinematic humanoid copies
+    (copy i > 0 named with an ``i_`` prefix and drawn with the ``cls_name``
+    default class), contact disabled, no actuators.  qpos layout is
+    ``n_copies`` consecutive nq-blocks, which is the puppeting contract of
+    the original EgoPose code's HumanoidVisEnv."""
+    lines = [
+        '<mujoco model="humanoid">',
+        '  <compiler angle="radian" inertiafromgeom="true"/>',
+        '  <default>',
+        '    <joint damping="0.0" armature="0.01" stiffness="0.0" limited="true"/>',
+        '    <geom conaffinity="7" condim="1" contype="7" margin="0.001" rgba="0.8 0.6 .4 1"/>',
+        f'    <default class="{cls_name}">',
+        f'      <geom rgba="{cls_rgba}"/>',
+        '    </default>',
+        '  </default>',
+        f'  <option timestep="{float(spec.timestep)!r}">',
+        '    <flag contact="disable"/>',
+        '  </option>',
+        '  <worldbody>',
+        '    <geom name="floor" type="plane" condim="3" friction="1. .1 .1" '
+        'pos="0 0 0" size="100 100 .2"/>',
+    ]
+
+    children = [[] for _ in range(spec.nbody)]
+    roots = []
+    for b in range(spec.nbody):
+        if spec.parent[b] < 0:
+            roots.append(b)
+        else:
+            children[spec.parent[b]].append(b)
+
+    def f(x):
+        return repr(float(x))
+
+    def v3(v):
+        return f"{f(v[0])} {f(v[1])} {f(v[2])}"
+
+    def emit(b, indent, prefix, copy_i):
+        pad = " " * indent
+        cc = f' childclass="{cls_name}"' if copy_i > 0 and b in roots else ""
+        lines.append(f'{pad}<body name="{prefix}{spec.body_names[b]}" '
+                     f'pos="{v3(spec.body_pos[b])}"{cc}>')
+        if b == 0:
+            lines.append(f'{pad}  <joint name="{prefix}root" type="free" '
+                         'limited="false" armature="0" damping="0" '
+                         'stiffness="0"/>')
+        for d in range(6, spec.ndof):
+            if spec.dof_body[d] != b:
+                continue
+            j = d - 6
+            rng = spec.jnt_range[j]
+            lim = ('limited="true" range="%r %r"'
+                   % (float(rng[0]), float(rng[1]))) if spec.jnt_limited[j] \
+                else 'limited="false"'
+            lines.append(
+                f'{pad}  <joint name="{prefix}{spec.jnt_names[j]}" '
+                f'type="hinge" pos="{v3(spec.dof_anchor[d])}" '
+                f'axis="{v3(spec.dof_axis[d])}" {lim}/>')
+        for g in range(spec.ngeom):
+            if spec.geom_body[g] != b:
+                continue
+            t = {GEOM_SPHERE: "sphere", GEOM_CAPSULE: "capsule",
+                 GEOM_BOX: "box"}[int(spec.geom_type[g])]
+            size = spec.geom_size[g]
+            ssize = {GEOM_SPHERE: f"{f(size[0])}",
+                     GEOM_CAPSULE: f"{f(size[0])} {f(size[1])}",
+                     GEOM_BOX: v3(size)}[int(spec.geom_type[g])]
+            q = spec.geom_quat[g]
+            lines.append(
+                f'{pad}  <geom type="{t}" size="{ssize}" '
+                f'pos="{v3(spec.geom_pos[g])}" '
+                f'quat="{f(q[0])} {f(q[1])} {f(q[2])} {f(q[3])}"/>')
+        for c in children[b]:
+            emit(c, indent + 2, prefix, copy_i)
+        lines.append(f"{pad}</body>")
+
+    for i in range(n_copies):
+        prefix = f"{i}_" if i > 0 else ""
+        for r in roots:
+            emit(r, 4, prefix, i)
+    lines.append("  </worldbody>")
+    lines.append("  <actuator/>")
+    lines.append("</mujoco>")
+    return "\n".join(lines)
+
+
+def write_vis_family(spec: ModelSpec, out_dir: str, base: str = "humanoid_1205"):
+    """Write the whole vis-model family + the generation template."""
+    import os
+    os.makedirs(os.path.join(out_dir, "template"), exist_ok=True)
+    paths = []
+    for suffix, (n, cls, rgba) in VIS_VARIANTS.items():
+        path = os.path.join(out_dir, f"{base}_{suffix}.xml")
+        with open(path, "w") as fp:
+            fp.write(export_vis_mjcf(spec, n, cls, rgba))
+        paths.append(path)
+    tpl = os.path.join(out_dir, "template", "humanoid_template.xml")
+    with open(tpl, "w") as fp:
+        fp.write(HUMANOID_TEMPLATE)
+    paths.append(tpl)
+    return paths
+
+
+# self-contained generation template consumed by Skeleton.write_xml (in the
+# role of assets/mujoco_models/template/humanoid_template.xml, without the
+# texture/material includes that need external files)
+HUMANOID_TEMPLATE = """<mujoco model=\"humanoid\">
+  <compiler angle=\"degree\" inertiafromgeom=\"true\"/>
+  <default>
+    <joint damping=\"0.0\" armature=\"0.01\" stiffness=\"0.0\" limited=\"true\"/>
+    <geom conaffinity=\"7\" condim=\"1\" contype=\"7\" margin=\"0.001\" rgba=\"0.8 0.6 .4 1\"/>
+  </default>
+  <statistic extent=\"3\" center=\"0 0 1\"/>
+  <option timestep=\"0.00222222222\"/>
+  <worldbody>
+    <geom name=\"floor\" type=\"plane\" condim=\"3\" friction=\"1. .1 .1\" pos=\"0 0 0\" size=\"100 100 .2\"/>
+  </worldbody>
+  <actuator/>
+</mujoco>
+"""

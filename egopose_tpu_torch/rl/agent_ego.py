@@ -171,7 +171,7 @@ class AgentEgo:
         if objective != "ppo":
             raise NotImplementedError(
                 f"policy_objective {objective!r} is not ported yet (ROADMAP "
-                "§1 item 9: the a2c objective and TRPO)")
+                "§1 item 4: the a2c objective and TRPO)")
         _, metrics = ppo.ppo_update(
             self.train_state, self.hyper, batch, self._windows(batch),
             mini_batch_lanes=self.mini_batch_lanes,

@@ -420,5 +420,5 @@ def test_agent_forecast_sizes_its_nets(worlds):
     assert agent.hyper.kl_target == 0.05
     assert isinstance(agent.policy_vs_net, VideoForecastNet)
     cfg.policy_objective = "trpo"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         agent.update_params(None)

@@ -702,3 +702,43 @@ def test_pose2d_projection_on_card(card, dtype, tol, flip):
     assert fk.launches == before + 1
     assert got.shape == ref.shape == (380, ctx.nbody, 2)
     assert np.isfinite(got).all() and np.abs(got - ref).max() <= tol
+
+
+@pytest.mark.cuda
+def test_gen_expert_features_on_card(card):
+    """envs.gen_expert_features on a float64 model on the card (one K5
+    launch for the take's 600 frames) against the same function on the CPU
+    model: every feature within 1e-9."""
+    from egopose_tpu_torch import envs
+    from egopose_tpu_torch.physics import fk, model
+    from egopose_tpu_torch.physics.spec import parse_mjcf
+    from egopose_tpu_torch.utils.config import EgoMimicConfig, make_env_params
+    spec = parse_mjcf(XML)
+    cfg = EgoMimicConfig(None, cfg_dict={"obs_coord": "heading"})
+    rng = np.random.RandomState(8)
+    t = np.arange(600)[:, None] / 30.0
+    q = np.zeros((600, spec.nq))
+    q[:, :2] = 0.3 * t
+    q[:, 2] = 0.9 + 0.02 * np.sin(t[:, 0])
+    ang = 0.5 * np.sin(0.4 * t[:, 0])
+    q[:, 3], q[:, 6] = np.cos(ang / 2), np.sin(ang / 2)
+    q[:, 7:] = 0.4 * np.sin(t * rng.uniform(0.5, 2, spec.nq - 7)
+                            + rng.uniform(0, 6, spec.nq - 7))
+    feats = []
+    for dev in ("cpu", card):
+        m = model.build_model(spec, dtype=torch.float64, device=dev)
+        p = make_env_params(cfg, spec, obs_dim=115, dtype=torch.float64,
+                            device=dev)
+        qt = torch.as_tensor(q, device=dev)
+        before = fk.launches
+        feats.append(envs.gen_expert_features(
+            m, p, envs.make_body_tables(spec, dev), qt, 1 / 30))
+        assert fk.launches == before + (dev != "cpu")
+    torch.cuda.synchronize()
+    ref, got = feats
+    assert sorted(got) == sorted(ref) and got["len"] == ref["len"] == 600
+    for key in ref:
+        if key != "len":
+            assert got[key].is_cuda and got[key].dtype == torch.float64
+            err = float((got[key].cpu() - ref[key]).abs().max())
+            assert err <= 1e-9, (key, err)

@@ -192,7 +192,7 @@ def test_port_training_options(dirs, tmp_path):
     assert abs(runs["f16"][1] - runs["stream"][1]) \
         <= 1e-2 * runs["stream"][1]
     assert os.path.exists(tmp_path / "f16" / "prof" / "trace.json")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tsr.main(TRAIN + CPU + ["--dp-devices", "2"])
 
 

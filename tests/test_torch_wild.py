@@ -439,5 +439,5 @@ def test_vis_flags_raise(chain, monkeypatch, cli, flag):
     import importlib
     mod = importlib.import_module(f"egopose_tpu_torch.cli.{cli}")
     monkeypatch.chdir(chain[0]["torch"])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
         mod.main(CLI_ARGS[cli] + flag + CPU)
