@@ -49,6 +49,17 @@ any failure exits non-zero:
                recording only the first PROFILE_STEPS (20) steps of
                WINDOW: device time by kernel, kernels launched per step,
                device busy share of their wall time
+  render_eval  ego_mimic_eval --render --profile-dir on the card, the 4
+               takes cut to 60 frames (40 steps): one K1 launch a step in
+               the launch counts and in the trace, no other kernel, the
+               replay npz equal to the results pickle's traj_pred and
+               traj_orig; the trace's kernels and device ms a step
+  engine_mujoco
+               ego_mimic_eval --engine mujoco (the MuJoCo C oracle on the
+               host) on the same short world, only where ``import mujoco``
+               succeeds: no kernel launches, finite, the _mj pickle
+               written; elsewhere one line says that it did not run and
+               why (mujoco not installed)
   k2_vs_plain  the SPD-solve kernel against torch.cholesky_solve on the
                torque path's systems (M + dt diag(damping), rhs [qfrc | J^T])
                at contact-rich states, B=1024 and B=4, r=25 and r=1: f64
@@ -71,6 +82,14 @@ any failure exits non-zero:
                the config, --episode-len 20 --min-batch 20480 --max-iter 1
                (one segment):
                K2 launches == 15 x control steps, K1 launches == 0, finite
+  train_profile
+               ego_mimic at the shipped widths, 1024 lanes, 2 iterations of
+               one 20-step segment (--episode-len 20, --min-batch 20480),
+               the second under --profile-dir: the trace's K1 launches in
+               the ``sample`` range == the control steps sampled, none in
+               ``update``; the kernels and device ms of each range (the
+               PPO update's split), profiled and unprofiled T_sample and
+               T_update
   k3_vs_plain  the fused contact-solve kernel (K3) against its plain
                version on the torque path's systems at contact-rich states
                (B=1024, B=4; c=24 rows, 10 iterations): f64 max-abs <= 1e-9
@@ -163,6 +182,12 @@ any failure exits non-zero:
   forecast_stats
                eval_forecast --mode stats on both pickles: horizon-30 and
                horizon-90 pose, velocity and acceleration metrics, finite
+  vis_headless eval_pose --mode vis on the card's ego_mimic_eval results
+               and eval_forecast --mode vis on forecast_eval's --gt-init
+               results, in the forecast workdir: the file written (the
+               .npz fallback where mujoco is missing) and the cause the
+               fallback logged; its arrays equal to the pickle's first
+               take (first window)
   statereg_train
                state_reg --mode train --synthetic at the shipped
                config/statereg/subject_03.yml widths (ResNet-18, bi-LSTM
@@ -238,7 +263,8 @@ any failure exits non-zero:
                statereg_train's first batch: finite losses
   kernels      every kernel of the port with its TPU counterpart (K1's
                two branches on two rows), launches on the main paths (eval
-               + train + train_torque + the three one-step phases + the
+               + render_eval + train + train_torque + train_profile + the
+               three one-step phases + the
                three rollouts + forecast_train + forecast_eval +
                statereg_eval + wild_eval + wild_forecast_eval for K1,
                wild_stats + wild_forecast_stats + gen_expert + the
@@ -2265,6 +2291,216 @@ def phase_forecast_stats():
 
 
 # ---------------------------------------------------------------------------
+# The eval and training options: --profile-dir, --render, the vis modes and
+# --engine mujoco
+# ---------------------------------------------------------------------------
+
+PROFILE_STEPS_TRAIN = 20      # control steps of train_profile's segments
+RENDER_LEN = 60               # frames a take in render_eval (40 steps)
+
+
+def trace_split(path, names=("sample", "update")):
+    """The device kernels of a torch.profiler Chrome trace by the
+    record_function range (of ``names``) their launch lies in: a kernel's
+    launch is the runtime call of the same correlation id, else (no such
+    call recorded) the kernel's own start inside the range's device-side
+    copy.  Per range: kernels, their device ms and the K1 launches
+    (substep_kernel); ``all`` counts every kernel of the trace."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    host = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation" and e["name"] in names}
+    dev = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") == "gpu_user_annotation" and e["name"] in names}
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = {n: dict(kernels=0, device_ms=0.0, k1=0)
+           for n in ("all",) + tuple(names)}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launch.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            where = [n for n, (a, b) in dev.items() if a <= e["ts"] <= b]
+        else:
+            where = [n for n, (a, b) in host.items() if a <= ts <= b]
+        for n in ["all"] + where:
+            out[n]["kernels"] += 1
+            out[n]["device_ms"] += e["dur"] / 1e3
+            out[n]["k1"] += KERNEL_KEYS["k1"] in e["name"]
+    out["ranges_found"] = sorted(set(host) | set(dev))
+    return out
+
+
+def phase_train_profile(device):
+    """ego_mimic at the shipped subject_03 widths, 1024 lanes, 2 iterations
+    of one PROFILE_STEPS_TRAIN-step segment (--episode-len and --min-batch
+    cut), the second under --profile-dir: the trace's K1 launches inside
+    ``sample`` equal the control steps sampled; device ms and kernel
+    counts of ``sample`` and of ``update`` (the PPO update's split)."""
+    lanes, ep, n_iter = 1024, PROFILE_STEPS_TRAIN, 2
+    with train_workdir():
+        agent, iters, k1, k2, wall = run_train(
+            device, ["--batch-lanes", str(lanes), "--episode-len", str(ep),
+                     "--min-batch", str(lanes * ep), "--max-iter",
+                     str(n_iter), "--profile-dir", "prof"])
+        t0 = time.time()
+        split = trace_split(os.path.join("prof", "trace.json"))
+        parse_s = time.time() - t0
+        trace_mb = os.path.getsize(os.path.join("prof", "trace.json")) / 1e6
+    prof_iter = iters[1]
+    rec = dict(lanes=lanes, control_steps_sampled=ep, k1_launches=k1,
+               k2_launches=k2, wall_s=wall, trace_mb=trace_mb,
+               trace_parse_s=parse_s,
+               T_sample_profiled=prof_iter["T_sample"],
+               T_update_profiled=prof_iter["T_update"],
+               T_sample_unprofiled=iters[0]["T_sample"],
+               T_update_unprofiled=iters[0]["T_update"], split=split)
+    ok = bool(split["sample"]["k1"] == ep and k1 == n_iter * ep
+              and k2 == 0 and split["update"]["k1"] == 0
+              and train_finite(iters))
+    emit("train_profile", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"train_profile out of bounds: {rec}")
+    return rec
+
+
+def phase_render_eval(device):
+    """ego_mimic_eval --render --profile-dir on the card, its 4 takes cut
+    to RENDER_LEN frames: one K1 launch a step (in the counts and in the
+    trace), no other kernel, the replay npz equal to the results pickle's
+    traj_pred and traj_orig."""
+    import pickle
+    from egopose_tpu_torch.cli import ego_mimic_eval
+    with eval_workdir({"EGOPOSE_SYNTHETIC_LEN": str(RENDER_LEN)}):
+        reset_counts()
+        results, meta = ego_mimic_eval.main(
+            EVAL_ARGS + ["--device", str(device), "--render",
+                         "--profile-dir", "prof"])
+        counts = read_counts()
+        res_dir = os.path.join("results", "egomimic", "subject_03",
+                               "results")
+        with open(os.path.join(res_dir, "iter_3000_test.p"), "rb") as f:
+            saved, _ = pickle.load(f)
+        replay = dict(np.load(os.path.join(res_dir,
+                                           "iter_3000_test_replay.npz")))
+        split = trace_split(os.path.join("prof", "trace.json"), names=())
+    steps = meta["steps"]
+    same = sorted(replay) == sorted(
+        [f"pred__{t}" for t in saved["traj_pred"]]
+        + [f"orig__{t}" for t in saved["traj_orig"]]) and all(
+        np.array_equal(replay[f"{k}__{t}"], saved[f"traj_{k}"][t])
+        for k in ("pred", "orig") for t in saved["traj_pred"])
+    others = {k: v for k, v in counts.items() if k != "k1"}
+    rec = dict(steps=steps, k1_launches=counts["k1"], other_launches=others,
+               trace_k1=split["all"]["k1"],
+               trace_kernels_per_step=split["all"]["kernels"] / steps,
+               trace_device_ms_per_step=split["all"]["device_ms"] / steps,
+               frames_per_sec_profiled=meta["frames_per_sec"],
+               replay_equals_pickle=same, num_reset=meta["num_reset"])
+    ok = bool(counts["k1"] == steps and not any(others.values())
+              and split["all"]["k1"] == steps and same)
+    emit("render_eval", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"render_eval out of bounds: {rec}")
+    return rec
+
+
+def vis_run(main, argv):
+    """``main(argv)`` with its output captured: (return value, the cause
+    the headless fallback logged)."""
+    import io
+    import re
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        written = main(argv)
+    cause = re.search(r"no display \((.*)\) -- writing", out.getvalue())
+    return written, cause.group(1) if cause else None
+
+
+def phase_vis_headless():
+    """In the forecast workdir, after forecast_eval: eval_pose --mode vis
+    on the card's ego_mimic_eval results and eval_forecast --mode vis on
+    forecast_eval's --gt-init results.  Each falls back (no mujoco on the
+    card's machine) to an .npz of the trajectories it would render, which
+    must equal the pickle's: the first take's traj_pred and traj_orig
+    (eval_pose), their first windows after remove_noisy_hands, which
+    eval_forecast applies to what it reads (eval_forecast)."""
+    import pickle
+    from egopose_tpu_torch.cli import eval_forecast, eval_pose
+    from egopose_tpu_torch.utils.tools import remove_noisy_hands
+    runs, ok = {}, True
+    for name, main, argv, pkl, win in (
+            ("eval_pose", eval_pose.main,
+             ["--egomimic-cfg", "subject_03", "--egomimic-iter", "3000",
+              "--mode", "vis"],
+             os.path.join("results", "egomimic", "subject_03", "results",
+                          "iter_3000_test.p"), False),
+            ("eval_forecast", eval_forecast.main,
+             ["--egoforecast-cfg", FORECAST, "--egoforecast-iter",
+              str(FORECAST_ITERS), "--suffix", "_gt", "--mode", "vis"],
+             os.path.join("results", "egoforecast", FORECAST, "results",
+                          "iter_%04d_test_gt.p" % FORECAST_ITERS), True)):
+        t0 = time.time()
+        written, cause = vis_run(main, argv)
+        secs = time.time() - t0
+        with open(pkl, "rb") as f:
+            res, _ = pickle.load(f)
+        if win:
+            remove_noisy_hands(res)
+        take = list(res["traj_pred"])[0]
+        want = [res["traj_pred"][take], res["traj_orig"][take]]
+        if win:
+            want = [w[0] for w in want]
+        got = dict(np.load(written)) if written.endswith(".npz") else {}
+        same = sorted(got) == ["traj_0", "traj_1"] and all(
+            np.array_equal(got[f"traj_{i}"], w) for i, w in enumerate(want))
+        good = bool(written.endswith(".npz") and same)
+        runs[name] = dict(written=written, fallback_cause=cause,
+                          arrays_equal_pickle=same, seconds=secs)
+        ok = ok and good
+        emit("vis_headless", cli=name, ok=good, **runs[name])
+    if not ok:
+        raise AssertionError(f"vis_headless out of bounds: {runs}")
+    return runs
+
+
+def phase_engine_mujoco(device):
+    """ego_mimic_eval --engine mujoco (the MuJoCo C oracle on the host)
+    on render_eval's short world, where ``import mujoco`` succeeds: no
+    kernel launches, finite, the _mj pickle written.  Where it does not,
+    one line says so and why."""
+    try:
+        import mujoco  # noqa: F401
+    except ImportError as e:
+        emit("engine_mujoco", ran=False,
+             reason=f"mujoco does not import on this machine: {e}")
+        return None
+    from egopose_tpu_torch.cli import ego_mimic_eval
+    with eval_workdir({"EGOPOSE_SYNTHETIC_LEN": str(RENDER_LEN)}):
+        reset_counts()
+        results, meta = ego_mimic_eval.main(
+            EVAL_ARGS + ["--device", str(device), "--engine", "mujoco"])
+        counts = read_counts()
+        written = os.path.exists(os.path.join(
+            "results", "egomimic", "subject_03", "results",
+            "iter_3000_test_mj.p"))
+    finite = bool(all(np.isfinite(a).all()
+                      for a in results["traj_pred"].values()))
+    rec = dict(ran=True, steps=meta["steps"], launches=counts,
+               num_reset=meta["num_reset"],
+               frames_per_sec=meta["frames_per_sec"], finite=finite,
+               pickle_written=written)
+    ok = bool(not any(counts.values()) and finite and written)
+    emit("engine_mujoco", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"engine_mujoco out of bounds: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # State regression: the shipped config/statereg/subject_03.yml widths
 # ---------------------------------------------------------------------------
 
@@ -3127,6 +3363,9 @@ def main():
     ev = phase_eval(device) if want("eval") else None
     if want("eval_profile"):
         phase_eval_profile(device, ev["window_step_ms"] if ev else None)
+    rv = phase_render_eval(device) if want("render_eval") else None
+    if want("engine_mujoco"):
+        phase_engine_mujoco(device)
     errs2 = phase_k2_vs_plain(device) if want("k2_vs_plain") else {}
     times2 = phase_k2_time(device) if want("k2_time") else {}
     errs3 = phase_fused_vs_plain(device, "k3") if want("k3_vs_plain") else {}
@@ -3149,13 +3388,14 @@ def main():
         add_counts(steps, phase_split_step(device))
     tr = phase_train(device) if want("train") else None
     tq = phase_train_torque(device) if want("train_torque") else None
+    tp = phase_train_profile(device) if want("train_profile") else None
     rp = phase_rollout_pd_fused(device) if want("rollout_pd_fused") else None
     rt = phase_rollout_torque_fused(device) \
         if want("rollout_torque_fused") else None
     rd = phase_rollout_dense(device) if want("rollout_dense") else None
     ft = fe = forecast_ckpt = None
     if any(want(p) for p in ("forecast_train", "forecast_eval",
-                             "forecast_stats")):
+                             "forecast_stats", "vis_headless")):
         with forecast_workdir() as fcfg:
             ft = phase_forecast_train(device, fcfg) \
                 if want("forecast_train") else None
@@ -3164,11 +3404,14 @@ def main():
                         "results", "egoforecast", FORECAST, "models",
                         "iter_%04d.p" % FORECAST_ITERS), "rb") as f:
                     forecast_ckpt = f.read()
+            # vis_headless reads forecast_eval's results
             fe = phase_forecast_eval(
                 device, fcfg, ev["em_results"] if ev else None) \
-                if want("forecast_eval") else None
+                if want("forecast_eval") or want("vis_headless") else None
             if want("forecast_stats"):
                 phase_forecast_stats()
+            if want("vis_headless"):
+                phase_vis_headless()
     se = we = ws = wfe = wfs = None
     statereg = ("statereg_train", "statereg_test", "statereg_stats",
                 "gen_cnn_feature", "statereg_eval", "statereg_variants")
@@ -3224,6 +3467,7 @@ def main():
         print(json.dumps({"kernels": [
             row("substep_control_step", "substep.cu", "substep_pallas.py:694",
                 ev["launches"] + tr["k1_launches"] + tq["k1_launches"]
+                + tp["k1_launches"] + rv["k1_launches"]
                 + fused("k1") + ft["k1_launches"]
                 + sum(r["k1_launches"] for r in fe.values())
                 + se["k1_launches"] + we["k1_launches"]

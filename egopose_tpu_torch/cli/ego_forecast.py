@@ -12,6 +12,12 @@ init-noise schedule and end-reward flag.
 On the card every control step of the rollout is one launch of the K1
 control-step kernel.  Reads config/ and results/egomimic/ and writes
 results/egoforecast/ relative to the working directory.
+
+``--render`` samples with mean actions (sampled ones with
+``--show-noise``) and writes no log file and no scalars.
+``--profile-dir DIR`` records the second iteration's sample and update
+under torch.profiler, as the ranges ``sample`` and ``update``, to
+DIR/trace.json.
 """
 from __future__ import annotations
 
@@ -57,8 +63,6 @@ def main(argv=None, iter_hook=None):
     args = parser.parse_args(argv)
     for flag, on, item in (
             ("--dp-devices", args.dp_devices is not None, 5),
-            ("--profile-dir", args.profile_dir is not None, 2),
-            ("--render", args.render, 2),
             ("--ckpt-format orbax", args.ckpt_format == "orbax", 3)):
         if on:
             raise NotImplementedError(
@@ -71,11 +75,13 @@ def main(argv=None, iter_hook=None):
     from ..rl.agent_forecast import AgentForecast, warmstart_from_mimic
     from ..utils.config import EgoForecastConfig, EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
+    from ..utils.profile import profiled
     from .ego_mimic import build_world
 
     device = resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
-    cfg = EgoForecastConfig(args.cfg, create_dirs=args.iter == 0)
+    cfg = EgoForecastConfig(args.cfg,
+                            create_dirs=not (args.render or args.iter > 0))
     if args.min_batch is not None:
         cfg.min_batch_size = args.min_batch
     if args.kl_target is not None:
@@ -83,8 +89,9 @@ def main(argv=None, iter_hook=None):
     if args.episode_len is not None:
         cfg.env_episode_len = args.episode_len
     np.random.seed(cfg.seed)
-    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"))
-    tb = ScalarWriter(cfg.tb_dir)
+    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"),
+                           file_handle=not args.render)
+    tb = None if args.render else ScalarWriter(cfg.tb_dir)
     if device.type == "cuda":
         nvcc.build_all()              # nvcc at first use, outside the loop
 
@@ -132,12 +139,20 @@ def main(argv=None, iter_hook=None):
         agent.p = dataclasses.replace(
             base_p, env_init_noise=float(cfg.adp_init_noise))
 
-        batch, log = agent.sample(generator, cfg.min_batch_size)
-        if cfg.end_reward:
-            agent.end_reward = log.avg_c_reward * cfg.gamma / (1 - cfg.gamma)
-        t0 = time.time()
-        metrics = agent.update_params(batch)   # reads its losses back
-        t_update = time.time() - t0
+        # the second iteration: the first is the warm-up
+        profiling = args.profile_dir and i_iter == args.iter + 1
+        with profiled(profiling and args.profile_dir, device, logger):
+            with torch.profiler.record_function("sample"):
+                batch, log = agent.sample(
+                    generator, cfg.min_batch_size,
+                    mean_action=args.render and not args.show_noise)
+            if cfg.end_reward:
+                agent.end_reward = log.avg_c_reward * cfg.gamma \
+                    / (1 - cfg.gamma)
+            t0 = time.time()
+            with torch.profiler.record_function("update"):
+                metrics = agent.update_params(batch)   # reads losses back
+            t_update = time.time() - t0
 
         info_str = np.array2string(log.avg_c_info,
                                    formatter={"all": lambda x: "%.4f" % x},
@@ -154,9 +169,10 @@ def main(argv=None, iter_hook=None):
                     metrics["value_loss"], steps_per_s,
                     "\tgrad_skips %d" % skips if skips else "",
                     "\tkl_stop" if metrics.get("kl_stopped") else ""))
-        tb.scalar("total_reward", log.avg_c_reward, i_iter)
-        tb.scalar("episode_len", log.avg_episode_len, i_iter)
-        tb.scalar("env_steps_per_sec", steps_per_s, i_iter)
+        if tb:
+            tb.scalar("total_reward", log.avg_c_reward, i_iter)
+            tb.scalar("episode_len", log.avg_episode_len, i_iter)
+            tb.scalar("env_steps_per_sec", steps_per_s, i_iter)
 
         if cfg.save_model_interval > 0 \
                 and (i_iter + 1) % cfg.save_model_interval == 0:
@@ -166,7 +182,8 @@ def main(argv=None, iter_hook=None):
         if iter_hook is not None:
             iter_hook(i_iter, log, metrics, t_update)
 
-    tb.close()
+    if tb:
+        tb.close()
     logger.info("training done!")
     return agent
 

@@ -1,5 +1,5 @@
 """Ego-forecast evaluation: closed-loop forecasting over sliding windows
-(counterpart of egopose_tpu/cli/ego_forecast_eval.py, ``--mode save``).
+(counterpart of egopose_tpu/cli/ego_forecast_eval.py).
 
 Windows start every fr_margin frames across each take; each rolls the
 forecast policy (mean actions) for env_episode_len steps from a state
@@ -14,6 +14,9 @@ one launch of the CUDA control-step kernel over all windows on the card.
 Writes results/egoforecast/<cfg>/results/iter_%04d_<data>[_gt].p as
 (results, meta) with results {traj_pred, traj_orig} keyed by take, each
 (n_windows, fr_margin + env_episode_len, nq): the JAX package's layout.
+``--mode vis`` or ``--render`` then shows the windows in the viewer, or
+headless writes their replay and a video next to the pickle
+(utils/vis_modes.py::view_or_render_windows).
 """
 from __future__ import annotations
 
@@ -104,10 +107,7 @@ def main(argv=None, step_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    if args.mode == "vis" or args.render:
-        raise NotImplementedError(
-            "--mode vis / --render are not ported yet (ROADMAP §1 item 2)")
-    if args.mode != "save":
+    if args.mode not in ("save", "vis"):
         raise SystemExit("unknown --mode %s (save|vis)" % args.mode)
 
     import torch
@@ -256,6 +256,9 @@ def main(argv=None, step_hook=None):
     with open(res_path, "wb") as f:
         pickle.dump((results, meta), f)
     logger.info("saved results to %s" % res_path)
+    if args.mode == "vis" or args.render:
+        from ..utils.vis_modes import view_or_render_windows
+        view_or_render_windows(results, res_path, logger)
     return results, meta
 
 

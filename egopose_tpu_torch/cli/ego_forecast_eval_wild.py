@@ -1,5 +1,5 @@
 """In-the-wild forecast evaluation (counterpart of
-egopose_tpu/cli/ego_forecast_eval_wild.py, ``--mode save``): sliding-window
+egopose_tpu/cli/ego_forecast_eval_wild.py): sliding-window
 forecasting from the wild ego-mimic estimation results, with no ground
 truth experts.
 
@@ -13,13 +13,16 @@ windows on the card.
 
     python -m egopose_tpu_torch.cli.ego_forecast_eval_wild \\
         --cfg subject_03_syn --iter N --test-feat wild_01 \\
-        [--egomimic-iter M] [--device cuda|cpu] [--f64]
+        [--egomimic-iter M] [--device cuda|cpu] [--f64] \\
+        [--mode vis | --render] [--vis-model M]
 
 Reads datasets/features/cnn_feat_<test-feat>.p and the estimation results
 results/egomimic/<ego_mimic_cfg>/results/iter_%04d_<test-feat>.p; writes
 results/egoforecast/<cfg>/results/iter_%04d_<test-feat>.p as (results,
 meta) with results {traj_pred: {take: (n_windows, fr_margin +
-env_episode_len, nq)}}, the JAX package's layout.
+env_episode_len, nq)}}, the JAX package's layout.  ``--mode vis`` or
+``--render`` then shows the windows in the viewer, or headless writes
+their replay and a video (utils/vis_modes.py::view_or_render_windows).
 """
 from __future__ import annotations
 
@@ -108,13 +111,6 @@ def main(argv=None, step_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    for flag, on in (("--mode vis", args.mode == "vis"),
-                     ("--render", args.render),
-                     ("--vis-model", args.vis_model
-                      != "humanoid_1205_vis_forecast_v1")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item 2)")
 
     import torch
     from .. import envs, resolve_device
@@ -238,6 +234,10 @@ def main(argv=None, step_hook=None):
     with open(res_path, "wb") as f:
         pickle.dump((results, meta), f)
     logger.info("saved results to %s" % res_path)
+    if args.mode == "vis" or args.render:
+        from ..utils.vis_modes import view_or_render_windows
+        view_or_render_windows(results, res_path, logger,
+                               vis_model=args.vis_model)
     return results, meta
 
 

@@ -11,6 +11,12 @@ On the card every control step of the rollout is one launch of the K1
 control-step kernel (position mode) or 15 launches of the K2 SPD-solve
 kernel (``action_type: torque``).  Reads config/ and writes results/
 relative to the working directory.
+
+``--render`` samples one segment (mean actions unless ``--show-noise``)
+instead of training and saves its rewards, actions and lanes' experts as
+results/egomimic/<cfg>/results/render_iter_%04d.npz.  ``--profile-dir DIR``
+records the second iteration's sample and update under torch.profiler,
+as the ranges ``sample`` and ``update``, to DIR/trace.json.
 """
 from __future__ import annotations
 
@@ -115,8 +121,6 @@ def main(argv=None, iter_hook=None):
     for flag, on, item in (
             ("--dp-devices", args.dp_devices is not None, 5),
             ("--sp-devices", args.sp_devices is not None, 5),
-            ("--profile-dir", args.profile_dir is not None, 2),
-            ("--render", args.render, 2),
             ("--ckpt-format orbax", args.ckpt_format == "orbax", 3)):
         if on:
             raise NotImplementedError(
@@ -128,10 +132,12 @@ def main(argv=None, iter_hook=None):
     from ..rl.agent_ego import AgentEgo
     from ..utils.config import EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
+    from ..utils.profile import profiled
 
     device = resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
-    cfg = EgoMimicConfig(args.cfg, create_dirs=args.iter == 0)
+    cfg = EgoMimicConfig(args.cfg,
+                         create_dirs=not (args.render or args.iter > 0))
     if getattr(cfg, "discriminator", None):
         raise NotImplementedError(
             "the discriminator block (VGAIL) is not ported yet (ROADMAP §1 "
@@ -141,8 +147,10 @@ def main(argv=None, iter_hook=None):
     if args.episode_len is not None:
         cfg.env_episode_len = args.episode_len
     np.random.seed(cfg.seed)
-    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"))
-    tb = ScalarWriter(cfg.tb_dir)
+    # --render writes no log file and no scalars
+    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"),
+                           file_handle=not args.render)
+    tb = None if args.render else ScalarWriter(cfg.tb_dir)
     if device.type == "cuda":
         nvcc.build_all()              # nvcc at first use, outside the loop
 
@@ -165,6 +173,9 @@ def main(argv=None, iter_hook=None):
 
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
+    if args.render:
+        save_render_sample(agent, generator, cfg, args, logger)
+        return agent
     max_iter = args.max_iter if args.max_iter is not None \
         else cfg.max_iter_num
     for i_iter in range(args.iter, max_iter):
@@ -174,11 +185,17 @@ def main(argv=None, iter_hook=None):
         if cfg.fix_std:
             agent.fill_log_std(cfg.adp_log_std)
 
-        batch, log = agent.sample(generator, cfg.min_batch_size)
-        agent.end_reward = log.avg_c_reward * cfg.gamma / (1 - cfg.gamma)
-        t0 = time.time()
-        metrics = agent.update_params(batch)   # reads its losses back
-        t_update = time.time() - t0
+        # the second iteration: the first is the warm-up
+        profiling = args.profile_dir and i_iter == args.iter + 1
+        with profiled(profiling and args.profile_dir, device, logger):
+            with torch.profiler.record_function("sample"):
+                batch, log = agent.sample(generator, cfg.min_batch_size)
+            agent.end_reward = log.avg_c_reward * cfg.gamma \
+                / (1 - cfg.gamma)
+            t0 = time.time()
+            with torch.profiler.record_function("update"):
+                metrics = agent.update_params(batch)   # reads losses back
+            t_update = time.time() - t0
 
         info_str = np.array2string(log.avg_c_info,
                                    formatter={"all": lambda x: "%.4f" % x},
@@ -209,6 +226,24 @@ def main(argv=None, iter_hook=None):
     tb.close()
     logger.info("training done!")
     return agent
+
+
+def save_render_sample(agent, generator, cfg, args, logger):
+    """--render: one sampled segment, mean actions unless --show-noise,
+    saved as results/.../render_iter_%04d.npz (per-step rewards, actions
+    and each step's lane expert and start frame)."""
+    batch, log = agent.sample(generator, cfg.min_batch_size,
+                              mean_action=not args.show_noise)
+    logger.info("render sample: %d steps, R_avg %.4f"
+                % (log.num_steps, log.avg_c_reward))
+    out = "%s/render_iter_%04d.npz" % (cfg.result_dir, args.iter)
+    os.makedirs(cfg.result_dir, exist_ok=True)
+    np.savez_compressed(out, rewards=batch.rewards.cpu().numpy(),
+                        actions=batch.actions.cpu().numpy(),
+                        expert_ind=batch.expert_ind.cpu().numpy(),
+                        start_ind=batch.start_ind.cpu().numpy())
+    logger.info("saved rollout sample to %s" % out)
+    return out
 
 
 if __name__ == "__main__":

@@ -8,14 +8,21 @@ prediction is the trained state-regression net's (``state_net_cfg`` /
 ``state_net_iter``, its results/statereg/<cfg>/models/iter_%04d_inf.p)
 where that checkpoint exists, else the ground-truth kinematic state.  Each step
 runs all takes through ``envs.step``, whose physics is one launch of the
-CUDA control-step kernel on the card.
+CUDA control-step kernel on the card.  ``--engine mujoco`` steps the
+physics on the MuJoCo C oracle on the host instead (envs/mujoco_oracle.py:
+the cross-engine check; no kernel launches), with the same policy,
+fail-safe and bookkeeping.
 
     python -m egopose_tpu_torch.cli.ego_mimic_eval --cfg subject_03 \\
-        --synthetic --iter 3000 [--device cuda|cpu] [--f64]
+        --synthetic --iter 3000 [--device cuda|cpu] [--f64] \\
+        [--engine mujoco] [--render] [--profile-dir DIR]
 
 Writes results/egomimic/<cfg>/results/iter_%04d_<data>[_tags].p as
 (results, meta) with results {traj_pred, traj_orig, vel_pred[,
-traj_orig_synced]} keyed by take, the JAX package's layout.
+traj_orig_synced]} keyed by take, the JAX package's layout (tag ``_mj``
+under ``--engine mujoco``); ``--render`` also writes the viewer's replay
+iter_%04d_<data>_replay.npz (utils/render.py::save_replay), and
+``--profile-dir`` a torch.profiler trace of the rollout (trace.json).
 """
 from __future__ import annotations
 
@@ -122,14 +129,9 @@ def main(argv=None, step_hook=None, phys_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    for flag, on, item in (
-            ("--engine mujoco", args.engine == "mujoco", 2),
-            ("--profile-dir", args.profile_dir is not None, 2),
-            ("--sp-devices", args.sp_devices is not None, 5),
-            ("--render", args.render, 2)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item {item})")
+    if args.sp_devices is not None:
+        raise NotImplementedError(
+            "--sp-devices is not ported yet (ROADMAP §1 item 5)")
 
     from .. import envs, resolve_device
     from ..ops import math_utils as M
@@ -139,6 +141,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
     from ..rl.agent_ego import AgentEgo
     from ..utils.config import EgoMimicConfig
     from ..utils.log import create_logger
+    from ..utils.profile import profiled
     from .ego_mimic import build_world
 
     device = resolve_device(args.device)
@@ -148,7 +151,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
     np.random.seed(cfg.seed)
 
     t0 = time.time()
-    if device.type == "cuda":
+    if device.type == "cuda" and args.engine == "torch":
         substep.build()               # nvcc at first use, outside the loop
     t_build = time.time() - t0
 
@@ -205,6 +208,22 @@ def main(argv=None, step_hook=None, phys_hook=None):
     sync_interval = int(getattr(cfg, "sync_exp_interval", 100))
     noise_gen = torch.Generator(device=device)
     noise_gen.manual_seed(cfg.seed)
+    if args.engine == "mujoco":
+        from ..envs.mujoco_oracle import MuJoCoOracle
+        oracle = MuJoCoOracle(spec, n_takes, p.jkp, p.jkd, p.torque_lim,
+                              frame_skip=int(p.frame_skip))
+
+        def phys_step(st, action):
+            qp, qv = oracle.control_step(st.qpos, st.qvel,
+                                         envs.apply_action(p, action))
+            as_t = lambda x: torch.as_tensor(x).to(device=device,
+                                                   dtype=dtype)
+            return envs.finish_step(model, p, tables, expert, st, as_t(qp),
+                                    as_t(qv), 0.0, fix_head_lb=fix_head_lb)
+    else:
+        def phys_step(st, action):
+            return envs.step(model, p, tables, expert, st, action, 0.0,
+                             fix_head_lb=fix_head_lb)
 
     vstat_n = torch.zeros(n_takes, dtype=dtype, device=device)
     vstat_mean = torch.zeros(n_takes, dtype=dtype, device=device)
@@ -217,7 +236,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.time()
-    with torch.no_grad():
+    with torch.no_grad(), profiled(args.profile_dir, device, logger):
         for t in range(t_max):
             active = t < test_lens_t
             e_qpos_t = expert.qpos[:, m + t]
@@ -247,8 +266,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
                 active, (value - vstat_mean) / torch.clamp(vstat_n, min=1),
                 torch.zeros_like(value))
 
-            new_st, out = envs.step(model, p, tables, expert, st, action,
-                                    0.0, fix_head_lb=fix_head_lb)
+            new_st, out = phys_step(st, action)
             if phys_hook is not None:
                 phys_hook(t, st, action, new_st)
             if args.fail_safe == "valuefs":
@@ -296,6 +314,14 @@ def main(argv=None, step_hook=None, phys_hook=None):
                "vel_pred": vel_pred}
     if args.sync:
         results["traj_orig_synced"] = orig_sync
+    if args.render:
+        from ..utils.render import save_replay
+        vis_path = "%s/iter_%04d_%s_replay.npz" % (cfg.result_dir, args.iter,
+                                                   args.data)
+        os.makedirs(cfg.result_dir, exist_ok=True)
+        save_replay(vis_path, traj_pred,
+                    orig_sync if args.sync else traj_orig)
+        logger.info("saved replay for the viewer to %s" % vis_path)
     meta = {"algo": "ego_mimic", "num_reset": int(n_reset.sum()),
             "frames_per_sec": n_frames / max(wall, 1e-9),
             "compile_s": t_build, "engine": args.engine,
@@ -303,8 +329,9 @@ def main(argv=None, step_hook=None, phys_hook=None):
             "avg_reward": avg_reward}
     fs_tag = "" if args.fail_safe == "valuefs" else "_" + args.fail_safe
     c_tag = "_causal" if args.causal else ""
-    res_path = "%s/iter_%04d_%s%s%s.p" % (cfg.result_dir, args.iter,
-                                          args.data, fs_tag, c_tag)
+    e_tag = "_mj" if args.engine == "mujoco" else ""
+    res_path = "%s/iter_%04d_%s%s%s%s.p" % (cfg.result_dir, args.iter,
+                                            args.data, fs_tag, c_tag, e_tag)
     os.makedirs(cfg.result_dir, exist_ok=True)
     with open(res_path, "wb") as f:
         pickle.dump((results, meta), f)

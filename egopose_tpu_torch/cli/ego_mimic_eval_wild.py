@@ -9,12 +9,15 @@ so each control step is one launch of the CUDA control-step kernel over
 all takes on the card.
 
     python -m egopose_tpu_torch.cli.ego_mimic_eval_wild --cfg subject_03 \\
-        --iter 3000 --test-feat wild_01 [--device cuda|cpu] [--f64]
+        --iter 3000 --test-feat wild_01 [--device cuda|cpu] [--f64] \
+        [--render]
 
 Reads datasets/features/cnn_feat_<test-feat>.p (a dict of take -> (T, F)
 features, or (dict, mean)); writes
 results/egomimic/<cfg>/results/iter_%04d_<test-feat>.p as (results, meta)
 with results {traj_pred, vel_pred} keyed by take, the JAX package's layout.
+``--render`` then shows the takes in the viewer, or headless writes their
+replay and a video (utils/vis_modes.py::view_or_render_windows).
 """
 from __future__ import annotations
 
@@ -67,9 +70,6 @@ def main(argv=None, step_hook=None, phys_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    if args.render:
-        raise NotImplementedError(
-            "--render is not ported yet (ROADMAP §1 item 2)")
 
     from .. import envs, resolve_device
     from ..ops import running_norm
@@ -205,6 +205,11 @@ def main(argv=None, step_hook=None, phys_hook=None):
     with open(res_path, "wb") as f:
         pickle.dump((results, meta), f)
     logger.info("saved results to %s" % res_path)
+    if args.render:
+        from ..utils.vis_modes import view_or_render_windows
+        view_or_render_windows(
+            {"traj_pred": {t: traj_pred[t][None] for t in traj_pred}},
+            res_path, logger)
     return results, meta
 
 

@@ -1,9 +1,14 @@
 """Forecast metrics over an ego-forecast results pickle (counterpart of
-egopose_tpu/cli/eval_forecast.py, ``--mode stats``): pose, velocity and
-acceleration metrics of the sliding windows at horizons 30 and 90.
+egopose_tpu/cli/eval_forecast.py): pose, velocity and acceleration
+metrics of the sliding windows at horizons 30 and 90.
 
     python -m egopose_tpu_torch.cli.eval_forecast \\
         --egoforecast-cfg subject_03_syn --egoforecast-iter N [--suffix _gt]
+
+``--mode vis`` opens the TrajectoryViewer on the windows (q/e steps the
+window, z/c the take); headless it writes the first take's first window
+and its ground truth as a video next to the results pickle (.mp4, or .npz
+without a renderer or encoder) and returns its path.
 """
 from __future__ import annotations
 
@@ -78,9 +83,6 @@ def main(argv=None):
     parser.add_argument("--multi-vis-model",
                         default="humanoid_1205_vis_forecast_v1")
     args = parser.parse_args(argv)
-    if args.mode != "stats":
-        raise NotImplementedError(
-            "--mode vis is not ported yet (ROADMAP §1 item 2)")
 
     from ..utils.config import EgoForecastConfig
     from ..utils.tools import remove_noisy_hands
@@ -91,10 +93,31 @@ def main(argv=None):
     with open(res_path, "rb") as f:
         results, meta = pickle.load(f)
     remove_noisy_hands(results)
-    return {"horizon_30": compute_metrics(results, "ego forecast", 30,
-                                          cfg.fr_margin),
-            "horizon_90": compute_metrics(results, "ego forecast", 90,
-                                          cfg.fr_margin)}
+    if args.mode == "stats":
+        return {"horizon_30": compute_metrics(results, "ego forecast", 30,
+                                              cfg.fr_margin),
+                "horizon_90": compute_metrics(results, "ego forecast", 90,
+                                              cfg.fr_margin)}
+    algos = [("ego forecast",
+              {take: {"pred": results["traj_pred"][take],
+                      "orig": results["traj_orig"][take]}
+               for take in results["traj_pred"]})]
+    from ..utils.assets import find_model_xml
+    xml = find_model_xml(
+        args.multi_vis_model if args.multi else args.vis_model)
+    try:
+        from ..envs.visual import TrajectoryViewer
+        TrajectoryViewer(xml, algos).run()
+        return None
+    except Exception as e:
+        print("no display (%s) -- writing video instead" % e)
+    from ..utils.render import render_qpos_video
+    take = list(results["traj_pred"].keys())[0]
+    written = render_qpos_video([results["traj_pred"][take][0],
+                                 results["traj_orig"][take][0]],
+                                res_path.replace(".p", ".mp4"))
+    print("wrote %s" % written)
+    return written
 
 
 if __name__ == "__main__":

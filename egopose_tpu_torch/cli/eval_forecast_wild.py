@@ -1,16 +1,21 @@
 """Wild forecast metrics (counterpart of
-egopose_tpu/cli/eval_forecast_wild.py, ``--mode stats``): the per-horizon
-2D keypoint distance against OpenPose ground truth over the forecast
-windows, and their smoothness.
+egopose_tpu/cli/eval_forecast_wild.py): the per-horizon 2D keypoint
+distance against OpenPose ground truth over the forecast windows, and
+their smoothness.
 
     python -m egopose_tpu_torch.cli.eval_forecast_wild \\
         --egoforecast-cfg subject_03_syn --egoforecast-iter N \\
-        --data wild_01 [--horizons 30 90] [--meta-file M] [--device cuda|cpu]
+        --data wild_01 [--horizons 30 90] [--meta-file M] [--device cuda|cpu] \\
+        [--mode vis | --stats-vis] [--multi] [--vis-model V]
 
 Every window of a take is projected at once (one batched FK: K5 on the
 card) and the projections serve every horizon.  Window ``wi``'s forecast
 frame ``fr`` is scored against keypoint file ``wi * m + m + fr +
 tpv_offset``, the JAX package's indexing (ROADMAP §3 on what it assumes).
+``--mode vis`` shows the windows in the viewer or, headless, writes their
+replay and a video (utils/vis_modes.py::view_or_render_windows);
+``--stats-vis`` also writes the first window of each take as a composited
+video out/wildfc_statsvis_<take>.mp4 (wild_fpv_tpv_video, needs cv2).
 """
 from __future__ import annotations
 
@@ -99,8 +104,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.horizon is not None:
         args.horizons = [args.horizon]
-    from .eval_pose_wild import load_wild_meta, pose_context, vis_refusals
-    vis_refusals(args, "humanoid_1205_vis_ghost_v1")
+    if args.mode not in ("stats", "vis"):
+        raise SystemExit("unknown --mode %s (stats|vis)" % args.mode)
+    from .eval_pose_wild import PrintLogger, load_wild_meta, pose_context
 
     from .. import resolve_device
     from ..utils.config import EgoForecastConfig
@@ -117,6 +123,20 @@ def main(argv=None):
         keep = list(results["traj_pred"].keys())[args.take_ind]
         results = dict(results)
         results["traj_pred"] = {keep: results["traj_pred"][keep]}
+    vis_model = args.multi_vis_model if args.multi else args.vis_model
+    if args.mode == "vis":
+        from ..utils.vis_modes import view_or_render_windows
+        return view_or_render_windows(results, res_path, PrintLogger(),
+                                      vis_model=vis_model)
+    if args.stats_vis:
+        from ..utils.vis_modes import wild_fpv_tpv_video
+        os.makedirs("out", exist_ok=True)
+        for take, windows in results["traj_pred"].items():
+            if windows.shape[0]:
+                wild_fpv_tpv_video(
+                    windows[0], take, pose_ctx, cfg, wild_meta,
+                    "out/wildfc_statsvis_%s.mp4" % take, PrintLogger(),
+                    tpv=args.tpv, vis_model=vis_model)
     return compute_wild_forecast_metrics(results, args.horizons, pose_ctx,
                                          wild_meta, cfg.data_dir,
                                          cfg.fr_margin)

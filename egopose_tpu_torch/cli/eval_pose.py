@@ -1,13 +1,16 @@
 """Pose-estimation metrics over an ego-mimic or state-regression results
-pickle (counterpart of egopose_tpu/cli/eval_pose.py, ``--mode stats``).
+pickle (counterpart of egopose_tpu/cli/eval_pose.py).
 
     python -m egopose_tpu_torch.cli.eval_pose --egomimic-cfg CFG \
         --egomimic-iter N [--data test] [--tag T]
     python -m egopose_tpu_torch.cli.eval_pose --algo state_reg \
         --statereg-cfg CFG --statereg-iter N [--data test]
 
-The vis flags (``--multi``, ``--vis-model``, ``--multi-vis-model``) are
-taken; ``--mode vis`` is not ported yet."""
+``--mode vis`` opens the TrajectoryViewer on the result set (keys 1 / 2
+pick ego mimic / state reg, whose results ``--statereg-cfg`` adds), with
+``--vis-model`` or, under ``--multi``, ``--multi-vis-model``; headless it
+writes the first take's prediction and ground truth as a video next to
+the results pickle (.mp4, or .npz without a renderer or encoder)."""
 from __future__ import annotations
 
 import argparse
@@ -71,9 +74,6 @@ def main(argv=None):
     parser.add_argument("--multi-vis-model",
                         default="humanoid_1205_vis_multi_v1")
     args = parser.parse_args(argv)
-    if args.mode != "stats":
-        raise NotImplementedError(
-            "--mode vis is not ported yet (ROADMAP §1 item 2)")
 
     from ..utils.log import create_logger
     logger = create_logger(None, file_handle=False)
@@ -87,7 +87,44 @@ def main(argv=None):
         results, meta = pickle.load(f)
     logger.info("loaded results from %s (meta: %s)" % (
         res_path, {k: v for k, v in meta.items() if not hasattr(v, "shape")}))
-    return compute_stats(results, logger=logger)
+    if args.mode == "stats":
+        return compute_stats(results, logger=logger)
+    return show_results(args, results, res_path, logger)
+
+
+def show_results(args, results, res_path, logger):
+    """--mode vis: the viewer over the result set (and the state-reg one
+    of ``--statereg-cfg`` beside an ego-mimic set), else a video of the
+    first take; returns the path written, None with a display."""
+    def to_viewer(res):
+        return {take: {"pred": res["traj_pred"][take],
+                       "orig": res["traj_orig"].get(take)}
+                for take in res["traj_pred"]}
+
+    algos = [("ego mimic" if args.algo == "ego_mimic" else "state reg",
+              to_viewer(results))]
+    if args.algo == "ego_mimic" and args.statereg_cfg:
+        other_path = "results/statereg/%s/results/iter_%04d_%s.p" % (
+            args.statereg_cfg, args.statereg_iter, args.data)
+        with open(other_path, "rb") as f:
+            other, _ = pickle.load(f)
+        algos.append(("state reg", to_viewer(other)))
+    from ..utils.assets import find_model_xml
+    xml = find_model_xml(
+        args.multi_vis_model if args.multi else args.vis_model)
+    try:
+        from ..envs.visual import TrajectoryViewer
+        TrajectoryViewer(xml, algos).run()
+        return None
+    except Exception as e:
+        logger.info("no display (%s) -- writing video instead" % e)
+    from ..utils.render import render_qpos_video
+    take = list(results["traj_pred"].keys())[0]
+    written = render_qpos_video([results["traj_pred"][take],
+                                 results["traj_orig"][take]],
+                                res_path.replace(".p", ".mp4"))
+    logger.info("wrote %s" % written)
+    return written
 
 
 if __name__ == "__main__":

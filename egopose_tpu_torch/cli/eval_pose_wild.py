@@ -1,32 +1,23 @@
 """Wild pose-estimation metrics (counterpart of
-egopose_tpu/cli/eval_pose_wild.py, ``--mode stats``): the scale-normalised
-2D keypoint distance against OpenPose ground truth and the smoothness.
+egopose_tpu/cli/eval_pose_wild.py): the scale-normalised 2D keypoint
+distance against OpenPose ground truth and the smoothness.
 
     python -m egopose_tpu_torch.cli.eval_pose_wild --egomimic-cfg subject_03 \\
         --egomimic-iter 3000 [--statereg-cfg C --statereg-iter N] \\
-        --data wild_01 [--meta-file M] [--device cuda|cpu]
+        --data wild_01 [--meta-file M] [--device cuda|cpu] \\
+        [--mode vis | --stats-vis] [--multi] [--vis-model V]
 
 Each take is projected once (one batched FK: K5 on the card) and scored
 per frame against datasets/tpv/poses/<take>/%05d_keypoints.json.
+``--mode vis`` (or ``--stats-vis`` beside the stats) writes each take's
+composited video out/wild_[statsvis|vis]_<algo>_<take>.mp4 (its .npz
+without an encoder; utils/vis_modes.py::wild_fpv_tpv_video, needs cv2).
 """
 from __future__ import annotations
 
 import argparse
 import os
 import pickle
-
-
-def vis_refusals(args, vis_model_default):
-    """NotImplementedError for a vis option set on ``args``."""
-    for flag, on in (("--mode vis", args.mode == "vis"),
-                     ("--stats-vis", args.stats_vis),
-                     ("--multi", args.multi),
-                     ("--vis-model", args.vis_model != vis_model_default)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item 2)")
-    if args.mode != "stats":
-        raise SystemExit("unknown --mode %s (stats|vis)" % args.mode)
 
 
 def load_wild_meta(meta_file):
@@ -128,7 +119,8 @@ def main(argv=None):
                         help="torch device of the FK; default cuda (raises "
                              "without CUDA), cpu runs the plain FK")
     args = parser.parse_args(argv)
-    vis_refusals(args, "humanoid_1205_vis_single_v1")
+    if args.mode not in ("stats", "vis"):
+        raise SystemExit("unknown --mode %s (stats|vis)" % args.mode)
 
     from .. import resolve_device
     from ..utils.config import EgoMimicConfig
@@ -153,12 +145,38 @@ def main(argv=None):
     takes = list((em_res or sr_res)["traj_pred"].keys())
     if args.take_ind >= 0:
         takes = [takes[args.take_ind]]
-    return {"ego_mimic": compute_wild_metrics(
-                em_res, "ego mimic", takes, pose_ctx, wild_meta,
-                cfg.data_dir, cfg.fr_margin),
-            "state_reg": compute_wild_metrics(
-                sr_res, "state reg", takes, pose_ctx, wild_meta,
-                cfg.data_dir, cfg.fr_margin)}
+    out = {}
+    if args.mode == "stats":
+        out = {"ego_mimic": compute_wild_metrics(
+                   em_res, "ego mimic", takes, pose_ctx, wild_meta,
+                   cfg.data_dir, cfg.fr_margin),
+               "state_reg": compute_wild_metrics(
+                   sr_res, "state reg", takes, pose_ctx, wild_meta,
+                   cfg.data_dir, cfg.fr_margin)}
+    if args.mode == "vis" or args.stats_vis:
+        # the reference's FPV/TPV synced viewer, headless: a composited
+        # video per take
+        from ..utils.vis_modes import wild_fpv_tpv_video
+        res, algo = (em_res, "egomimic") if em_res is not None \
+            else (sr_res, "statereg")
+        kind = "vis" if args.mode == "vis" else "statsvis"
+        os.makedirs("out", exist_ok=True)
+        for take in takes:
+            written = wild_fpv_tpv_video(
+                res["traj_pred"][take], take, pose_ctx, cfg, wild_meta,
+                "out/wild_%s_%s_%s.mp4" % (kind, algo, take), PrintLogger(),
+                tpv=args.tpv, vis_model=args.multi_vis_model if args.multi
+                else args.vis_model)
+            if args.mode == "vis":
+                out[take] = written
+    return out
+
+
+class PrintLogger:
+    """The logger the metric CLIs hand to the vis functions: print."""
+
+    def info(self, msg):
+        print(msg)
 
 
 if __name__ == "__main__":

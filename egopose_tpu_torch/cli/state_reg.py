@@ -29,7 +29,6 @@ writes results/statereg/<cfg>/results/iter_%04d_<data or test-feat>.p.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import pickle
 import queue
@@ -285,6 +284,7 @@ def main(argv=None, epoch_hook=None):
 
 def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
            logger, tb, epoch_hook):
+    from ..utils.profile import profiled
     fr_margin = cfg.fr_margin
     # optax.adam's defaults: the same update, eps outside the square root
     opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
@@ -344,11 +344,9 @@ def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
         # the second epoch: the first is the warm-up (cuDNN's first calls,
         # the allocator's growth), not the steady state
         profiling = args.profile_dir and i_epoch == args.iter + 1
-        prof = _profiler(args.profile_dir, device) if profiling \
-            else contextlib.nullcontext()
         t0 = time.time()
         n_sample, losses, counts = 0, [], []
-        with prof:
+        with profiled(profiling and args.profile_dir, device, logger):
             for of, gt, mask, num in (resident if resident is not None
                                       else device_batches()):
                 losses.append(train_step(net, opt, of, gt, mask, fr_margin,
@@ -358,10 +356,6 @@ def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
             ep_loss = float(sum(float(l) * c for l, c in zip(losses, counts))
                             / max(n_sample, 1))
         dt_ep = time.time() - t0
-        if profiling:
-            prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                                  "trace.json"))
-            logger.info("wrote profiler trace to %s" % args.profile_dir)
         logger.info("epoch {:4d}    time {:.2f}     nsample {}   "
                     "loss {:.4f}   frames/s {:.1f}"
                     .format(i_epoch, dt_ep, n_sample, ep_loss,
@@ -375,14 +369,6 @@ def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
             save_state_net("%s/iter_%04d.p" % (cfg.model_dir, i_epoch + 1),
                            net, {"mean": dataset.mean, "std": dataset.std})
     return net, dataset
-
-
-def _profiler(profile_dir, device):
-    os.makedirs(profile_dir, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
 
 
 @torch.no_grad()

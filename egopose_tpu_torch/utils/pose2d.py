@@ -5,11 +5,13 @@ The 3D body positions come from the port's forward kinematics: one
 ``physics/fk.py::fk_batched`` call over every frame of a trajectory (the
 CUDA kernel K5 on a CUDA model, the plain ``fk`` on a CPU one); the camera
 algebra then runs per frame on the host in float64, as the JAX package's
-per-frame ``project_qpos`` does.  Drawing (``draw_pose``) is not ported.
+per-frame ``project_qpos`` does.  ``draw_pose`` draws a projected
+skeleton with OpenCV, which it imports when called.
 """
 from __future__ import annotations
 
 import json
+import math
 
 import numpy as np
 import torch
@@ -145,3 +147,21 @@ class Pose2DContext:
             scale = np.linalg.norm(gt_p[b[kp1]] - gt_p[b[kp2]]) \
                 / np.linalg.norm(p[b[kp1]] - p[b[kp2]])
         return p * scale + base
+
+    # -- drawing --------------------------------------------------------------
+    def draw_pose(self, img, pose, flip=False):
+        """Draw the skeleton of ``pose`` (nbody, >= 2 image coordinates)
+        into the BGR image ``img`` in place: one filled ellipse per limb,
+        a dot per keypoint."""
+        import cv2
+        conn = self.conn[5:] + self.conn[:5] if flip else self.conn
+        for b1, b2, c in conn:
+            p1 = pose[self.body2id[b1], :2]
+            p2 = pose[self.body2id[b2], :2]
+            center = (int((p1[0] + p2[0]) / 2), int((p1[1] + p2[1]) / 2))
+            angle = int(math.atan2(p2[1] - p1[1], p2[0] - p1[0]) / np.pi * 180)
+            axes = (int(np.linalg.norm(p2 - p1) / 2), 1)
+            cv2.ellipse(img, center, axes, angle, 0, 360, c, -1)
+        for x in BODY_SET:
+            e = pose[self.body2id[x], :2]
+            cv2.circle(img, (int(e[0]), int(e[1])), 1, (0, 0, 255), -1)

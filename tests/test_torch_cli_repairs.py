@@ -9,10 +9,18 @@
 - eval_pose and eval_forecast parse ``--multi``, ``--vis-model`` and
   ``--multi-vis-model``;
 - every option the port refuses raises NotImplementedError naming its
-  current ROADMAP §1 item.
+  current ROADMAP §1 item;
+- every option that ROADMAP §1 item 2 lifted (``--engine mujoco``,
+  ``--profile-dir``, ``--render`` and the vis modes and flags of the ten
+  eval and training CLIs) runs on the CPU at a tiny size and writes its
+  artifact: a trace.json with the ``sample`` and ``update`` ranges, a
+  render or replay npz, the ``_mj`` pickle, the vis fallback's npz or the
+  wild composited videos.
 """
 import argparse
+import glob
 import importlib
+import json
 import os
 import pickle
 import re
@@ -128,38 +136,14 @@ def test_eval_pose_matches_jax(tmp_path, monkeypatch, algo):
 REFUSALS = [
     ("ego_mimic", ["--dp-devices", "2"], 5),
     ("ego_mimic", ["--sp-devices", "2"], 5),
-    ("ego_mimic", ["--profile-dir", "x"], 2),
-    ("ego_mimic", ["--render"], 2),
     ("ego_mimic", ["--ckpt-format", "orbax"], 3),
     ("ego_mimic", "discriminator", 4),
-    ("ego_mimic_eval", ["--engine", "mujoco"], 2),
-    ("ego_mimic_eval", ["--profile-dir", "x"], 2),
     ("ego_mimic_eval", ["--sp-devices", "2"], 5),
-    ("ego_mimic_eval", ["--render"], 2),
     ("ego_forecast", ["--dp-devices", "2"], 5),
-    ("ego_forecast", ["--profile-dir", "x"], 2),
-    ("ego_forecast", ["--render"], 2),
     ("ego_forecast", ["--ckpt-format", "orbax"], 3),
-    ("ego_forecast_eval", ["--mode", "vis"], 2),
-    ("ego_forecast_eval", ["--render"], 2),
-    ("eval_forecast", ["--mode", "vis"], 2),
-    ("eval_pose", ["--mode", "vis"], 2),
     ("state_reg", ["--dp-devices", "2"], 5),
-    ("ego_mimic_eval_wild", ["--render"], 2),
-    ("ego_forecast_eval_wild", ["--mode", "vis"], 2),
-    ("ego_forecast_eval_wild", ["--render"], 2),
-    ("ego_forecast_eval_wild", ["--vis-model", "x"], 2),
-    ("eval_pose_wild", ["--mode", "vis"], 2),
-    ("eval_pose_wild", ["--stats-vis"], 2),
-    ("eval_pose_wild", ["--multi"], 2),
-    ("eval_pose_wild", ["--vis-model", "x"], 2),
-    ("eval_forecast_wild", ["--mode", "vis"], 2),
-    ("eval_forecast_wild", ["--stats-vis"], 2),
-    ("eval_forecast_wild", ["--multi"], 2),
-    ("eval_forecast_wild", ["--vis-model", "x"], 2),
     ("agent_ego", "policy_objective", 4),
 ]
-
 
 @pytest.mark.parametrize("module,extra,item", REFUSALS)
 def test_refusal_names_its_roadmap_item(tmp_path, monkeypatch, module, extra,
@@ -191,3 +175,211 @@ def test_refusal_names_its_roadmap_item(tmp_path, monkeypatch, module, extra,
              if "--device" in flags(f"egopose_tpu_torch.cli.{module}")
              else argv)
 
+
+
+# ---------------------------------------------------------------------------
+# The options ROADMAP §1 item 2 lifted: each runs and writes its artifact
+# ---------------------------------------------------------------------------
+
+WILD = "wild"
+TINY_TAKES, TINY_LEN, TINY_M, TINY_EP = 2, 30, 5, 10
+
+
+def _tiny_configs(root):
+    """config/egomimic/tiny.yml and config/egoforecast/tiny.yml: the
+    shipped configs at fr_margin 5, episodes of 10 and one optimizer epoch
+    (the profiler records every host op of the update)."""
+    em = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
+                                          "subject_03.yml")))
+    ef = yaml.safe_load(open(os.path.join(REPO, "config", "egoforecast",
+                                          "subject_03_syn.yml")))
+    for cfg in (em, ef):
+        cfg.update(fr_margin=TINY_M, env_episode_len=TINY_EP, seed=1,
+                   num_optim_epoch=1)
+        for key in ("meta_id", "state_net_cfg", "state_net_iter"):
+            cfg.pop(key, None)
+    ef.update(ego_mimic_cfg="tiny", ego_mimic_iter=0)
+    for workload, cfg in (("egomimic", em), ("egoforecast", ef)):
+        os.makedirs(os.path.join(root, "config", workload))
+        with open(os.path.join(root, "config", workload, "tiny.yml"),
+                  "w") as f:
+            yaml.safe_dump(cfg, f)
+
+
+@pytest.fixture(scope="module")
+def tiny_world(tmp_path_factory):
+    """Configs, wild features and the results pickles the metric CLIs
+    read: ego-mimic (test and wild, with vel_pred) and ego-forecast
+    windows (test and wild), each a standing pose's trajectory
+    (tests/test_data_pipeline.py)."""
+    root = str(tmp_path_factory.mktemp("tiny"))
+    _tiny_configs(root)
+    rng = np.random.RandomState(0)
+    takes = [f"take_{i}" for i in range(TINY_TAKES)]
+    os.makedirs(os.path.join(root, "datasets", "features"))
+    with open(os.path.join(root, "datasets", "features",
+                           f"cnn_feat_{WILD}.p"), "wb") as f:
+        pickle.dump({t: rng.randn(TINY_LEN, 64).astype(np.float32)
+                     for t in takes}, f)
+    n = TINY_LEN - 2 * TINY_M
+    mimic = {t: _make_traj(i)[:n] for i, t in enumerate(takes)}
+    mimic_res = {"traj_pred": mimic, "traj_orig": mimic,
+                 "vel_pred": {t: np.zeros((n, 58)) for t in takes}}
+    win = {t: np.stack([_make_traj(i + w)[:TINY_M + TINY_EP]
+                        for w in range(2)]) for i, t in enumerate(takes)}
+    for workload, res in (("egomimic", mimic_res),
+                          ("egoforecast", {"traj_pred": win,
+                                           "traj_orig": win})):
+        for data in ("test", WILD):
+            path = os.path.join(root, "results", workload, "tiny", "results",
+                                f"iter_0000_{data}.p")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                pickle.dump((res, {"algo": workload}), f)
+    return root
+
+
+def _trace_ranges(path):
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "user_annotation"}
+
+
+def _files(pattern):
+    return sorted(glob.glob(pattern))
+
+
+MIMIC_RES = os.path.join("results", "egomimic", "tiny", "results")
+FORECAST_RES = os.path.join("results", "egoforecast", "tiny", "results")
+TRAIN = ["--cfg", "tiny", "--synthetic", "--batch-lanes", "2",
+         "--episode-len", "3", "--min-batch", "6", "--max-iter", "2"]
+BASE = {
+    "ego_mimic": TRAIN,
+    "ego_forecast": TRAIN,
+    "ego_mimic_eval": ["--cfg", "tiny", "--synthetic"],
+    "ego_forecast_eval": ["--cfg", "tiny", "--synthetic", "--gt-init"],
+    "eval_pose": ["--egomimic-cfg", "tiny"],
+    "eval_forecast": ["--egoforecast-cfg", "tiny"],
+    "ego_mimic_eval_wild": ["--cfg", "tiny", "--test-feat", WILD],
+    "ego_forecast_eval_wild": ["--cfg", "tiny", "--test-feat", WILD,
+                               "--egomimic-iter", "0"],
+    "eval_pose_wild": ["--egomimic-cfg", "tiny", "--data", WILD],
+    "eval_forecast_wild": ["--egoforecast-cfg", "tiny", "--data", WILD],
+}
+
+
+def _check_artifact(module, extra, out):
+    """What the option wrote (paths relative to the run's directory)."""
+    arg = " ".join(extra)
+    if arg == "--profile-dir x":
+        ranges = _trace_ranges(os.path.join("x", "trace.json"))
+        if module in ("ego_mimic", "ego_forecast"):
+            assert {"sample", "update"} <= ranges, ranges
+    elif module == "ego_mimic" and arg == "--render":
+        npz = np.load(os.path.join(MIMIC_RES, "render_iter_0000.npz"))
+        assert npz["rewards"].shape == (3, 2) and npz["actions"].shape \
+            == (3, 2, 52)
+        assert not os.path.exists(os.path.join("results", "egomimic", "tiny",
+                                               "log", "log.txt"))
+    elif module == "ego_forecast" and arg == "--render":
+        # mean-action training without a log file or scalars
+        assert out is not None
+        assert _files(os.path.join("results", "egoforecast", "tiny", "log",
+                                   "*")) == []
+        assert not os.path.exists(os.path.join("results", "egoforecast",
+                                               "tiny", "tb"))
+    elif arg == "--engine mujoco":
+        with open(os.path.join(MIMIC_RES, "iter_0000_test_mj.p"), "rb") as f:
+            saved, meta = pickle.load(f)
+        assert meta["engine"] == "mujoco" and set(saved["traj_pred"]) \
+            == {"take_0", "take_1"}
+    elif module == "ego_mimic_eval":
+        replay = np.load(os.path.join(MIMIC_RES, "iter_0000_test_replay.npz"))
+        np.testing.assert_array_equal(replay["pred__take_0"],
+                                      out[0]["traj_pred"]["take_0"])
+    elif module in ("ego_forecast_eval", "ego_mimic_eval_wild",
+                    "ego_forecast_eval_wild") and arg != "--vis-model x":
+        res_dir = MIMIC_RES if module == "ego_mimic_eval_wild" \
+            else FORECAST_RES
+        data = "test_gt" if module == "ego_forecast_eval" else WILD
+        replay = np.load(os.path.join(res_dir,
+                                      f"iter_0000_{data}_replay.npz"))
+        assert replay.files and np.isfinite(replay[replay.files[0]]).all()
+        assert _files(os.path.join(res_dir, f"iter_0000_{data}.*")) == [
+            os.path.join(res_dir, f"iter_0000_{data}.{ext}")
+            for ext in ("npz", "p")]
+    elif module in ("eval_pose", "eval_forecast") \
+            or (module == "eval_forecast_wild" and arg == "--mode vis"):
+        assert out.endswith(".npz") and os.path.exists(out)
+        assert sorted(np.load(out).files) == ["traj_0", "traj_1"]
+    elif arg == "--stats-vis":
+        prefix = "wild_statsvis_egomimic_" if module == "eval_pose_wild" \
+            else "wildfc_statsvis_"
+        assert len(_files(os.path.join("out", prefix + "*"))) == TINY_TAKES
+        assert out
+    elif module == "eval_pose_wild" and arg == "--mode vis":
+        assert sorted(out) == ["take_0", "take_1"]
+        assert all(os.path.exists(p) for p in out.values())
+    else:
+        # --multi / --vis-model outside a vis mode: taken, and the run
+        # writes what it writes without them
+        assert out
+        if module == "ego_forecast_eval_wild":
+            assert os.path.exists(os.path.join(FORECAST_RES,
+                                               f"iter_0000_{WILD}.p"))
+
+
+# (module, extra argv) of every option ROADMAP §1 item 2 lifted
+LIFTED = [
+    ("ego_mimic", ["--profile-dir", "x"]),
+    ("ego_mimic", ["--render"]),
+    ("ego_mimic_eval", ["--engine", "mujoco"]),
+    ("ego_mimic_eval", ["--profile-dir", "x"]),
+    ("ego_mimic_eval", ["--render"]),
+    ("ego_forecast", ["--profile-dir", "x"]),
+    ("ego_forecast", ["--render"]),
+    ("ego_forecast_eval", ["--mode", "vis"]),
+    ("ego_forecast_eval", ["--render"]),
+    ("eval_forecast", ["--mode", "vis"]),
+    ("eval_pose", ["--mode", "vis"]),
+    ("ego_mimic_eval_wild", ["--render"]),
+    ("ego_forecast_eval_wild", ["--mode", "vis"]),
+    ("ego_forecast_eval_wild", ["--render"]),
+    ("ego_forecast_eval_wild", ["--vis-model", "x"]),
+    ("eval_pose_wild", ["--mode", "vis"]),
+    ("eval_pose_wild", ["--stats-vis"]),
+    ("eval_pose_wild", ["--multi"]),
+    ("eval_pose_wild", ["--vis-model", "x"]),
+    ("eval_forecast_wild", ["--mode", "vis"]),
+    ("eval_forecast_wild", ["--stats-vis"]),
+    ("eval_forecast_wild", ["--multi"]),
+    ("eval_forecast_wild", ["--vis-model", "x"]),
+]
+
+
+@pytest.mark.parametrize("module,extra", LIFTED)
+def test_lifted_option_runs(tiny_world, tmp_path, monkeypatch, module,
+                            extra):
+    import shutil
+    import torch
+    if module.endswith("_wild") and "vis" in " ".join(extra):
+        pytest.importorskip("cv2")    # the wild composites draw with cv2
+    root = str(tmp_path / "run")
+    shutil.copytree(tiny_world, root)
+    monkeypatch.chdir(root)
+    monkeypatch.setenv("EGOPOSE_SYNTHETIC_TAKES", str(TINY_TAKES))
+    # the profiler records every host op: profile 4 eval steps
+    monkeypatch.setenv("EGOPOSE_SYNTHETIC_LEN", str(
+        2 * TINY_M + 4 if module == "ego_mimic_eval"
+        and extra[0] == "--profile-dir" else TINY_LEN))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    argv = BASE[module] + extra
+    if "--device" in flags(f"egopose_tpu_torch.cli.{module}"):
+        argv += ["--device", "cpu"]
+    try:
+        out = importlib.import_module(
+            f"egopose_tpu_torch.cli.{module}").main(argv)
+    finally:
+        torch.set_num_threads(n)
+    _check_artifact(module, extra, out)

@@ -107,7 +107,9 @@ def test_eval_flags_change_behaviour(tmp_path):
     """The port's ego_mimic_eval flags (float32, CPU, 2 takes x 26 frames):
     --sync adds the expert re-expressed in the sim frame, --causal and
     --show-noise change the rollout and --causal / --fail-safe tag the
-    results file, --expert-ind slices one take; unported options raise."""
+    results file, --expert-ind slices one take, --render with --sync
+    writes the viewer's replay of the prediction and the synced expert;
+    --sp-devices (not ported) raises."""
     from egopose_tpu_torch.cli import ego_mimic_eval as teval
     base = ["--cfg", "subject_03", "--synthetic", "--iter", "800",
             "--device", "cpu"]
@@ -115,19 +117,19 @@ def test_eval_flags_change_behaviour(tmp_path):
 
     def go():
         # --sync only adds a result: its rollout is the plain one
-        for name, extra in (("plain", ["--sync"]),
+        for name, extra in (("plain", ["--sync", "--render"]),
                             ("causal", ["--causal"]),
                             ("naivefs", ["--fail-safe", "naivefs"]),
                             ("one", ["--expert-ind", "1"]),
                             ("noise", ["--show-noise"])):
             runs[name] = teval.main(base + extra)
-        for flag in (["--render"], ["--engine", "mujoco"],
-                     ["--profile-dir", "x"], ["--sp-devices", "2"]):
-            with pytest.raises(NotImplementedError):
-                teval.main(base + flag)
+        with pytest.raises(NotImplementedError):
+            teval.main(base + ["--sp-devices", "2"])
         tags = sorted(os.listdir(os.path.dirname(RESULT)))
         assert tags == ["iter_0800_test.p", "iter_0800_test_causal.p",
-                        "iter_0800_test_naivefs.p"], tags
+                        "iter_0800_test_naivefs.p",
+                        "iter_0800_test_replay.npz"], tags
+        runs["replay"] = dict(np.load(RESULT.replace(".p", "_replay.npz")))
 
     _run_in(str(tmp_path), go, length=26)
     plain = runs["plain"][0]
@@ -136,6 +138,10 @@ def test_eval_flags_change_behaviour(tmp_path):
     synced = plain["traj_orig_synced"]
     for t in synced:
         assert synced[t].shape == plain["traj_orig"][t].shape
+        np.testing.assert_array_equal(runs["replay"][f"pred__{t}"],
+                                      plain["traj_pred"][t])
+        np.testing.assert_array_equal(runs["replay"][f"orig__{t}"],
+                                      synced[t])
         np.testing.assert_allclose(synced[t][:, 7:],
                                    plain["traj_orig"][t][:, 7:], atol=1e-6)
     for name in ("causal", "noise"):

@@ -112,9 +112,8 @@ def test_cli_resumes_a_jax_checkpoint(workdir):
         "results/egomimic/subject_03/models/iter_0801.p")
 
 
-@pytest.mark.parametrize("extra", [["--dp-devices", "2"], ["--render"],
-                                   ["--ckpt-format", "orbax"],
-                                   ["--profile-dir", "prof"]])
+@pytest.mark.parametrize("extra", [["--dp-devices", "2"],
+                                   ["--ckpt-format", "orbax"]])
 def test_cli_refuses_unported_options(workdir, extra):
     from egopose_tpu_torch.cli import ego_mimic
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -20,8 +20,8 @@ frames: the shorter one is a padded lane):
 - eval_forecast_wild at horizons 5 and 10 within 1e-5 relative;
 - Pose2DContext against the JAX context on float64 models within 1e-10,
   flip both ways, and project_traj of T rows against T project_qpos calls;
-- each wild CLI raises without CUDA, and each vis flag raises
-  NotImplementedError.
+- each wild CLI raises without CUDA (the vis flags run:
+  tests/test_torch_cli_repairs.py).
 
 The OpenPose keypoint files are the port's own float64 projections of a
 moving standing pose (as tests/test_wild_eval.py writes them), with some
@@ -420,24 +420,3 @@ def test_cli_without_cuda_raises(chain, monkeypatch, cli):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(CLI_ARGS[cli])
-
-
-@pytest.mark.parametrize("cli,flag", [
-    ("ego_mimic_eval_wild", ["--render"]),
-    ("ego_forecast_eval_wild", ["--render"]),
-    ("ego_forecast_eval_wild", ["--mode", "vis"]),
-    ("ego_forecast_eval_wild", ["--vis-model", "x"]),
-    ("eval_pose_wild", ["--mode", "vis"]),
-    ("eval_pose_wild", ["--stats-vis"]),
-    ("eval_pose_wild", ["--multi"]),
-    ("eval_pose_wild", ["--vis-model", "x"]),
-    ("eval_forecast_wild", ["--mode", "vis"]),
-    ("eval_forecast_wild", ["--stats-vis"]),
-    ("eval_forecast_wild", ["--multi"]),
-    ("eval_forecast_wild", ["--vis-model", "x"])])
-def test_vis_flags_raise(chain, monkeypatch, cli, flag):
-    import importlib
-    mod = importlib.import_module(f"egopose_tpu_torch.cli.{cli}")
-    monkeypatch.chdir(chain[0]["torch"])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        mod.main(CLI_ARGS[cli] + flag + CPU)
