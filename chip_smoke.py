@@ -71,13 +71,15 @@ any failure exits non-zero:
                same work on this card and the kernel's resources as in
                k1_time
   train        the training main path: ego_mimic --cfg subject_03
-               --synthetic --batch-lanes 1024 --max-iter 2 in f32 (shipped
+               --synthetic --batch-lanes 1024 --max-iter 1 in f32 (shipped
                widths; one 200-step segment of 204,800 env steps per
-               iteration; save_model_interval 2 in a scratch copy of the
-               config): K1 launches == control steps, K2 launches == 0,
-               finite losses and rewards, per-step reward components in
-               (0, 1], iter_0002.p written and loaded back into AgentEgo with
-               equal weights; T_sample, T_update, env-steps/s
+               iteration; save_model_interval 1 in a scratch copy of the
+               config; one iteration, cut from 2 to keep the script's time
+               as the phases below grew): K1 launches == control steps, K2
+               launches == 0, finite losses and rewards, per-step reward
+               components in (0, 1], iter_0001.p written and loaded back
+               into AgentEgo with equal weights; T_sample, T_update,
+               env-steps/s
   train_torque the same CLI with action_type: torque in a scratch copy of
                the config, --episode-len 20 --min-batch 20480 --max-iter 1
                (one segment):
@@ -90,6 +92,37 @@ any failure exits non-zero:
                ``update``; the kernels and device ms of each range (the
                PPO update's split), profiled and unprofiled T_sample and
                T_update
+  train_trpo   ego_mimic with policy_objective: trpo in a scratch copy of
+               the config, shipped widths, 1024 lanes, 2 iterations of one
+               20-step segment (--episode-len 20, --min-batch 20480): K1
+               launches == control steps, K2 == 0, every metric finite, and
+               at least one iteration whose line search accepted a step
+               with surrogate_after < policy_loss and 0 < kl <= 1.5 max_kl;
+               T_update beside PPO's (train's 200-step and train_profile's
+               20-step iterations)
+  train_a2c    the same with policy_objective: a2c: the launch checks,
+               finite metrics, the policy and its context net moved from
+               their seeded initial weights
+  train_vgail  the same with a discriminator: block (VGAIL_BLOCK), 3
+               iterations: the launch checks, finite discrim_loss, and
+               whether it fell (with why, where it did not)
+  resume_native
+               ego_mimic --ckpt-format orbax (1 iteration, save interval
+               1) writes models/iter_0001.orbax holding only the native
+               file; a fresh AgentEgo loads it with every net, the filter
+               and both optimizers' mu, nu, counts and lr torch.equal to the
+               writer's; one update of each on one newly sampled batch
+               leaves their nets and optimizers torch.equal; then
+               ego_forecast --ckpt-format orbax writes iter_0002.orbax and
+               --iter 2 resumes a third iteration with the value
+               optimizer's step count carried on; K1 launches == control
+               steps
+  f64_ckpt_f32_eval
+               iter_3000.p cast to float64 (filter included, the layout of
+               a float64 JAX session's checkpoint) evaluated without --f64,
+               takes cut to 60 frames: the filter loads as float32, one K1
+               launch a step and no other kernel, the trajectories within
+               1e-5 of the float32 checkpoint's own eval
   k3_vs_plain  the fused contact-solve kernel (K3) against its plain
                version on the torque path's systems at contact-rich states
                (B=1024, B=4; c=24 rows, 10 iterations): f64 max-abs <= 1e-9
@@ -1813,14 +1846,14 @@ def phase_train(device):
     K1 launch over the 1024 lanes."""
     import torch
     from egopose_tpu_torch.rl.agent_ego import AgentEgo
-    lanes, n_iter = 1024, 2
-    with train_workdir(save_model_interval=2) as cfg:
+    lanes, n_iter = 1024, 1
+    with train_workdir(save_model_interval=1) as cfg:
         agent, iters, k1, k2, wall = run_train(
             device, ["--batch-lanes", str(lanes), "--max-iter", str(n_iter)])
         n_seg = -(-cfg["min_batch_size"] // (lanes * cfg["env_episode_len"]))
         steps = n_iter * n_seg * cfg["env_episode_len"]
         path = os.path.join("results", "egomimic", "subject_03", "models",
-                            "iter_0002.p")
+                            "iter_0001.p")
         saved = os.path.exists(path)
         same = False
         if saved:
@@ -2497,6 +2530,289 @@ def phase_engine_mujoco(device):
     emit("engine_mujoco", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"engine_mujoco out of bounds: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The other objectives (TRPO, a2c), VGAIL, the native checkpoint and a
+# float64 checkpoint in a float32 eval
+# ---------------------------------------------------------------------------
+
+OBJ_STEPS = 20                # control steps of these phases' segments
+OBJ_LANES = 1024
+VGAIL_BLOCK = {"hidden_dims": [128, 128], "lr": 1e-3, "num_update": 10,
+               "reward_weight": 1.0}
+
+
+def objective_args(n_iter):
+    """ego_mimic / ego_forecast flags for ``n_iter`` iterations of one
+    OBJ_STEPS-step segment over OBJ_LANES lanes (the shipped widths; the
+    episode and the batch cut as in train_profile)."""
+    return ["--batch-lanes", str(OBJ_LANES), "--episode-len",
+            str(OBJ_STEPS), "--min-batch", str(OBJ_LANES * OBJ_STEPS),
+            "--max-iter", str(n_iter)]
+
+
+def nets_moved(agent, nets):
+    """Whether ``nets`` (names on AgentEgo) differ from the same agent's
+    fresh weights (its config's seed), the schedule-set log-std aside."""
+    import torch
+    fresh = type(agent)(agent.model, agent.spec, agent.p, agent.tables,
+                        agent.expert, agent.cnn_feat.cpu().numpy(),
+                        agent.cfg, batch_lanes=agent.batch_lanes,
+                        seed=agent.cfg.seed, dtype=agent.dtype,
+                        device=agent.device)
+    return any(not torch.equal(a, b) for name in nets
+               for (key, a), b in zip(
+                   getattr(agent, name).state_dict().items(),
+                   getattr(fresh, name).state_dict().values())
+               if key != "action_log_std")
+
+
+def run_objective(device, n_iter, **overrides):
+    """ego_mimic at the shipped widths on a scratch config with
+    ``overrides``, OBJ_LANES lanes, ``n_iter`` iterations of one
+    OBJ_STEPS-step segment: K1 launches == control steps, K2 == 0, every
+    metric finite.  Returns (agent, record, ok)."""
+    with train_workdir(**overrides):
+        agent, iters, k1, k2, wall = run_train(device,
+                                               objective_args(n_iter))
+    steps = n_iter * OBJ_STEPS
+    finite = bool(all(np.isfinite([v for k, v in it.items()
+                                   if isinstance(v, (int, float))]).all()
+                      and np.isfinite(it["R_info"]).all() for it in iters))
+    rec = dict(lanes=OBJ_LANES, control_steps=steps, k1_launches=k1,
+               k2_launches=k2, wall_s=wall, iters=iters, finite=finite)
+    return agent, rec, bool(k1 == steps and k2 == 0 and finite)
+
+
+def ppo_updates(tr, tp):
+    """PPO's update times from phases train (200-step segments) and
+    train_profile (its unprofiled first iteration, OBJ_STEPS-step)."""
+    return dict(
+        ppo_T_update_train_200=[it["T_update"] for it in tr["iters"]]
+        if tr else None,
+        ppo_T_update_train_profile_20=tp["T_update_unprofiled"]
+        if tp else None)
+
+
+def phase_train_trpo(device, tr=None, tp=None):
+    """policy_objective: trpo: the natural-gradient step on every
+    iteration's batch; at least one iteration's line search accepted a
+    step that lowered the surrogate within 1.5 max_kl (the JAX package's
+    bar, tests/test_trpo_vgail.py)."""
+    agent, rec, ok = run_objective(device, 2,
+                                   policy_objective="trpo")
+    max_kl = float(agent.cfg.max_kl)
+    accepted = [it for it in rec["iters"] if it["ls_success"]
+                and it["surrogate_after"] < it["policy_loss"]
+                and 0 < it["kl"] <= 1.5 * max_kl]
+    rec.update(max_kl=max_kl, accepted_iters=len(accepted),
+               T_update=[it["T_update"] for it in rec["iters"]],
+               **ppo_updates(tr, tp))
+    ok = bool(ok and accepted and agent.objective == "trpo")
+    emit("train_trpo", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"train_trpo out of bounds: {rec}")
+    return rec
+
+
+def phase_train_a2c(device, tr=None, tp=None):
+    """policy_objective: a2c: the vanilla policy gradient in PPO's epoch
+    loop; the policy and its context net moved."""
+    agent, rec, ok = run_objective(device, 2,
+                                   policy_objective="a2c")
+    moved = nets_moved(agent, ("policy_net", "policy_vs_net"))
+    rec.update(policy_moved=moved,
+               T_update=[it["T_update"] for it in rec["iters"]],
+               **ppo_updates(tr, tp))
+    ok = bool(ok and moved and agent.objective == "a2c")
+    emit("train_a2c", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"train_a2c out of bounds: {rec}")
+    return rec
+
+
+def phase_train_vgail(device):
+    """A discriminator: block (VGAIL_BLOCK): -log D(s) rewards, PPO, then
+    the discriminator's BCE steps, 3 iterations; discrim_loss finite, and
+    whether it fell (printed with the losses when it did not)."""
+    agent, rec, ok = run_objective(device, 3,
+                                   discriminator=dict(VGAIL_BLOCK))
+    losses = [it["discrim_loss"] for it in rec["iters"]]
+    fell = bool(losses[-1] < losses[0])
+    rec.update(discriminator=VGAIL_BLOCK, discrim_loss=losses,
+               discrim_loss_fell=fell,
+               T_update=[it["T_update"] for it in rec["iters"]])
+    if not fell:
+        rec["why_not"] = (
+            "the generator's states moved with the policy between the "
+            "iterations: each iteration's loss is on a new batch")
+    ok = bool(ok and type(agent).__name__ == "AgentVGAIL"
+              and np.isfinite(losses).all())
+    emit("train_vgail", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"train_vgail out of bounds: {rec}")
+    return rec
+
+
+def same_state(a, b, with_filter=True):
+    """Whether two agents hold equal nets, filters (unless not
+    ``with_filter``) and optimizer states (mu, nu, count, skip counts,
+    lr), compared with torch.equal."""
+    import torch
+    tensors = lambda ag: [t for net in ag.nets
+                          for t in net.state_dict().values()] \
+        + (list(ag.zstat) if with_filter else [])
+    if not all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b))):
+        return False
+    for name in ("opt_policy", "opt_value"):
+        sa = getattr(a.train_state, name).state_dict()
+        sb = getattr(b.train_state, name).state_dict()
+        if sa["lr"] != sb["lr"] or not all(
+                torch.equal(x, y) for k in ("mu", "nu")
+                for x, y in zip(sa[k], sb[k])) or not all(
+                torch.equal(sa[k], sb[k])
+                for k in ("count", "notfinite_count", "total_notfinite")):
+            return False
+    return True
+
+
+def phase_resume_native(device):
+    """ego_mimic --ckpt-format orbax writes models/iter_0001.orbax; a fresh
+    agent loads it equal to the writer (nets, filter, both optimizers); one
+    update of each on the same newly sampled batch leaves their nets and
+    optimizers equal.  Then ego_forecast --ckpt-format orbax writes iter_0002.orbax and a
+    third iteration resumes from it with the value optimizer's step count
+    carried on."""
+    import torch
+    from egopose_tpu_torch.cli import ego_forecast
+    from egopose_tpu_torch.rl.agent_ego import NATIVE_FILE, AgentEgo
+    with train_workdir(save_model_interval=1):
+        writer, iters, k1, k2, _ = run_train(
+            device, objective_args(1) + ["--ckpt-format", "orbax"])
+        path = os.path.join("results", "egomimic", "subject_03", "models",
+                            "iter_0001.orbax")
+        files = sorted(os.listdir(path))
+        reader = AgentEgo(writer.model, writer.spec, writer.p, writer.tables,
+                          writer.expert, writer.cnn_feat.cpu().numpy(),
+                          writer.cfg, batch_lanes=OBJ_LANES, seed=99,
+                          dtype=writer.dtype, device=device)
+        reader.load_native(path)
+        loaded_equal = same_state(reader, writer)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(7)
+        reset_counts()
+        batch, _ = writer.sample(gen, OBJ_LANES * OBJ_STEPS)
+        k1 += read_counts()["k1"]
+        # (sampling moved the writer's filter; an update does not read it)
+        m_w, m_r = writer.update_params(batch), reader.update_params(batch)
+        updated_equal = same_state(reader, writer, with_filter=False) \
+            and m_w == m_r
+    with forecast_workdir():
+        args = ["--cfg", FORECAST, "--synthetic", "--device", str(device),
+                "--ckpt-format", "orbax"]
+        reset_counts()
+        ego_forecast.main(args + objective_args(FORECAST_ITERS))
+        f_k1 = read_counts()["k1"]
+        reset_counts()
+        f_path = os.path.join("results", "egoforecast", FORECAST, "models",
+                              "iter_%04d.orbax" % FORECAST_ITERS)
+        saved = torch.load(os.path.join(f_path, NATIVE_FILE),
+                           map_location="cpu", weights_only=True)
+        resumed = ego_forecast.main(
+            args + objective_args(FORECAST_ITERS + 1)
+            + ["--iter", str(FORECAST_ITERS)])
+        f_k1 += read_counts()["k1"]
+        epochs = int(resumed.cfg.num_optim_epoch)
+        count_v = int(resumed.train_state.opt_value.count)
+        count_p = int(resumed.train_state.opt_policy.count)
+    rec = dict(mimic_files=files, loaded_equal=loaded_equal,
+               updated_equal=updated_equal,
+               forecast_saved_counts=dict(
+                   value=int(saved["opt_value"]["count"]),
+                   policy=int(saved["opt_policy"]["count"])),
+               forecast_resumed_counts=dict(value=count_v, policy=count_p),
+               k1_launches=k1 + f_k1, k2_launches=k2,
+               control_steps=2 * OBJ_STEPS
+               + (FORECAST_ITERS + 1) * OBJ_STEPS)
+    ok = bool(files == [NATIVE_FILE] and loaded_equal and updated_equal
+              and rec["forecast_saved_counts"]["value"]
+              == FORECAST_ITERS * epochs
+              and count_v == (FORECAST_ITERS + 1) * epochs
+              and count_p >= rec["forecast_saved_counts"]["policy"]
+              and rec["k1_launches"] == rec["control_steps"] and k2 == 0)
+    emit("resume_native", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"resume_native out of bounds: {rec}")
+    return rec
+
+
+F64_LEN = 60                  # frames a take in f64_ckpt_f32_eval (40 steps)
+
+
+def phase_f64_ckpt_f32_eval(device):
+    """The committed iter_3000.p with every array cast to float64 (the
+    layout the JAX package writes from a float64 session, filter float64)
+    evaluated in float32 through K1, takes cut to F64_LEN frames: the
+    filter loads as float32, one K1 launch a step, and the trajectories
+    within 1e-5 of those of the float32 checkpoint itself (the cast is
+    exact both ways, so equal unless the card reorders a sum)."""
+    from egopose_tpu_torch.cli import ego_mimic_eval
+    from egopose_tpu_torch.convert import (load_checkpoint_pickle,
+                                           save_checkpoint_pickle)
+    from egopose_tpu_torch.ops import running_norm
+    from egopose_tpu_torch.rl.agent_ego import AgentEgo
+    src = os.path.join(REPO, "results", "egomimic", "subject_03", "models",
+                       "iter_3000.p")
+    cp = load_checkpoint_pickle(src)
+    f64 = lambda t: {k: f64(v) for k, v in t.items()} \
+        if isinstance(t, dict) else np.asarray(t, np.float64)
+    cp64 = {k: f64(v) for k, v in cp.items() if k != "running_state"}
+    cp64["running_state"] = running_norm.RunningStat(
+        *[np.asarray(x, np.float64) for x in cp["running_state"]])
+    seen = []
+    load = AgentEgo.load_checkpoint
+
+    def watched(agent, c):
+        load(agent, c)
+        seen.append(sorted({str(x.dtype) for x in agent.zstat}))
+    runs = {}
+    AgentEgo.load_checkpoint = watched
+    try:
+        for name in ("f32", "f64"):
+            with eval_workdir({"EGOPOSE_SYNTHETIC_LEN": str(F64_LEN)}):
+                if name == "f64":
+                    models = os.path.join("results", "egomimic",
+                                          "subject_03", "models")
+                    os.unlink(models)
+                    os.makedirs(models)
+                    save_checkpoint_pickle(
+                        os.path.join(models, "iter_3000.p"), cp64)
+                reset_counts()
+                results, meta = ego_mimic_eval.main(
+                    EVAL_ARGS + ["--device", str(device)])
+                runs[name] = (results, meta, read_counts())
+    finally:
+        AgentEgo.load_checkpoint = load
+    (r32, m32, c32), (r64, m64, c64) = runs["f32"], runs["f64"]
+    same = all(np.array_equal(r64["traj_pred"][t], r32["traj_pred"][t])
+               for t in r32["traj_pred"])
+    gap = max(float(np.abs(r64["traj_pred"][t] - r32["traj_pred"][t]).max())
+              for t in r32["traj_pred"])
+    finite = bool(all(np.isfinite(a).all() for a in r64["traj_pred"].values()))
+    others = {k: v for k, v in c64.items() if k != "k1"}
+    rec = dict(steps=m64["steps"], k1_launches=c64["k1"] + c32["k1"],
+               f64_run_k1=c64["k1"], other_launches=others,
+               filter_dtypes=dict(f32=seen[0], f64=seen[1]),
+               traj_equal=same, traj_max_abs_gap=gap, finite=finite,
+               num_reset=dict(f32=m32["num_reset"], f64=m64["num_reset"]))
+    ok = bool(seen[1] == ["torch.float32"] and c64["k1"] == m64["steps"]
+              and c32["k1"] == m32["steps"] and not any(others.values())
+              and finite and gap <= 1e-5)
+    emit("f64_ckpt_f32_eval", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"f64_ckpt_f32_eval out of bounds: {rec}")
     return rec
 
 
@@ -3389,6 +3705,13 @@ def main():
     tr = phase_train(device) if want("train") else None
     tq = phase_train_torque(device) if want("train_torque") else None
     tp = phase_train_profile(device) if want("train_profile") else None
+    objectives = [
+        phase_train_trpo(device, tr, tp) if want("train_trpo") else None,
+        phase_train_a2c(device, tr, tp) if want("train_a2c") else None,
+        phase_train_vgail(device) if want("train_vgail") else None,
+        phase_resume_native(device) if want("resume_native") else None,
+        phase_f64_ckpt_f32_eval(device)
+        if want("f64_ckpt_f32_eval") else None]
     rp = phase_rollout_pd_fused(device) if want("rollout_pd_fused") else None
     rt = phase_rollout_torque_fused(device) \
         if want("rollout_torque_fused") else None
@@ -3468,6 +3791,7 @@ def main():
             row("substep_control_step", "substep.cu", "substep_pallas.py:694",
                 ev["launches"] + tr["k1_launches"] + tq["k1_launches"]
                 + tp["k1_launches"] + rv["k1_launches"]
+                + sum(r["k1_launches"] for r in objectives)
                 + fused("k1") + ft["k1_launches"]
                 + sum(r["k1_launches"] for r in fe.values())
                 + se["k1_launches"] + we["k1_launches"]

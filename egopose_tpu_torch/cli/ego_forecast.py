@@ -12,6 +12,9 @@ init-noise schedule and end-reward flag.
 On the card every control step of the rollout is one launch of the K1
 control-step kernel.  Reads config/ and results/egomimic/ and writes
 results/egoforecast/ relative to the working directory.
+``policy_objective`` (ppo, a2c, trpo) picks the update.  ``--ckpt-format
+orbax`` writes the native checkpoint directory models/iter_%04d.orbax,
+which ``--iter N`` resumes from when it exists (cli/ego_mimic.py).
 
 ``--render`` samples with mean actions (sampled ones with
 ``--show-noise``) and writes no log file and no scalars.
@@ -61,12 +64,9 @@ def main(argv=None, iter_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    for flag, on, item in (
-            ("--dp-devices", args.dp_devices is not None, 5),
-            ("--ckpt-format orbax", args.ckpt_format == "orbax", 3)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item {item})")
+    if args.dp_devices is not None:
+        raise NotImplementedError(
+            "--dp-devices is not ported yet (ROADMAP §1 item 5)")
 
     import torch
     from .. import resolve_device
@@ -76,7 +76,7 @@ def main(argv=None, iter_hook=None):
     from ..utils.config import EgoForecastConfig, EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
     from ..utils.profile import profiled
-    from .ego_mimic import build_world
+    from .ego_mimic import build_world, resume, save
 
     device = resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
@@ -103,9 +103,7 @@ def main(argv=None, iter_hook=None):
                           batch_lanes=args.batch_lanes, seed=cfg.seed,
                           dtype=dtype, device=device)
     if args.iter > 0:
-        cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
-        logger.info("loading model from checkpoint: %s" % cp_path)
-        agent.load(cp_path)
+        resume(agent, cfg.model_dir, args.iter, logger)
     elif cfg.ego_mimic_cfg is not None:
         em_path = "results/egomimic/%s/models/iter_%04d.p" % (
             cfg.ego_mimic_cfg, cfg.ego_mimic_iter or 0)
@@ -176,9 +174,7 @@ def main(argv=None, iter_hook=None):
 
         if cfg.save_model_interval > 0 \
                 and (i_iter + 1) % cfg.save_model_interval == 0:
-            cp_path = "%s/iter_%04d.p" % (cfg.model_dir, i_iter + 1)
-            agent.save(cp_path)
-            logger.info("saved checkpoint %s" % cp_path)
+            save(agent, cfg.model_dir, i_iter + 1, args.ckpt_format, logger)
         if iter_hook is not None:
             iter_hook(i_iter, log, metrics, t_update)
 

@@ -10,7 +10,12 @@ layout), per-iteration log line and adaptive-parameter schedule.  With
 On the card every control step of the rollout is one launch of the K1
 control-step kernel (position mode) or 15 launches of the K2 SPD-solve
 kernel (``action_type: torque``).  Reads config/ and writes results/
-relative to the working directory.
+relative to the working directory.  ``policy_objective`` (ppo, a2c, trpo)
+picks the update; a ``discriminator:`` block trains with VGAIL
+(rl/vgail.py).  ``--ckpt-format orbax`` writes the native checkpoint, with
+both optimizers' states, as the directory models/iter_%04d.orbax (the JAX
+package's path; it holds the port's own file, not orbax's); ``--iter N``
+resumes from that directory when it exists, else from iter_%04d.p.
 
 ``--render`` samples one segment (mean actions unless ``--show-noise``)
 instead of training and saves its rewards, actions and lanes' experts as
@@ -120,8 +125,7 @@ def main(argv=None, iter_hook=None):
     args = parser.parse_args(argv)
     for flag, on, item in (
             ("--dp-devices", args.dp_devices is not None, 5),
-            ("--sp-devices", args.sp_devices is not None, 5),
-            ("--ckpt-format orbax", args.ckpt_format == "orbax", 3)):
+            ("--sp-devices", args.sp_devices is not None, 5)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP §1 item {item})")
@@ -138,10 +142,6 @@ def main(argv=None, iter_hook=None):
     dtype = torch.float64 if args.f64 else torch.float32
     cfg = EgoMimicConfig(args.cfg,
                          create_dirs=not (args.render or args.iter > 0))
-    if getattr(cfg, "discriminator", None):
-        raise NotImplementedError(
-            "the discriminator block (VGAIL) is not ported yet (ROADMAP §1 "
-            "item 4)")
     if args.min_batch is not None:
         cfg.min_batch_size = args.min_batch
     if args.episode_len is not None:
@@ -163,13 +163,17 @@ def main(argv=None, iter_hook=None):
                     f"reference CLI parity but has no effect here: sampling "
                     f"runs as {args.batch_lanes} batched device lanes, not "
                     f"host threads (use --batch-lanes to scale)")
-    agent = AgentEgo(model, spec, p, tables, expert, cnn_feat, cfg,
-                     batch_lanes=args.batch_lanes, seed=cfg.seed,
-                     dtype=dtype, device=device)
+    agent_cls = AgentEgo
+    if getattr(cfg, "discriminator", None):
+        from ..rl.vgail import AgentVGAIL as agent_cls
+        logger.info("discriminator block present: training with VGAIL "
+                    "reward shaping (reward_weight=%s)"
+                    % dict(cfg.discriminator).get("reward_weight", 1.0))
+    agent = agent_cls(model, spec, p, tables, expert, cnn_feat, cfg,
+                      batch_lanes=args.batch_lanes, seed=cfg.seed,
+                      dtype=dtype, device=device)
     if args.iter > 0:
-        cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
-        logger.info("loading model from checkpoint: %s" % cp_path)
-        agent.load(cp_path)
+        resume(agent, cfg.model_dir, args.iter, logger)
 
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
@@ -204,28 +208,56 @@ def main(argv=None, iter_hook=None):
         steps_per_s = log.num_steps / max(log.sample_time, 1e-9)
         logger.info(
             "{}\tT_sample {:.2f}\tT_update {:.2f}\tR_avg {:.4f} {}"
-            "\tR_range ({:.4f}, {:.4f})\teps_len_avg {:.2f}\tsteps/s {:.0f}{}"
+            "\tR_range ({:.4f}, {:.4f})\teps_len_avg {:.2f}\tsteps/s {:.0f}{}{}"
             .format(i_iter, log.sample_time, t_update, log.avg_c_reward,
                     info_str, log.min_c_reward, log.max_c_reward,
                     log.avg_episode_len, steps_per_s,
-                    "\tgrad_skips %d" % skips if skips else ""))
+                    "\tgrad_skips %d" % skips if skips else "",
+                    "\tdiscrim_loss %.4f" % metrics["discrim_loss"]
+                    if "discrim_loss" in metrics else ""))
         tb.scalar("total_reward", log.avg_c_reward, i_iter)
         tb.scalar("episode_len", log.avg_episode_len, i_iter)
         tb.scalar("env_steps_per_sec", steps_per_s, i_iter)
         for i in range(log.avg_c_info.shape[0]):
             tb.scalar(f"reward_{i}", log.avg_c_info[i], i_iter)
+        if "discrim_loss" in metrics:
+            tb.scalar("discrim_loss", metrics["discrim_loss"], i_iter)
 
         if cfg.save_model_interval > 0 \
                 and (i_iter + 1) % cfg.save_model_interval == 0:
-            cp_path = "%s/iter_%04d.p" % (cfg.model_dir, i_iter + 1)
-            agent.save(cp_path)
-            logger.info("saved checkpoint %s" % cp_path)
+            save(agent, cfg.model_dir, i_iter + 1, args.ckpt_format, logger)
         if iter_hook is not None:
             iter_hook(i_iter, log, metrics, t_update)
 
     tb.close()
     logger.info("training done!")
     return agent
+
+
+def save(agent, model_dir, i_iter, ckpt_format, logger):
+    """The checkpoint of iteration ``i_iter``: models/iter_%04d.p, or with
+    ``ckpt_format`` orbax the native directory models/iter_%04d.orbax."""
+    if ckpt_format == "orbax":
+        cp_path = "%s/iter_%04d.orbax" % (model_dir, i_iter)
+        agent.save_native(cp_path)
+    else:
+        cp_path = "%s/iter_%04d.p" % (model_dir, i_iter)
+        agent.save(cp_path)
+    logger.info("saved checkpoint %s" % cp_path)
+
+
+def resume(agent, model_dir, i_iter, logger):
+    """Load iteration ``i_iter``'s checkpoint: the native directory when it
+    exists (nets, filter and optimizers), else the pickle (nets and
+    filter; the optimizers start afresh, as in the JAX package)."""
+    native = "%s/iter_%04d.orbax" % (model_dir, i_iter)
+    if os.path.isdir(native):
+        logger.info("loading model from native checkpoint: %s" % native)
+        agent.load_native(native)
+    else:
+        cp_path = "%s/iter_%04d.p" % (model_dir, i_iter)
+        logger.info("loading model from checkpoint: %s" % cp_path)
+        agent.load(cp_path)
 
 
 def save_render_sample(agent, generator, cfg, args, logger):

@@ -3,7 +3,9 @@
 ``params_from_jax`` turns the flax parameter trees of an ego-mimic or an
 ego-forecast agent (nested dicts of numpy arrays, as the JAX package
 pickles them) into the port's ``state_dict``s; ``params_to_jax`` is its
-inverse.  ``video_reg_net_from_jax`` / ``video_reg_net_to_jax`` do the
+inverse.  ``discriminator_from_jax`` and ``policy_discrete_from_jax`` carry
+the VGAIL discriminator with its context net and the discrete policy
+across.  ``video_reg_net_from_jax`` / ``video_reg_net_to_jax`` do the
 same for the state-regression net, BatchNorm statistics included.
 ``load_checkpoint_pickle`` reads the committed
 ``results/egomimic/<cfg>/models/iter_*.p`` without importing the JAX
@@ -239,6 +241,17 @@ def params_from_jax(policy, policy_vs, value, value_vs):
     the port's state_dicts in the same order; a context net is a
     VideoStateNet or a VideoForecastNet."""
     return tuple(map(context_from_jax, (policy, policy_vs, value, value_vs)))
+
+
+def discriminator_from_jax(discrim, discrim_vs):
+    """flax trees of the VGAIL Discriminator and its context net
+    (VideoStateNet) -> the port's state_dicts, in the same order."""
+    return context_from_jax(discrim), context_from_jax(discrim_vs)
+
+
+def policy_discrete_from_jax(tree) -> dict:
+    """A PolicyDiscrete's flax tree -> its state_dict."""
+    return context_from_jax(tree)
 
 
 def _np(t):

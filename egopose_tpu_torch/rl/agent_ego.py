@@ -1,16 +1,21 @@
-"""AgentEgo: video-conditioned PPO, sampling and updates (counterpart of
-egopose_tpu/rl/agent_ego.py).
+"""AgentEgo: video-conditioned policy optimization, sampling and updates
+(counterpart of egopose_tpu/rl/agent_ego.py).
 
 Holds the policy, value and video-context nets, the observation filter
 (zstat) and the two optimizers; samples batches of segments through
-rl/rollout.py and updates through rl/ppo.py.  Checkpoints are pickles in
-the JAX package's layout (flax trees of numpy arrays + RunningStat), so
-either package loads what the other saves; the reference code base's
-checkpoints (torch state_dicts + a pickled ZFilter) load too.
+rl/rollout.py and updates through rl/ppo.py (``policy_objective`` ppo or
+a2c) or rl/trpo.py (trpo).  Checkpoints are pickles in the JAX package's
+layout (flax trees of numpy arrays + RunningStat), so either package loads
+what the other saves; the reference code base's checkpoints (torch
+state_dicts + a pickled ZFilter) load too.  The native checkpoint
+(``save_native``) also carries both optimizers' states.
 """
 from __future__ import annotations
 
 import math
+import os
+import shutil
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -20,8 +25,11 @@ import torch
 from ..convert import params_from_jax, params_to_jax, save_checkpoint_pickle
 from ..models.video_state_net import VideoStateNet
 from ..ops import running_norm
-from . import ppo, rollout
+from . import ppo, rollout, trpo
 from .nets import PolicyGaussian, Value
+
+NATIVE_FILE = "checkpoint.pt"     # the file inside a native checkpoint
+NET_KEYS = ("policy_dict", "policy_vs_dict", "value_dict", "value_vs_dict")
 
 
 class SampleLog(NamedTuple):
@@ -83,6 +91,17 @@ class AgentEgo:
             self.mini_batch_lanes = max(1, int(mbs) // params.env_episode_len)
         self.update_generator = torch.Generator(device=self.device)
         self.update_generator.manual_seed(seed + 17)
+        # "ppo" (the shipped configs), "a2c" (the vanilla policy gradient)
+        # or "trpo"
+        self.objective = getattr(cfg, "policy_objective", None) or "ppo"
+        if self.objective not in ("ppo", "a2c", "trpo"):
+            raise ValueError(f"policy_objective must be ppo|a2c|trpo, got "
+                             f"{self.objective!r}")
+        self.trpo_hyper = trpo.TRPOHyper(
+            max_kl=float(getattr(cfg, "max_kl", None) or 1e-2),
+            damping=float(getattr(cfg, "cg_damping", None) or 1e-2),
+            cg_iters=int(getattr(cfg, "cg_iters", None) or 10)) \
+            if self.objective == "trpo" else None
 
     @staticmethod
     def _make_nets(obs_dim, cnn_fdim, nu, cfg):
@@ -167,15 +186,24 @@ class AgentEgo:
 
     # -- update ---------------------------------------------------------------
     def update_params(self, batch) -> dict:
-        objective = getattr(self.cfg, "policy_objective", None) or "ppo"
-        if objective != "ppo":
-            raise NotImplementedError(
-                f"policy_objective {objective!r} is not ported yet (ROADMAP "
-                "§1 item 4: the a2c objective and TRPO)")
-        _, metrics = ppo.ppo_update(
-            self.train_state, self.hyper, batch, self._windows(batch),
-            mini_batch_lanes=self.mini_batch_lanes,
-            generator=self.update_generator)
+        """One update of the objective on a sampled batch; its metrics as
+        floats (TRPO adds ``kl``, ``surrogate_after`` and ``ls_success``),
+        with both optimizers' non-finite-gradient skip counts."""
+        return self._host_metrics(self._update(batch, self._windows(batch)))
+
+    def _update(self, batch, windows) -> dict:
+        """The objective's update on ``batch``: its metrics as tensors."""
+        if self.objective == "trpo":
+            _, metrics = trpo.trpo_update(self.train_state, self.hyper,
+                                          self.trpo_hyper, batch, windows)
+        else:
+            _, metrics = ppo.ppo_update(
+                self.train_state, self.hyper, batch, windows,
+                mini_batch_lanes=self.mini_batch_lanes,
+                generator=self.update_generator, objective=self.objective)
+        return metrics
+
+    def _host_metrics(self, metrics: dict) -> dict:
         out = {k: float(v) for k, v in metrics.items()}
         # non-finite-gradient skips (Adam's apply_if_finite counters)
         for name in ("policy", "value"):
@@ -195,8 +223,7 @@ class AgentEgo:
         numpy."""
         trees = params_to_jax(*[net.state_dict() for net in self.nets])
         np_ = lambda x: x.detach().cpu().numpy()
-        return {"policy_dict": trees[0], "policy_vs_dict": trees[1],
-                "value_dict": trees[2], "value_vs_dict": trees[3],
+        return {**dict(zip(NET_KEYS, trees)),
                 "running_state": running_norm.RunningStat(
                     n=np_(self.zstat.n), mean=np_(self.zstat.mean),
                     s=np_(self.zstat.s))}
@@ -222,6 +249,11 @@ class AgentEgo:
             value_v_net_type=cfg.value_v_net)
 
     def load_checkpoint(self, cp: dict):
+        """Load a checkpoint dict of either layout.  The nets take the
+        session's dtype.  The filter's statistics keep the dtype they were
+        stored in, as in the JAX package, unless it is wider than the
+        session's: a float64 filter evaluates with float32 nets in float32
+        (a float32 filter stays float32 under float64)."""
         from ..models.torch_import import looks_torch_state_dict
         stat = cp["running_state"]
         if looks_torch_state_dict(cp["policy_dict"]):
@@ -231,11 +263,75 @@ class AgentEgo:
             stat = running_norm.RunningStat(*[
                 torch.as_tensor(np.asarray(x)).to(self.dtype)
                 for x in cp["running_state"]])
-            sds = [cp[k] for k in ("policy_dict", "policy_vs_dict",
-                                   "value_dict", "value_vs_dict")]
+            sds = [cp[k] for k in NET_KEYS]
         else:
-            sds = params_from_jax(cp["policy_dict"], cp["policy_vs_dict"],
-                                  cp["value_dict"], cp["value_vs_dict"])
+            sds = params_from_jax(*[cp[k] for k in NET_KEYS])
+        self._load_nets(sds)
+        self.zstat = running_norm.to_tensors(
+            running_norm.RunningStat(*[self._no_wider(x) for x in stat]),
+            self.device)
+
+    def _load_nets(self, sds):
         for net, sd in zip(self.nets, sds):
             net.load_state_dict({k: v.to(self.dtype) for k, v in sd.items()})
-        self.zstat = running_norm.to_tensors(stat, self.device)
+
+    def _no_wider(self, x) -> torch.Tensor:
+        """``x`` as a tensor, cast down to the session's dtype where its
+        float type is wider."""
+        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        if t.is_floating_point() and t.dtype.itemsize > self.dtype.itemsize:
+            t = t.to(self.dtype)
+        return t
+
+    # -- the native checkpoint, with the optimizers' states ------------------
+    def save_native(self, path: str):
+        """Write the native checkpoint: the directory ``path``
+        (conventionally models/iter_%04d.orbax, the JAX package's
+        AgentEgo.save_orbax path) holding one torch.save file with the four
+        nets' state_dicts, the filter's statistics and both optimizers'
+        states (moments, step and skip counts, learning rate), so a resume
+        continues the optimization exactly.  Written to a temporary
+        directory beside ``path``, then renamed into place."""
+        ts = self.train_state
+        state = {
+            **{key: {k: v.detach().cpu().clone()
+                     for k, v in net.state_dict().items()}
+               for key, net in zip(NET_KEYS, self.nets)},
+            "running_state": {k: v.detach().cpu().clone()
+                              for k, v in self.zstat._asdict().items()},
+            "opt_policy": ts.opt_policy.state_dict(),
+            "opt_value": ts.opt_value.state_dict()}
+        path = os.path.abspath(path)
+        parent, name = os.path.split(path)
+        os.makedirs(parent, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix=f".{name}.", dir=parent)
+        try:
+            torch.save(state, os.path.join(tmp, NATIVE_FILE))
+            if os.path.isdir(path):
+                old = tmp + ".old"
+                os.replace(path, old)
+                os.replace(tmp, path)
+                shutil.rmtree(old)
+            else:
+                os.replace(tmp, path)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def load_native(self, path: str):
+        """Load what save_native wrote: nets, filter and both optimizers.
+        A directory without the port's file (an orbax checkpoint of the JAX
+        package, say) raises: the checkpoint pickle is the format both
+        packages read."""
+        f = os.path.join(path, NATIVE_FILE)
+        if not os.path.isfile(f):
+            raise FileNotFoundError(
+                f"{path} holds no {NATIVE_FILE}: not a native checkpoint of "
+                "egopose_tpu_torch (the port does not read orbax "
+                "checkpoints; the checkpoint pickle iter_%04d.p is the "
+                "format both packages read)")
+        state = torch.load(f, map_location="cpu", weights_only=True)
+        self._load_nets([state[k] for k in NET_KEYS])
+        self.zstat = running_norm.to_tensors(
+            running_norm.RunningStat(**state["running_state"]), self.device)
+        self.train_state.opt_policy.load_state_dict(state["opt_policy"])
+        self.train_state.opt_value.load_state_dict(state["opt_value"])

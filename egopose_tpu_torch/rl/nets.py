@@ -41,6 +41,21 @@ class PolicyGaussian(nn.Module):
         return mean, log_std.expand_as(mean)
 
 
+class PolicyDiscrete(nn.Module):
+    """MLP trunk -> logits over ``action_num`` actions (a softmax policy);
+    the head initialized as PolicyGaussian's mean head."""
+
+    def __init__(self, input_dim: int, action_num: int,
+                 hidden_dims: Sequence[int] = (300, 200),
+                 activation: str = "relu"):
+        super().__init__()
+        self.net = MLP(input_dim, hidden_dims, activation)
+        self.action_head = _scaled_head(self.net.out_dim, action_num)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.action_head(self.net(x))
+
+
 class Value(nn.Module):
     """MLP trunk -> scalar value head."""
 

@@ -17,7 +17,10 @@ Semantics, as in the JAX package:
   remaining policy steps change neither the parameters nor the optimizer
   state, while the critic keeps fitting;
 - the optional lane-grained minibatch path: each epoch permutes the lanes
-  and takes one critic + policy step per ``mini_batch_lanes`` slice.
+  and takes one critic + policy step per ``mini_batch_lanes`` slice;
+- ``objective="a2c"``: the vanilla policy-gradient loss
+  -sum(log_prob * advantage) over exploration rows in place of the clipped
+  surrogate, with the same epoch, critic and ``kl_target`` loop.
 
 ``Adam`` reproduces the JAX package's optax chain exactly (see its
 docstring), including optax's clip formula and ``apply_if_finite``; its
@@ -118,6 +121,26 @@ class Adam:
             keep_state | isfinite, self.total_notfinite,
             self.total_notfinite + 1)
 
+    def state_dict(self) -> dict:
+        """The optimizer's whole state (optax's moments, step count and
+        skip counters, and the injected learning rate), as CPU tensors."""
+        t = lambda x: x.detach().cpu().clone()
+        return {"mu": [t(m) for m in self.mu], "nu": [t(v) for v in self.nu],
+                "count": t(self.count),
+                "notfinite_count": t(self.notfinite_count),
+                "total_notfinite": t(self.total_notfinite),
+                "lr": float(self.lr)}
+
+    def load_state_dict(self, state: dict):
+        """Restore what ``state_dict`` returned, each tensor on its
+        parameter's device and in the dtype it was saved in."""
+        dev = self.params[0].device
+        self.mu = [t.to(dev) for t in state["mu"]]
+        self.nu = [t.to(dev) for t in state["nu"]]
+        for k in ("count", "notfinite_count", "total_notfinite"):
+            setattr(self, k, state[k].to(dev))
+        self.lr = float(state["lr"])
+
 
 class TrainState(NamedTuple):
     """The four nets (updated in place) and the two optimizers."""
@@ -143,14 +166,19 @@ def make_optimizers(policy_params, value_params, policy_lr, value_lr,
 
 def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
                windows: torch.Tensor, mini_batch_lanes: int = 0, perms=None,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None,
+               objective: str = "ppo"):
     """Run ``hyper.num_epochs`` PPO epochs on one sampled batch (time-major
     (T,B,...) tensors; windows (B,W,feat), the input of the context nets'
     ``context``), updating ``ts``'s nets and optimizers in place.
 
     ``mini_batch_lanes`` in (0, B): the minibatch path; ``perms`` (epochs,
     n_mb * mini_batch_lanes) gives each epoch's lane order, else it is drawn
-    from ``generator``.  Returns (ts, metrics dict of 0-d tensors)."""
+    from ``generator``.  ``objective`` "ppo" (the clipped surrogate) or
+    "a2c" (the vanilla policy gradient).  Returns (ts, metrics dict of 0-d
+    tensors)."""
+    if objective not in ("ppo", "a2c"):
+        raise ValueError(f"objective must be ppo|a2c, got {objective!r}")
     bsz = batch.rewards.shape[1]
     valid = batch.valids
 
@@ -187,12 +215,15 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
                 approx_kl = torch.sum(((torch.exp(lr) - 1.0) - lr) * expw) \
                     / ne
             stop = stop | (approx_kl > hyper.kl_target)
-        ratio = torch.exp(torch.clamp(
-            policy_logprob(states, win, actions) - flp, -20.0, 20.0))
-        surr1 = ratio * adv
-        surr2 = torch.clamp(ratio, 1.0 - hyper.clip_epsilon,
-                            1.0 + hyper.clip_epsilon) * adv
-        ploss = -torch.sum(torch.minimum(surr1, surr2) * expw) / ne
+        log_probs = policy_logprob(states, win, actions)
+        if objective == "a2c":
+            ploss = -torch.sum(log_probs * adv * expw) / ne
+        else:
+            ratio = torch.exp(torch.clamp(log_probs - flp, -20.0, 20.0))
+            surr1 = ratio * adv
+            surr2 = torch.clamp(ratio, 1.0 - hyper.clip_epsilon,
+                                1.0 + hyper.clip_epsilon) * adv
+            ploss = -torch.sum(torch.minimum(surr1, surr2) * expw) / ne
         ts.opt_policy.step(
             torch.autograd.grad(ploss, ts.opt_policy.params,
                                 allow_unused=True),

@@ -9,13 +9,16 @@
 - eval_pose and eval_forecast parse ``--multi``, ``--vis-model`` and
   ``--multi-vis-model``;
 - every option the port refuses raises NotImplementedError naming its
-  current ROADMAP §1 item;
-- every option that ROADMAP §1 item 2 lifted (``--engine mujoco``,
+  current ROADMAP §1 item (all item 5: the parallel runtime);
+- every option that ROADMAP §1 items 2-4 lifted (``--engine mujoco``,
   ``--profile-dir``, ``--render`` and the vis modes and flags of the ten
-  eval and training CLIs) runs on the CPU at a tiny size and writes its
-  artifact: a trace.json with the ``sample`` and ``update`` ranges, a
-  render or replay npz, the ``_mj`` pickle, the vis fallback's npz or the
-  wild composited videos.
+  eval and training CLIs; ``--ckpt-format orbax``, the a2c and trpo
+  objectives and the discriminator block of the training CLIs) runs on the
+  CPU at a tiny size and writes its artifact: a trace.json with the
+  ``sample`` and ``update`` ranges, a render or replay npz, the ``_mj``
+  pickle, the vis fallback's npz or the wild composited videos, the native
+  checkpoint that a second run resumes with equal nets and optimizers, a
+  log with ``discrim_loss``, or an agent trained under the objective.
 """
 import argparse
 import glob
@@ -24,13 +27,13 @@ import json
 import os
 import pickle
 import re
-import types
 
 import numpy as np
 import pytest
 import yaml
 
 from test_data_pipeline import _make_traj
+from test_torch_checkpoint import _assert_equal_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIS = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "egopose_tpu",
@@ -136,13 +139,9 @@ def test_eval_pose_matches_jax(tmp_path, monkeypatch, algo):
 REFUSALS = [
     ("ego_mimic", ["--dp-devices", "2"], 5),
     ("ego_mimic", ["--sp-devices", "2"], 5),
-    ("ego_mimic", ["--ckpt-format", "orbax"], 3),
-    ("ego_mimic", "discriminator", 4),
     ("ego_mimic_eval", ["--sp-devices", "2"], 5),
     ("ego_forecast", ["--dp-devices", "2"], 5),
-    ("ego_forecast", ["--ckpt-format", "orbax"], 3),
     ("state_reg", ["--dp-devices", "2"], 5),
-    ("agent_ego", "policy_objective", 4),
 ]
 
 @pytest.mark.parametrize("module,extra,item", REFUSALS)
@@ -150,26 +149,8 @@ def test_refusal_names_its_roadmap_item(tmp_path, monkeypatch, module, extra,
                                         item):
     monkeypatch.chdir(tmp_path)
     match = re.escape(f"ROADMAP §1 item {item}") + r"(?!\d)"
-    if module == "agent_ego":
-        from egopose_tpu_torch.rl.agent_ego import AgentEgo
-        agent = types.SimpleNamespace(
-            cfg=types.SimpleNamespace(policy_objective="trpo"))
-        with pytest.raises(NotImplementedError, match=match):
-            AgentEgo.update_params(agent, None)
-        return
     main = importlib.import_module(f"egopose_tpu_torch.cli.{module}").main
-    if extra == "discriminator":
-        cfg = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
-                                               "subject_03.yml")))
-        cfg["discriminator"] = {"hdim": [32]}
-        os.makedirs("config/egomimic")
-        with open("config/egomimic/disc.yml", "w") as f:
-            yaml.dump(cfg, f)
-        argv = ["--cfg", "disc"]
-    else:
-        argv = ["--cfg", "x"] if module.startswith("ego") \
-            or module == "state_reg" else []
-        argv += extra
+    argv = ["--cfg", "x"] + extra
     with pytest.raises(NotImplementedError, match=match):
         main(argv + ["--device", "cpu"]
              if "--device" in flags(f"egopose_tpu_torch.cli.{module}")
@@ -185,10 +166,19 @@ WILD = "wild"
 TINY_TAKES, TINY_LEN, TINY_M, TINY_EP = 2, 30, 5, 10
 
 
+# the training configs' variants, tiny_<name>.yml (disc: ego-mimic only)
+VARIANTS = {"save": {"save_model_interval": 2},
+            "trpo": {"policy_objective": "trpo"},
+            "a2c": {"policy_objective": "a2c"},
+            "disc": {"discriminator": {"hidden_dims": [16], "num_update": 2,
+                                       "reward_weight": 0.5}}}
+
+
 def _tiny_configs(root):
     """config/egomimic/tiny.yml and config/egoforecast/tiny.yml: the
     shipped configs at fr_margin 5, episodes of 10 and one optimizer epoch
-    (the profiler records every host op of the update)."""
+    (the profiler records every host op of the update); and their
+    VARIANTS."""
     em = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
                                           "subject_03.yml")))
     ef = yaml.safe_load(open(os.path.join(REPO, "config", "egoforecast",
@@ -201,9 +191,12 @@ def _tiny_configs(root):
     ef.update(ego_mimic_cfg="tiny", ego_mimic_iter=0)
     for workload, cfg in (("egomimic", em), ("egoforecast", ef)):
         os.makedirs(os.path.join(root, "config", workload))
-        with open(os.path.join(root, "config", workload, "tiny.yml"),
-                  "w") as f:
-            yaml.safe_dump(cfg, f)
+        for name, extra in [("tiny", {})] + [
+                ("tiny_" + k, v) for k, v in VARIANTS.items()
+                if k != "disc" or workload == "egomimic"]:
+            with open(os.path.join(root, "config", workload, name + ".yml"),
+                      "w") as f:
+                yaml.safe_dump({**cfg, **extra}, f)
 
 
 @pytest.fixture(scope="module")
@@ -268,10 +261,41 @@ BASE = {
 }
 
 
+def _check_training_variant(module, extra, out):
+    """A training CLI on a VARIANTS config: the native checkpoint written
+    at the save interval and resumed by --iter, VGAIL's discrim_loss in
+    the log, or the objective trained."""
+    from egopose_tpu_torch.rl.agent_ego import NATIVE_FILE
+    workload = "egomimic" if module == "ego_mimic" else "egoforecast"
+    cfg = extra[1]
+    log = open(os.path.join("results", workload, cfg, "log",
+                            "log.txt")).read()
+    assert log.count("T_update") == 2                # two iterations
+    if cfg == "tiny_save":
+        models = os.path.join("results", workload, cfg, "models")
+        assert os.listdir(models) == ["iter_0002.orbax"]
+        assert os.listdir(os.path.join(models, "iter_0002.orbax")) \
+            == [NATIVE_FILE]
+        # --iter 2 --max-iter 2: the resume alone
+        back = importlib.import_module(f"egopose_tpu_torch.cli.{module}") \
+            .main(BASE[module] + extra + ["--iter", "2", "--device", "cpu"])
+        _assert_equal_state(out, back)
+        assert int(back.train_state.opt_value.count) > 0
+    elif cfg == "tiny_disc":
+        assert type(out).__name__ == "AgentVGAIL"
+        assert log.count("discrim_loss") == 2
+    else:
+        assert out.objective == cfg[len("tiny_"):]
+        assert all(bool(p.isfinite().all()) for n in out.nets
+                   for p in n.parameters())
+
+
 def _check_artifact(module, extra, out):
     """What the option wrote (paths relative to the run's directory)."""
     arg = " ".join(extra)
-    if arg == "--profile-dir x":
+    if extra[0] == "--cfg":
+        _check_training_variant(module, extra, out)
+    elif arg == "--profile-dir x":
         ranges = _trace_ranges(os.path.join("x", "trace.json"))
         if module in ("ego_mimic", "ego_forecast"):
             assert {"sample", "update"} <= ranges, ranges
@@ -329,7 +353,7 @@ def _check_artifact(module, extra, out):
                                                f"iter_0000_{WILD}.p"))
 
 
-# (module, extra argv) of every option ROADMAP §1 item 2 lifted
+# (module, extra argv) of every option ROADMAP §1 items 2-4 lifted
 LIFTED = [
     ("ego_mimic", ["--profile-dir", "x"]),
     ("ego_mimic", ["--render"]),
@@ -354,6 +378,13 @@ LIFTED = [
     ("eval_forecast_wild", ["--stats-vis"]),
     ("eval_forecast_wild", ["--multi"]),
     ("eval_forecast_wild", ["--vis-model", "x"]),
+    ("ego_mimic", ["--cfg", "tiny_save", "--ckpt-format", "orbax"]),
+    ("ego_mimic", ["--cfg", "tiny_disc"]),
+    ("ego_mimic", ["--cfg", "tiny_trpo"]),
+    ("ego_mimic", ["--cfg", "tiny_a2c"]),
+    ("ego_forecast", ["--cfg", "tiny_save", "--ckpt-format", "orbax"]),
+    ("ego_forecast", ["--cfg", "tiny_trpo"]),
+    ("ego_forecast", ["--cfg", "tiny_a2c"]),
 ]
 
 

@@ -419,6 +419,9 @@ def test_agent_forecast_sizes_its_nets(worlds):
     assert agent.value_net.net.layers[0].in_features == 256
     assert agent.hyper.kl_target == 0.05
     assert isinstance(agent.policy_vs_net, VideoForecastNet)
-    cfg.policy_objective = "trpo"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        agent.update_params(None)
+    assert agent.objective == "ppo" and agent.trpo_hyper is None
+    cfg.policy_objective = "ddpg"
+    with pytest.raises(ValueError, match="policy_objective"):
+        taf.AgentForecast(tm, spec, tp, tt, te,
+                          np.zeros((N_TAKES, T_LEN, FEAT)), cfg,
+                          batch_lanes=2, dtype=torch.float64)

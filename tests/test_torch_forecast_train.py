@@ -177,8 +177,7 @@ def test_eval_window_flags(trained):
 
 
 @pytest.mark.parametrize("main, extra, item", [
-    ("ego_forecast", ["--dp-devices", "2"], "item 5"),
-    ("ego_forecast", ["--ckpt-format", "orbax"], "item 3")])
+    ("ego_forecast", ["--dp-devices", "2"], "item 5")])
 def test_cli_refuses_unported_options(workdir, main, extra, item):
     import importlib
     mod = importlib.import_module(f"egopose_tpu_torch.cli.{main}")

@@ -104,7 +104,8 @@ def ppo_case():
     return trees, batch, windows
 
 
-def _jax_update(trees, batch, windows, hyper, opt_kw, key=None, mb=0):
+def _jax_update(trees, batch, windows, hyper, opt_kw, key=None, mb=0,
+                objective="ppo"):
     jpol, jval = JPolicy(ACT, HID, "relu", -1.0), JValue(HID, "relu")
     jvs = JVideoStateNet(FEAT, VH, MARGIN, "lstm")
 
@@ -120,11 +121,13 @@ def _jax_update(trees, batch, windows, hyper, opt_kw, key=None, mb=0):
     jb = JSegmentBatch(**{f: jnp.asarray(v) for f, v in batch.items()})
     ts, metrics = jax.jit(lambda ts, b, w, kk: jppo.ppo_update(
         ts, opt_p, opt_v, hyper, b, w, jpol.apply, ctx, jval.apply, ctx,
-        key=kk, mini_batch_lanes=mb))(ts, jb, jnp.asarray(windows), key)
+        key=kk, mini_batch_lanes=mb, objective=objective))(
+        ts, jb, jnp.asarray(windows), key)
     return ts, metrics
 
 
-def _torch_update(trees, batch, windows, hyper, opt_kw, perms=None, mb=0):
+def _torch_update(trees, batch, windows, hyper, opt_kw, perms=None, mb=0,
+                  objective="ppo"):
     sds = params_from_jax(*trees)
     nets = [PolicyGaussian(OBS + VH, ACT, HID, "relu", -1.0),
             VideoStateNet(FEAT, VH, MARGIN), Value(OBS + VH, HID, "relu"),
@@ -137,7 +140,8 @@ def _torch_update(trees, batch, windows, hyper, opt_kw, perms=None, mb=0):
     ts = tppo.TrainState(*nets, opt_policy=opt_p, opt_value=opt_v)
     tb = SegmentBatch(**{f: torch.tensor(v) for f, v in batch.items()})
     return tppo.ppo_update(ts, hyper, tb, torch.tensor(windows),
-                           mini_batch_lanes=mb, perms=perms)
+                           mini_batch_lanes=mb, perms=perms,
+                           objective=objective)
 
 
 def _assert_same_params(ts_t, ts_j, tol):

@@ -5,8 +5,8 @@ writes iter_0002.p in the JAX package's pickle layout, and the JAX
 package's AgentEgo.load reads it back with nets and observation statistics
 equal to the port's (exactly: the same float32 values).  A checkpoint the
 JAX package wrote (the committed iter_0800.p) resumes in the port.  The
-flags and config blocks that are not ported raise, and without CUDA the
-default device raises.  Outputs go to a temporary directory."""
+flags that are not ported raise, and without CUDA the default device
+raises.  Outputs go to a temporary directory."""
 import os
 
 import numpy as np
@@ -113,7 +113,7 @@ def test_cli_resumes_a_jax_checkpoint(workdir):
 
 
 @pytest.mark.parametrize("extra", [["--dp-devices", "2"],
-                                   ["--ckpt-format", "orbax"]])
+                                   ["--sp-devices", "2"]])
 def test_cli_refuses_unported_options(workdir, extra):
     from egopose_tpu_torch.cli import ego_mimic
     with pytest.raises(NotImplementedError, match="ROADMAP"):
