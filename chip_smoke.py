@@ -294,15 +294,44 @@ any failure exits non-zero:
                one training step each of cnn_type mobile and of v_net tcn
                (non-causal and causal) at the same widths on
                statereg_train's first batch: finite losses
+  dp_train     the parallel runtime's main path: ego_mimic --dp-devices 1
+               on the card (a process group of one, NCCL) against the
+               no-flag run at train's widths, 1024 lanes, one 20-step
+               segment and one update: rewards and update metrics within
+               rtol 1e-6, K1 launches == control steps in each run
+  dp_two_ranks two ranks sharing the card (make_mesh(2, device_ids=[0, 0]),
+               gloo staged through host memory) against one process: (a)
+               float64, the JAX dry run's world, 64 lanes x 4 steps,
+               rewards rtol 1e-8 / atol 1e-10, update metrics rtol 1e-6 /
+               atol 1e-8; (b) float32, train's world and widths (10
+               optimizer epochs), 2 x 512 lanes, one 20-step segment and
+               one update: finite,
+               the first control step within K1's f32 RMS bar of the
+               one-process step, 20 K1 launches in each rank (the ranks'
+               counts come back to the script and add to K1's row);
+               T_sample / T_update beside the one-process run's, with the
+               card's name and power limit (a check of the code path and
+               the collectives, not a speed-up)
+  sp_encode    vsnet_encode_sp on 2 ranks sharing the card, a TCN context
+               net at the JAX defaults (size [64, 128], kernel 3) from a
+               seed over the synthetic eval world's 4 full takes, against
+               the unsharded pass: f32 max-abs <= 1e-5; then ego_mimic_eval
+               --sp-devices 1 against the no-flag eval of a TCN agent
+               built from a seed, takes cut to 60 frames: the same results
+               pickle, one K1 launch a step in each
+  dryrun       python -m egopose_tpu_torch.parallel.dryrun 2 --device cuda
+               (its ranks share the card): the audit summaries and the ok
+               line
   kernels      every kernel of the port with its TPU counterpart (K1's
                two branches on two rows), launches on the main paths (eval
                + render_eval + train + train_torque + train_profile + the
                three one-step phases + the
                three rollouts + forecast_train + forecast_eval +
-               statereg_eval + wild_eval + wild_forecast_eval for K1,
-               wild_stats + wild_forecast_stats + gen_expert + the
-               synthetic worlds' expert replays for K5), error against the
-               plain version and times
+               statereg_eval + wild_eval + wild_forecast_eval + dp_train +
+               dp_two_ranks + sp_encode + dryrun for K1, wild_stats +
+               wild_forecast_stats + gen_expert + the synthetic worlds'
+               expert replays (those of the ranks too) for K5), error
+               against the plain version and times
 
 Every world is built through cli/ego_mimic.py's build_world, which the
 script wraps (count_world_builds): a synthetic world built on the card
@@ -2820,6 +2849,216 @@ def phase_f64_ckpt_f32_eval(device):
 # State regression: the shipped config/statereg/subject_03.yml widths
 # ---------------------------------------------------------------------------
 
+# -- the parallel runtime (parallel/) ---------------------------------------
+
+DP_STEPS = 20                 # control steps of dp_train's and dp_two_ranks'
+DP_LANES = 1024               # segment, and their lanes (all ranks together)
+DP_F64 = dict(lanes=64, steps=4)
+SP_TOL = 1e-5                 # f32 max-abs, the JAX dry run's bar
+
+
+def shared_card(device, n):
+    """Ranks sharing the card (gloo, staged through host memory) on CUDA,
+    gloo CPU ranks otherwise."""
+    return [0] * n if device.type == "cuda" else None
+
+
+def close(got, want, rtol, atol=0.0):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+
+
+def phase_dp_train(device):
+    """ego_mimic --dp-devices 1 (a process group of one: NCCL on the card)
+    against the no-flag run at train's widths, DP_LANES lanes, one
+    DP_STEPS-step segment and one update: rewards and update metrics
+    equal to float32 rounding (rtol 1e-6), K1 launches == control steps in
+    each run."""
+    args = ["--batch-lanes", str(DP_LANES), "--episode-len", str(DP_STEPS),
+            "--min-batch", str(DP_LANES * DP_STEPS), "--max-iter", "1"]
+    runs = {}
+    for name, extra in (("one_process", []), ("dp_1", ["--dp-devices", "1"])):
+        with train_workdir(save_model_interval=0):
+            _agent, iters, k1, k2, wall = run_train(device, args + extra)
+        runs[name] = dict(iters=iters, k1_launches=k1, k2_launches=k2,
+                          wall_s=wall)
+    a, b = runs["one_process"]["iters"][0], runs["dp_1"]["iters"][0]
+    keys = ("R_avg", "R_min", "R_max", "R_info", "policy_loss", "value_loss",
+            "n_valid", "n_exp")
+    equal = {k: close(b[k], a[k], 1e-6) for k in keys}
+    ok = bool(all(equal.values()) and train_finite([a, b])
+              and all(r["k1_launches"] == DP_STEPS and r["k2_launches"] == 0
+                      for r in runs.values()))
+    rec = dict(lanes=DP_LANES, control_steps=DP_STEPS, equal=equal,
+               T_sample=[r["iters"][0]["T_sample"] for r in runs.values()],
+               T_update=[r["iters"][0]["T_update"] for r in runs.values()],
+               k1_launches=sum(r["k1_launches"] for r in runs.values()),
+               runs={k: dict(v, iters=v["iters"][0]) for k, v in
+                     runs.items()})
+    emit("dp_train", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"dp_train out of bounds: {rec}")
+    return rec
+
+
+def phase_dp_two_ranks(device, smi):
+    """Two ranks sharing the card (make_mesh(2, device_ids=[0, 0]), gloo)
+    against one process on it.  (a) float64, the JAX dry run's world,
+    DP_F64 lanes x steps: rewards rtol 1e-8 / atol 1e-10, update metrics
+    rtol 1e-6 / atol 1e-8.  (b) float32, the training CLI's world at
+    train's widths (subject_03 unchanged: 4 synthetic takes x 400 frames,
+    64 features a frame, 10 optimizer epochs), 2 x DP_LANES / 2 lanes,
+    one DP_STEPS-step segment and one update: finite, the first control step's qpos / qvel within K1's f32
+    RMS bar of the one-process step's lanes, DP_STEPS K1 launches in each
+    rank.  Two ranks on one card test the code path and the collectives,
+    not a speed-up; T_sample and T_update are printed beside the
+    one-process run's."""
+    import torch
+    from egopose_tpu_torch.parallel import dryrun
+    from egopose_tpu_torch.parallel import mesh as meshlib
+    ids = shared_card(device, 2)
+    rec, ok, k1, k5 = {}, True, 0, 0
+    for name, dtype, lanes, steps, full in (
+            ("float64", "float64", DP_F64["lanes"], DP_F64["steps"], False),
+            ("float32", "float32", DP_LANES, DP_STEPS, True)):
+        one = dryrun.train_step(1, 1, dtype, lanes, steps, device=str(device),
+                                first_step=True, full=full)
+        ranks = meshlib.launch(2, dryrun.train_step, 2, 1, dtype, lanes,
+                               steps, False, False, None, 1, 7, str(device),
+                               ids, True, None, full, device=str(device),
+                               device_ids=ids)
+        k1 += one["k1"] + sum(r["k1"] for r in ranks)
+        # the ranks' worlds and the dry-run world; the training CLI's world
+        # of the one-process run is built through the wrapped build_world
+        # (count_world_builds), its K5 launches in WORLD_K5
+        k5 += (0 if full else one["k5"]) + sum(r["k5"] for r in ranks)
+        half = lanes // 2
+        lane = lambda r: slice(r["data_rank"] * half,
+                               (r["data_rank"] + 1) * half)
+        r = dict(lanes=lanes, control_steps=steps,
+                 world="train" if full else "dry run",
+                 k1_launches_per_rank=[x["k1"] for x in ranks],
+                 T_sample_one_process=one["T_sample"],
+                 T_update_one_process=one["T_update"],
+                 T_sample_ranks=[x["T_sample"] for x in ranks],
+                 T_update_ranks=[x["T_update"] for x in ranks])
+        finite = all(np.isfinite(x["rewards"].numpy()).all()
+                     and np.isfinite(list(x["metrics"].values())).all()
+                     for x in ranks)
+        if name == "float64":
+            rewards_ok = all(close(x["rewards"], one["rewards"][:, lane(x)],
+                                   1e-8, 1e-10) for x in ranks)
+            metrics_ok = all(close(x["metrics"][k], v, 1e-6, 1e-8)
+                             for x in ranks for k, v in
+                             one["metrics"].items())
+            r.update(rewards_ok=rewards_ok, metrics_ok=metrics_ok,
+                     max_abs_reward=max(float((x["rewards"] - one["rewards"]
+                                               [:, lane(x)]).abs().max())
+                                        for x in ranks))
+            ok &= rewards_ok and metrics_ok
+        else:
+            bars = [step_bars(torch.float32,
+                              x["first_qpos"] - one["first_qpos"][lane(x)],
+                              x["first_qvel"] - one["first_qvel"][lane(x)])
+                    for x in ranks]
+            r.update(first_step=[b[1] for b in bars],
+                     first_step_ok=all(b[0] for b in bars))
+            ok &= r["first_step_ok"]
+        r["finite"] = finite
+        ok &= finite and all(x["k1"] == steps for x in ranks) \
+            and one["k1"] == steps
+        rec[name] = r
+    rec.update(k1_launches=k1, k5_launches=k5, nvidia_smi=smi)
+    emit("dp_two_ranks", ok=bool(ok), **rec)
+    if not ok:
+        raise AssertionError(f"dp_two_ranks out of bounds: {rec}")
+    return rec
+
+
+def phase_sp_encode(device):
+    """vsnet_encode_sp on 2 ranks sharing the card against the unsharded
+    pass: a TCN context net at the JAX defaults (size [64, 128], kernel
+    3, fr_margin 10) built from a seed, over the synthetic eval world's
+    four full takes, f32 max-abs <= SP_TOL.  Then ego_mimic_eval
+    --sp-devices 1 against the no-flag eval of a TCN agent built from a
+    seed, the takes cut to RENDER_LEN frames: the same results pickle."""
+    import pickle
+    import torch
+    from egopose_tpu_torch.cli import ego_mimic, ego_mimic_eval
+    from egopose_tpu_torch.models.video_state_net import VideoStateNet
+    from egopose_tpu_torch.parallel import dryrun
+    from egopose_tpu_torch.parallel import mesh as meshlib
+    from egopose_tpu_torch.utils.config import EgoMimicConfig
+    tcn = {"size": [64, 128], "kernel_size": 3}
+    overrides = {f"{who}_v_{key}": value for who in ("policy", "value")
+                 for key, value in (("net", "tcn"), ("net_param", tcn))}
+    with train_workdir(**overrides):
+        cfg = EgoMimicConfig("subject_03")
+        feats = ego_mimic.build_world(cfg, torch.float32, device,
+                                      synthetic=True)[-1]
+        kw = dict(cnn_feat_dim=feats.shape[-1], v_hdim=128,
+                  v_margin=cfg.fr_margin, v_net_type="tcn", causal=False,
+                  v_net_param=tcn)
+        torch.manual_seed(0)
+        state = VideoStateNet(**kw).state_dict()
+        ids = shared_card(device, 2)
+        ref = dryrun.sp_apply("vsnet", 1, kw, state, feats, torch.float32,
+                              device=str(device))["out"]
+        outs = meshlib.launch(2, dryrun.sp_apply, "vsnet", 2, kw, state,
+                              feats, torch.float32, False, None, str(device),
+                              ids, device=str(device), device_ids=ids)
+        errs = [float((o["out"] - ref.cpu()).abs().max()) for o in outs]
+        results, launches = {}, {}
+        saved = os.environ.get("EGOPOSE_SYNTHETIC_LEN")
+        os.environ["EGOPOSE_SYNTHETIC_LEN"] = str(RENDER_LEN)
+        for name, extra in (("sp_1", ["--sp-devices", "1"]),
+                            ("one_process", [])):
+            reset_counts()
+            ego_mimic_eval.main(["--cfg", "subject_03", "--synthetic",
+                                 "--device", str(device)] + extra)
+            launches[name] = read_counts()["k1"]
+            with open(os.path.join("results", "egomimic", "subject_03",
+                                   "results", "iter_0000_test.p"), "rb") as f:
+                results[name] = pickle.load(f)[0]
+        if saved is None:
+            os.environ.pop("EGOPOSE_SYNTHETIC_LEN")
+        else:
+            os.environ["EGOPOSE_SYNTHETIC_LEN"] = saved
+    a, b = results["sp_1"], results["one_process"]
+    same = a.keys() == b.keys() and all(
+        np.array_equal(a[k][t], b[k][t]) for k in a for t in a[k])
+    steps = max(x.shape[0] for x in b["traj_pred"].values())
+    rec = dict(frames=list(feats.shape), halo=[6, 6], max_abs_err=errs,
+               eval_same_results=bool(same), eval_k1_launches=launches,
+               eval_steps=steps)
+    ok = bool(max(errs) <= SP_TOL and same
+              and all(n == steps for n in launches.values()))
+    emit("sp_encode", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"sp_encode out of bounds: {rec}")
+    return dict(rec, k1_launches=sum(launches.values()))
+
+
+def phase_dryrun(device):
+    """python -m egopose_tpu_torch.parallel.dryrun 2 --device cuda, its
+    ranks sharing the card: its audit summary and its ok line."""
+    import io
+    from egopose_tpu_torch.parallel import dryrun
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        outs = dryrun.main(["2", "--device", str(device.type)])
+    text = buf.getvalue()
+    ok = "dryrun_multichip(2): ok" in text \
+        and "collective audit [update]" in text
+    rec = dict(output=text.splitlines(),
+               k1_launches=sum(o["k1"] for o in outs),
+               k5_launches=sum(o["k5"] for o in outs))
+    emit("dryrun", ok=bool(ok), **rec)
+    if not ok:
+        raise AssertionError(f"dryrun failed: {text}")
+    return rec
+
+
 STATEREG = "subject_03"
 # The re-anchoring state net of phase statereg_eval: the same config with
 # cnn_fdim 64, the width of the synthetic ego-mimic world's CNN features,
@@ -3712,6 +3951,10 @@ def main():
         phase_resume_native(device) if want("resume_native") else None,
         phase_f64_ckpt_f32_eval(device)
         if want("f64_ckpt_f32_eval") else None]
+    dpt = phase_dp_train(device) if want("dp_train") else None
+    dp2 = phase_dp_two_ranks(device, smi) if want("dp_two_ranks") else None
+    spe = phase_sp_encode(device) if want("sp_encode") else None
+    dry = phase_dryrun(device) if want("dryrun") else None
     rp = phase_rollout_pd_fused(device) if want("rollout_pd_fused") else None
     rt = phase_rollout_torque_fused(device) \
         if want("rollout_torque_fused") else None
@@ -3795,7 +4038,9 @@ def main():
                 + fused("k1") + ft["k1_launches"]
                 + sum(r["k1_launches"] for r in fe.values())
                 + se["k1_launches"] + we["k1_launches"]
-                + wfe["k1_launches"],
+                + wfe["k1_launches"] + dpt["k1_launches"]
+                + dp2["k1_launches"] + spe["k1_launches"]
+                + dry["k1_launches"],
                 errs["float32"], t4),
             row("substep_control_step_dense", "substep.cu",
                 "substep_pallas.py:784", fused("k1_dense"), errs1d["float32"],
@@ -3811,7 +4056,8 @@ def main():
                 times4[1024]),
             row("fk_batched", "fk.cu", "fk_pallas.py:67",
                 fused("k5") + ws["k5_launches"] + wfs["k5_launches"]
-                + ge["k5_launches"] + sum(WORLD_K5),
+                + ge["k5_launches"] + sum(WORLD_K5) + dp2["k5_launches"]
+                + dry["k5_launches"],
                 errs5["float32"], times5[1024])]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,9 @@ results/egoforecast/ relative to the working directory.
 orbax`` writes the native checkpoint directory models/iter_%04d.orbax,
 which ``--iter N`` resumes from when it exists (cli/ego_mimic.py).
 
+``--dp-devices N`` trains data-parallel over N ranks, as ego_mimic's does
+(cli/ego_mimic.py).
+
 ``--render`` samples with mean actions (sampled ones with
 ``--show-noise``) and writes no log file and no scalars.
 ``--profile-dir DIR`` records the second iteration's sample and update
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import os
 import time
 
@@ -64,14 +68,13 @@ def main(argv=None, iter_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    if args.dp_devices is not None:
-        raise NotImplementedError(
-            "--dp-devices is not ported yet (ROADMAP §1 item 5)")
 
     import torch
     from .. import resolve_device
     from ..models import torch_import as ti
+    from ..parallel import mesh as meshlib
     from ..physics import nvcc
+    from ..rl.agent_ego import check_mesh
     from ..rl.agent_forecast import AgentForecast, warmstart_from_mimic
     from ..utils.config import EgoForecastConfig, EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
@@ -88,10 +91,23 @@ def main(argv=None, iter_hook=None):
         cfg.policy_kl_target = args.kl_target
     if args.episode_len is not None:
         cfg.env_episode_len = args.episode_len
+    mesh = None
+    if args.dp_devices is not None:
+        check_mesh(cfg, args.batch_lanes, args.dp_devices, 1)
+        if not meshlib.in_ranks():
+            if device.type == "cuda":
+                nvcc.build_all()      # once, before the ranks start
+            return meshlib.run_cli(args.dp_devices, main, argv, iter_hook,
+                                   device=device)
+        mesh = meshlib.make_mesh(args.dp_devices, device=device)
+        device = mesh.device
+    lead = mesh is None or mesh.lead
     np.random.seed(cfg.seed)
     logger = create_logger(os.path.join(cfg.log_dir, "log.txt"),
-                           file_handle=not args.render)
-    tb = None if args.render else ScalarWriter(cfg.tb_dir)
+                           file_handle=not args.render and lead)
+    if not lead:
+        logger.setLevel(logging.WARNING)
+    tb = None if args.render or not lead else ScalarWriter(cfg.tb_dir)
     if device.type == "cuda":
         nvcc.build_all()              # nvcc at first use, outside the loop
 
@@ -101,7 +117,7 @@ def main(argv=None, iter_hook=None):
                 f"experts: {tuple(expert.qpos.shape)}")
     agent = AgentForecast(model, spec, p, tables, expert, cnn_feat, cfg,
                           batch_lanes=args.batch_lanes, seed=cfg.seed,
-                          dtype=dtype, device=device)
+                          dtype=dtype, device=device, mesh=mesh)
     if args.iter > 0:
         resume(agent, cfg.model_dir, args.iter, logger)
     elif cfg.ego_mimic_cfg is not None:
@@ -138,7 +154,7 @@ def main(argv=None, iter_hook=None):
             base_p, env_init_noise=float(cfg.adp_init_noise))
 
         # the second iteration: the first is the warm-up
-        profiling = args.profile_dir and i_iter == args.iter + 1
+        profiling = args.profile_dir and i_iter == args.iter + 1 and lead
         with profiled(profiling and args.profile_dir, device, logger):
             with torch.profiler.record_function("sample"):
                 batch, log = agent.sample(

@@ -17,6 +17,14 @@ both optimizers' states, as the directory models/iter_%04d.orbax (the JAX
 package's path; it holds the port's own file, not orbax's); ``--iter N``
 resumes from that directory when it exists, else from iter_%04d.p.
 
+``--dp-devices N`` trains data-parallel over N ranks (rollout lanes and
+update batches split, parameters replicated; rl/agent_ego.py) and
+``--sp-devices M`` time-shards the TCN context encodes over M ranks per
+lane shard (parallel/seqpar.py): the CLI starts N*M ranks itself
+(parallel/mesh.py; under torchrun it joins the running group), rank r on
+cuda:r, or gloo ranks with ``--device cpu``.  The lead rank logs and
+writes the checkpoints and the render sample.
+
 ``--render`` samples one segment (mean actions unless ``--show-noise``)
 instead of training and saves its rewards, actions and lanes' experts as
 results/egomimic/<cfg>/results/render_iter_%04d.npz.  ``--profile-dir DIR``
@@ -26,6 +34,7 @@ as the ranges ``sample`` and ``update``, to DIR/trace.json.
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import pickle
 import time
@@ -123,17 +132,12 @@ def main(argv=None, iter_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    for flag, on, item in (
-            ("--dp-devices", args.dp_devices is not None, 5),
-            ("--sp-devices", args.sp_devices is not None, 5)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item {item})")
 
     import torch
     from .. import resolve_device
+    from ..parallel import mesh as meshlib
     from ..physics import nvcc
-    from ..rl.agent_ego import AgentEgo
+    from ..rl.agent_ego import AgentEgo, check_mesh
     from ..utils.config import EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
     from ..utils.profile import profiled
@@ -146,11 +150,26 @@ def main(argv=None, iter_hook=None):
         cfg.min_batch_size = args.min_batch
     if args.episode_len is not None:
         cfg.env_episode_len = args.episode_len
+    mesh = None
+    if args.dp_devices is not None or args.sp_devices is not None:
+        dp, sp = args.dp_devices or 1, args.sp_devices or 1
+        check_mesh(cfg, args.batch_lanes, dp, sp)   # before ranks start
+        if not meshlib.in_ranks():
+            if device.type == "cuda":
+                nvcc.build_all()      # once, before the ranks start
+            return meshlib.run_cli(dp * sp, main, argv, iter_hook,
+                                   device=device)
+        mesh = meshlib.make_mesh_2d(dp, sp, device=device) if sp > 1 \
+            else meshlib.make_mesh(dp, device=device)
+        device = mesh.device
+    lead = mesh is None or mesh.lead
     np.random.seed(cfg.seed)
-    # --render writes no log file and no scalars
+    # --render writes no log file and no scalars; only the lead rank logs
     logger = create_logger(os.path.join(cfg.log_dir, "log.txt"),
-                           file_handle=not args.render)
-    tb = None if args.render else ScalarWriter(cfg.tb_dir)
+                           file_handle=not args.render and lead)
+    if not lead:
+        logger.setLevel(logging.WARNING)
+    tb = None if args.render or not lead else ScalarWriter(cfg.tb_dir)
     if device.type == "cuda":
         nvcc.build_all()              # nvcc at first use, outside the loop
 
@@ -171,7 +190,7 @@ def main(argv=None, iter_hook=None):
                     % dict(cfg.discriminator).get("reward_weight", 1.0))
     agent = agent_cls(model, spec, p, tables, expert, cnn_feat, cfg,
                       batch_lanes=args.batch_lanes, seed=cfg.seed,
-                      dtype=dtype, device=device)
+                      dtype=dtype, device=device, mesh=mesh)
     if args.iter > 0:
         resume(agent, cfg.model_dir, args.iter, logger)
 
@@ -190,7 +209,7 @@ def main(argv=None, iter_hook=None):
             agent.fill_log_std(cfg.adp_log_std)
 
         # the second iteration: the first is the warm-up
-        profiling = args.profile_dir and i_iter == args.iter + 1
+        profiling = args.profile_dir and i_iter == args.iter + 1 and lead
         with profiled(profiling and args.profile_dir, device, logger):
             with torch.profiler.record_function("sample"):
                 batch, log = agent.sample(generator, cfg.min_batch_size)
@@ -215,13 +234,14 @@ def main(argv=None, iter_hook=None):
                     "\tgrad_skips %d" % skips if skips else "",
                     "\tdiscrim_loss %.4f" % metrics["discrim_loss"]
                     if "discrim_loss" in metrics else ""))
-        tb.scalar("total_reward", log.avg_c_reward, i_iter)
-        tb.scalar("episode_len", log.avg_episode_len, i_iter)
-        tb.scalar("env_steps_per_sec", steps_per_s, i_iter)
-        for i in range(log.avg_c_info.shape[0]):
-            tb.scalar(f"reward_{i}", log.avg_c_info[i], i_iter)
-        if "discrim_loss" in metrics:
-            tb.scalar("discrim_loss", metrics["discrim_loss"], i_iter)
+        if tb:
+            tb.scalar("total_reward", log.avg_c_reward, i_iter)
+            tb.scalar("episode_len", log.avg_episode_len, i_iter)
+            tb.scalar("env_steps_per_sec", steps_per_s, i_iter)
+            for i in range(log.avg_c_info.shape[0]):
+                tb.scalar(f"reward_{i}", log.avg_c_info[i], i_iter)
+            if "discrim_loss" in metrics:
+                tb.scalar("discrim_loss", metrics["discrim_loss"], i_iter)
 
         if cfg.save_model_interval > 0 \
                 and (i_iter + 1) % cfg.save_model_interval == 0:
@@ -229,7 +249,8 @@ def main(argv=None, iter_hook=None):
         if iter_hook is not None:
             iter_hook(i_iter, log, metrics, t_update)
 
-    tb.close()
+    if tb:
+        tb.close()
     logger.info("training done!")
     return agent
 
@@ -263,18 +284,32 @@ def resume(agent, model_dir, i_iter, logger):
 def save_render_sample(agent, generator, cfg, args, logger):
     """--render: one sampled segment, mean actions unless --show-noise,
     saved as results/.../render_iter_%04d.npz (per-step rewards, actions
-    and each step's lane expert and start frame)."""
+    and each step's lane expert and start frame).  On a mesh each rank
+    samples its lanes; the lanes are gathered in the one-process order and
+    the lead rank writes them."""
+    from ..parallel import mesh as meshlib
     batch, log = agent.sample(generator, cfg.min_batch_size,
                               mean_action=not args.show_noise)
     logger.info("render sample: %d steps, R_avg %.4f"
                 % (log.num_steps, log.avg_c_reward))
+    fields = {k: getattr(batch, k)
+              for k in ("rewards", "actions", "expert_ind", "start_ind")}
+    if agent.mesh is not None:
+        axis = agent.data.axis
+        segments = batch.expert_ind.shape[0] * agent.mesh.size(axis) \
+            // agent.batch_lanes
+        fields = {k: meshlib.gather_lanes(agent.mesh, x, axis,
+                                          1 if x.dim() > 1 else 0, segments)
+                  for k, x in fields.items()}
     out = "%s/render_iter_%04d.npz" % (cfg.result_dir, args.iter)
-    os.makedirs(cfg.result_dir, exist_ok=True)
-    np.savez_compressed(out, rewards=batch.rewards.cpu().numpy(),
-                        actions=batch.actions.cpu().numpy(),
-                        expert_ind=batch.expert_ind.cpu().numpy(),
-                        start_ind=batch.start_ind.cpu().numpy())
-    logger.info("saved rollout sample to %s" % out)
+
+    def write():
+        os.makedirs(cfg.result_dir, exist_ok=True)
+        np.savez_compressed(out, **{k: x.cpu().numpy()
+                                    for k, x in fields.items()})
+        logger.info("saved rollout sample to %s" % out)
+
+    meshlib.lead_writes(agent.mesh, write)
     return out
 
 

@@ -23,10 +23,18 @@ traj_orig_synced]} keyed by take, the JAX package's layout (tag ``_mj``
 under ``--engine mujoco``); ``--render`` also writes the viewer's replay
 iter_%04d_<data>_replay.npz (utils/render.py::save_replay), and
 ``--profile-dir`` a torch.profiler trace of the rollout (trace.json).
+
+``--sp-devices M`` time-shards the full-take context encodes over M ranks
+(parallel/seqpar.py; TCN context nets only, and ``--causal`` only with
+causal ones, whose full pass is their causal encode), and the state net's
+forward too where its temporal net is a TCN.  The CLI starts the M ranks
+itself (parallel/mesh.py); the lead rank runs the rollout and writes the
+results, the others end after the encodes.
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import pickle
 import time
@@ -48,11 +56,12 @@ def kinematic_state_pred(expert, take_idx):
     return torch.cat([pos, qvel_fd], 1)
 
 
-def state_net_pred(cfg, cnn_feat, device, dtype):
+def state_net_pred(cfg, cnn_feat, device, dtype, mesh=None):
     """The trained state-regression net's predictions over every take
     (B, T, nq-2+nv), de-normalised with its checkpoint's mean and std: the
     no_cnn VideoRegNet of ``cfg.state_net_model`` (either package's layout
-    or the reference's) run over the full takes' CNN features."""
+    or the reference's) run over the full takes' CNN features, time-sharded
+    over ``mesh`` when its temporal net is a TCN."""
     from ..models import torch_import as ti
     from ..models.video_reg_net import VideoRegNet
     from ..utils.config import StateRegConfig
@@ -71,7 +80,12 @@ def state_net_pred(cfg, cnn_feat, device, dtype):
                                     device=device)
     with torch.no_grad():
         feats = f64(cnn_feat).to(dtype).transpose(0, 1)     # (T, B, F)
-        pred = net(feats).transpose(0, 1)                   # (B, T, D)
+        if mesh is not None and net.v_net_type == "tcn":
+            from ..parallel.seqpar import vregnet_apply_sp
+            pred = vregnet_apply_sp(mesh, net, feats)
+        else:
+            pred = net(feats)
+        pred = pred.transpose(0, 1)                         # (B, T, D)
     # de-normalised in float64, as the JAX package does it in numpy
     return (pred.double() * f64(std) + f64(mean)).to(dtype)
 
@@ -129,9 +143,6 @@ def main(argv=None, step_hook=None, phys_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs the plain PyTorch path")
     args = parser.parse_args(argv)
-    if args.sp_devices is not None:
-        raise NotImplementedError(
-            "--sp-devices is not ported yet (ROADMAP §1 item 5)")
 
     from .. import envs, resolve_device
     from ..ops import math_utils as M
@@ -147,7 +158,30 @@ def main(argv=None, step_hook=None, phys_hook=None):
     device = resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
     cfg = EgoMimicConfig(args.cfg, create_dirs=False)
-    logger = create_logger(os.path.join(cfg.log_dir, "log_eval.txt"))
+    mesh = None
+    if args.sp_devices is not None:
+        from ..parallel import mesh as meshlib
+        from ..parallel.seqpar import vsnet_encode_sp
+        for who in ("policy", "value"):
+            if getattr(cfg, f"{who}_v_net") != "tcn":
+                raise ValueError(
+                    "sequence-parallel context encoding requires a TCN "
+                    f"context net (got {getattr(cfg, who + '_v_net')!r}: "
+                    "recurrent nets are sequential in time)")
+        if args.causal and not cfg.causal:
+            raise SystemExit("--sp-devices with --causal requires a "
+                             "causal context net (causal: true)")
+        if not meshlib.in_ranks():
+            if device.type == "cuda" and args.engine == "torch":
+                substep.build()       # once, before the ranks start
+            return meshlib.run_cli(args.sp_devices, main, argv, step_hook,
+                                   phys_hook, device=device)
+        mesh = meshlib.make_mesh(args.sp_devices, device=device)
+        device = mesh.device
+    logger = create_logger(os.path.join(cfg.log_dir, "log_eval.txt"),
+                           file_handle=mesh is None or mesh.lead)
+    if mesh is not None and not mesh.lead:
+        logger.setLevel(logging.WARNING)
     np.random.seed(cfg.seed)
 
     t0 = time.time()
@@ -183,7 +217,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
 
     if getattr(cfg, "state_net_cfg", None) and \
             os.path.exists(getattr(cfg, "state_net_model", "")):
-        state_preds = state_net_pred(cfg, cnn_feat, device, dtype)
+        state_preds = state_net_pred(cfg, cnn_feat, device, dtype, mesh)
         logger.info("loaded state net from %s" % cfg.state_net_model)
     else:
         state_preds = torch.stack([kinematic_state_pred(expert, i)
@@ -191,13 +225,19 @@ def main(argv=None, step_hook=None, phys_hook=None):
 
     with torch.no_grad():
         feats = torch.as_tensor(cnn_feat).to(device=device, dtype=dtype)
-        if args.causal:
+        if mesh is not None:
+            # a causal TCN's causal encode is its full pass
+            v_out_p = vsnet_encode_sp(mesh, agent.policy_vs_net, feats)
+            v_out_v = vsnet_encode_sp(mesh, agent.value_vs_net, feats)
+        elif args.causal:
             v_out_p = agent.policy_vs_net.causal_encode(feats)
             v_out_v = agent.value_vs_net.causal_encode(feats)
         else:
             v_out_p = agent.policy_vs_net(feats)
             v_out_v = agent.value_vs_net(feats)
 
+    if mesh is not None and not mesh.lead:
+        return None                   # the lead rank runs the rollout
     take_idx = torch.arange(n_takes, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)

@@ -25,10 +25,19 @@ iter_%04d_inf.p (save_inf, the net without its CNN), pickles of
 JAX package's layout, so either package loads the other's; ``--iter``
 also loads a reference-format (torch state_dict) checkpoint.  Test mode
 writes results/statereg/<cfg>/results/iter_%04d_<data or test-feat>.p.
+
+``--dp-devices N`` trains data-parallel over N ranks (the CLI starts them
+itself, parallel/mesh.py): every rank assembles the same host batch and
+keeps its share of the chunks (axis 1), the loss's denominator and the
+CNN's BatchNorm statistics run over every rank's chunks
+(models/batch_norm.py), a TCN temporal net's dropout masks are those of
+the whole batch, and the gradients are summed before the optimizer step.
+The lead rank logs and writes the checkpoints.
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import pickle
 import queue
@@ -37,6 +46,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as meshlib
 
 
 def get_traj_from_state_pred(state_pred, init_pos, init_heading, dt,
@@ -123,14 +134,17 @@ def make_net(cfg, state_dim, no_cnn, frame_shape, seed):
                            v_net_param=cfg.v_net_param, causal=cfg.causal)
 
 
-def train_step(net, opt, of, gt, mask, fr_margin, dtype, marks=None):
+def train_step(net, opt, of, gt, mask, fr_margin, dtype, marks=None,
+               mesh=None):
     """One step over a (T, B, ...) batch of B chunks: flow cast and padded
     to 3 channels on its device, the net in training mode (BatchNorm
     statistics over all T*B frames), the loss masked by ``mask`` (T', B).
     The gradient flows through the CNN's features in two backward passes
     (temporal net and head, then the CNN), the chain rule split where the
     step's two halves meet.  ``marks(name)``, if given, is called after
-    each section.  Returns the loss (a device tensor)."""
+    each section.  ``mesh``: the batch is this rank's chunks; the loss is
+    the global one and the gradients are summed over the ranks.  Returns
+    the loss (a device tensor)."""
     mark = marks or (lambda name: None)
     net.train()
     frames = pad_flow_channels(of.to(dtype))
@@ -139,7 +153,9 @@ def train_step(net, opt, of, gt, mask, fr_margin, dtype, marks=None):
     feats_in = feats.detach().requires_grad_()
     pred = net.temporal(feats_in)[fr_margin:-fr_margin]
     err = ((gt - pred) ** 2 * mask[..., None]).sum(-1)
-    loss = err.sum() / torch.clamp(mask.sum(), min=1.0)
+    n_valid = mask.sum() if mesh is None \
+        else meshlib.all_reduce_sum(mesh, mask.sum(), "data")
+    loss = err.sum() / torch.clamp(n_valid, min=1.0)
     mark("temporal_forward")
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -147,6 +163,12 @@ def train_step(net, opt, of, gt, mask, fr_margin, dtype, marks=None):
     if net.cnn is not None:
         feats.backward(feats_in.grad)
     mark("cnn_backward")
+    if mesh is not None:
+        params = [q for q in net.parameters() if q.grad is not None]
+        for q, g in zip(params, meshlib.all_reduce_grads(
+                mesh, [q.grad for q in params], params)):
+            q.grad = g
+        loss = meshlib.all_reduce_sum(mesh, loss.detach(), "data")
     opt.step()
     mark("optimizer")
     return loss.detach()
@@ -230,9 +252,6 @@ def main(argv=None, epoch_hook=None):
                         help="torch device; default cuda (raises without "
                              "CUDA), cpu runs on the CPU")
     args = parser.parse_args(argv)
-    if args.dp_devices is not None:
-        raise NotImplementedError(
-            "--dp-devices is not ported yet (ROADMAP §1 item 5)")
     if args.data is None:
         args.data = args.mode if args.mode in {"train", "test"} else "train"
 
@@ -244,9 +263,25 @@ def main(argv=None, epoch_hook=None):
     device = resolve_device(args.device)
     dtype, np_dtype = torch.float32, np.float32
     cfg = StateRegConfig(args.cfg, create_dirs=(args.iter == 0))
+    mesh = None
+    if args.dp_devices is not None and args.mode == "train":
+        n_chunks = batch_chunks(args, cfg)
+        if n_chunks % args.dp_devices != 0:
+            raise SystemExit(
+                f"--batch-chunks {n_chunks} not divisible by "
+                f"--dp-devices {args.dp_devices}")
+        if not meshlib.in_ranks():
+            return meshlib.run_cli(args.dp_devices, main, argv, epoch_hook,
+                                   device=device)
+        mesh = meshlib.make_mesh(args.dp_devices, device=device)
+        device = mesh.device
+    lead = mesh is None or mesh.lead
     np.random.seed(cfg.seed)
-    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"))
-    tb = ScalarWriter(cfg.tb_dir)
+    logger = create_logger(os.path.join(cfg.log_dir, "log.txt"),
+                           file_handle=lead)
+    if not lead:
+        logger.setLevel(logging.WARNING)
+    tb = ScalarWriter(cfg.tb_dir) if lead else None
 
     dataset = Dataset(cfg.meta_id, args.data, cfg.fr_num, cfg.iter_method,
                       cfg.shuffle, 2 * cfg.fr_margin, cfg.num_sample,
@@ -270,7 +305,7 @@ def main(argv=None, epoch_hook=None):
 
     if args.mode == "train":
         return _train(args, cfg, net, dataset, state_dim, device, dtype,
-                      np_dtype, logger, tb, epoch_hook)
+                      np_dtype, logger, tb, epoch_hook, mesh)
     if args.mode == "test":
         return _test(args, cfg, net, dataset, state_dim, fr_margin,
                      chunk_max, device, dtype, np_dtype, logger)
@@ -282,20 +317,42 @@ def main(argv=None, epoch_hook=None):
     return None
 
 
+def batch_chunks(args, cfg) -> int:
+    """Chunks per training batch: --batch-chunks, else cfg.batch_size
+    when above 1, else 4."""
+    return args.batch_chunks or (cfg.batch_size if cfg.batch_size > 1
+                                 else 4)
+
+
 def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
-           logger, tb, epoch_hook):
+           logger, tb, epoch_hook, mesh=None):
+    from ..models.batch_norm import BatchNorm
     from ..utils.profile import profiled
     fr_margin = cfg.fr_margin
     # optax.adam's defaults: the same update, eps outside the square root
     opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
                            eps=1e-8)
-    n_chunks = args.batch_chunks or \
-        (cfg.batch_size if cfg.batch_size > 1 else 4)
+    n_chunks = batch_chunks(args, cfg)
     logger.info("training with %d chunks per batch on %s" % (n_chunks,
                                                              device))
     tdtype = np.float16 if args.transfer_dtype == "f16" else np_dtype
     batches = lambda: host_batches(dataset, n_chunks, fr_margin, state_dim,
                                    np_dtype, tdtype, device.type == "cuda")
+    lead = mesh is None or mesh.lead
+    if mesh is not None:
+        logger.info("data-parallel over %d ranks (chunk axis split)"
+                    % mesh.size("data"))
+        group = meshlib.Group(mesh, "data")
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
+        if net.v_net_type == "tcn":
+            net.v_net.lanes = (n_chunks, mesh.rank("data") * n_chunks
+                               // mesh.size("data"))
+        whole = batches
+        shard = lambda x: meshlib.lane_slice(mesh, x, "data", dim=1)
+        batches = lambda: ((shard(of), shard(gt), shard(mask), num)
+                           for of, gt, mask, num in whole())
 
     def device_batches():
         """The host batches assembled on a prefetch thread (two ahead), so
@@ -343,14 +400,14 @@ def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
     for i_epoch in range(args.iter, max_epoch):
         # the second epoch: the first is the warm-up (cuDNN's first calls,
         # the allocator's growth), not the steady state
-        profiling = args.profile_dir and i_epoch == args.iter + 1
+        profiling = args.profile_dir and i_epoch == args.iter + 1 and lead
         t0 = time.time()
         n_sample, losses, counts = 0, [], []
         with profiled(profiling and args.profile_dir, device, logger):
             for of, gt, mask, num in (resident if resident is not None
                                       else device_batches()):
                 losses.append(train_step(net, opt, of, gt, mask, fr_margin,
-                                         dtype))     # read after the epoch
+                                         dtype, mesh=mesh))  # read later
                 counts.append(num)
                 n_sample += num
             ep_loss = float(sum(float(l) * c for l, c in zip(losses, counts))
@@ -362,12 +419,15 @@ def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
                             n_sample / max(dt_ep, 1e-9)))
         if epoch_hook is not None:
             epoch_hook(i_epoch, dt_ep, n_sample, ep_loss, len(losses))
-        tb.scalar("loss", ep_loss, i_epoch)
-        tb.scalar("frames_per_sec", n_sample / max(dt_ep, 1e-9), i_epoch)
+        if tb:
+            tb.scalar("loss", ep_loss, i_epoch)
+            tb.scalar("frames_per_sec", n_sample / max(dt_ep, 1e-9), i_epoch)
         if cfg.save_model_interval > 0 and \
                 (i_epoch + 1) % cfg.save_model_interval == 0:
-            save_state_net("%s/iter_%04d.p" % (cfg.model_dir, i_epoch + 1),
-                           net, {"mean": dataset.mean, "std": dataset.std})
+            meshlib.lead_writes(
+                mesh, save_state_net,
+                "%s/iter_%04d.p" % (cfg.model_dir, i_epoch + 1), net,
+                {"mean": dataset.mean, "std": dataset.std})
     return net, dataset
 
 

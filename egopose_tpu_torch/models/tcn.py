@@ -51,7 +51,7 @@ class TemporalBlock(nn.Module):
         self.padding = (pad, 0) if causal else (pad // 2, pad // 2)
         self.conv1 = WeightNormConv1d(n_in, n_out, kernel_size, dilation)
         self.conv2 = WeightNormConv1d(n_out, n_out, kernel_size, dilation)
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        self.p = dropout
         if n_in != n_out:
             self.downsample = nn.Conv1d(n_in, n_out, 1)
             nn.init.normal_(self.downsample.weight, 0.0, 0.01)
@@ -59,17 +59,39 @@ class TemporalBlock(nn.Module):
         else:
             self.downsample = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, C, T) -> (B, C', T)."""
-        out = self.dropout(torch.relu(self.conv1(F.pad(x, self.padding))))
-        out = self.dropout(torch.relu(self.conv2(F.pad(out, self.padding))))
+    def dropout(self, v: torch.Tensor, lanes) -> torch.Tensor:
+        """Dropout in training mode.  The keep mask is drawn for
+        ``lanes`` = (all lanes, this shard's first) and sliced, so a
+        data-parallel rank draws its slice of the one-process mask."""
+        if not (self.training and self.p > 0):
+            return v
+        n_all, first = lanes or (v.shape[0], 0)
+        keep = torch.empty((n_all,) + v.shape[1:], dtype=v.dtype,
+                           device=v.device).bernoulli_(1 - self.p)
+        return v * keep[first:first + v.shape[0]] / (1 - self.p)
+
+    def forward(self, x: torch.Tensor, t_mask: torch.Tensor | None = None,
+                lanes=None) -> torch.Tensor:
+        """(B, C, T) -> (B, C', T).  ``t_mask`` (T,) zeroes positions
+        outside the true sequence after each neighbourhood op, so that a
+        time shard's fake edge frames read as the convolutions' own zero
+        padding (parallel/seqpar.py)."""
+        msk = (lambda v: v * t_mask) if t_mask is not None \
+            else (lambda v: v)
+        out = self.dropout(msk(torch.relu(self.conv1(F.pad(x,
+                                                           self.padding)))),
+                           lanes)
+        out = self.dropout(torch.relu(self.conv2(F.pad(out, self.padding))),
+                           lanes)
         res = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + res)
+        return msk(torch.relu(out + res))
 
 
 class TemporalConvNet(nn.Module):
     """Stack of TemporalBlocks ``block0``, ``block1``, ... (the JAX
-    package's names) with dilation 2^i."""
+    package's names) with dilation 2^i.  ``lanes`` (all lanes, this
+    shard's first), when set, makes the dropout masks those of the whole
+    batch (TemporalBlock.dropout)."""
 
     def __init__(self, n_in: int, num_channels: Sequence[int],
                  kernel_size: int = 3, dropout: float = 0.2,
@@ -77,16 +99,21 @@ class TemporalConvNet(nn.Module):
         super().__init__()
         assert kernel_size % 2 == 1
         self.n_blocks = len(num_channels)
+        self.lanes = None
         for i, ch in enumerate(num_channels):
             self.add_module(f"block{i}", TemporalBlock(
                 n_in, ch, kernel_size, 2 ** i, dropout, causal))
             n_in = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, C) -> (B, T, num_channels[-1])."""
+    def forward(self, x: torch.Tensor,
+                t_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(B, T, C) -> (B, T, num_channels[-1]); ``t_mask`` (T,) as in
+        TemporalBlock, applied to the input too."""
         x = x.transpose(1, 2)
+        if t_mask is not None:
+            x = x * t_mask
         for i in range(self.n_blocks):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, t_mask, self.lanes)
         return x.transpose(1, 2)
 
 

@@ -31,6 +31,8 @@ class VideoRegNet(nn.Module):
         self.cnn_fdim = cnn_fdim
         self.frame_shape = tuple(frame_shape)
         self.v_net_type = v_net_type
+        self.v_hdim, self.v_net_param, self.causal = v_hdim, v_net_param, \
+            causal
         if no_cnn:
             self.cnn = None
         elif cnn_type == "resnet":
@@ -52,13 +54,15 @@ class VideoRegNet(nn.Module):
         """(N, H, W, C) frames -> (N, cnn_fdim) features."""
         return self.cnn(frames.permute(0, 3, 1, 2))
 
-    def temporal(self, feats: torch.Tensor) -> torch.Tensor:
+    def temporal(self, feats: torch.Tensor,
+                 t_mask: torch.Tensor | None = None) -> torch.Tensor:
         """(T, B, cnn_fdim) features -> (T, B, out_dim): the temporal net,
-        the MLP and the linear head."""
+        the MLP and the linear head; ``t_mask`` (T,) as in the TCN
+        (parallel/seqpar.py)."""
         if self.v_net_type == "lstm":
             h = self.v_net(feats)
         else:
-            h = self.v_net(feats.transpose(0, 1)).transpose(0, 1)
+            h = self.v_net(feats.transpose(0, 1), t_mask).transpose(0, 1)
         return self.linear(self.mlp(h))
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +75,8 @@ class VideoRegNet(nn.Module):
         return self.cnn_feature(x.reshape((t * b,) + self.frame_shape)) \
             .reshape(t, b, self.cnn_fdim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                t_mask: torch.Tensor | None = None) -> torch.Tensor:
         """x: (T, B, H, W, C) frames, or (T, B, cnn_fdim) when no_cnn ->
         (T, B, out_dim)."""
-        return self.temporal(self.features(x))
+        return self.temporal(self.features(x), t_mask)

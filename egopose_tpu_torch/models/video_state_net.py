@@ -19,6 +19,7 @@ class VideoStateNet(nn.Module):
         self.v_margin = v_margin
         self.causal = causal
         self.v_net_type = v_net_type
+        self.v_hdim, self.v_net_param = v_hdim, v_net_param
         if v_net_type == "lstm":
             self.v_net = RNN(cnn_feat_dim, v_hdim, bi_dir=not causal)
         elif v_net_type == "tcn":
@@ -33,6 +34,13 @@ class VideoStateNet(nn.Module):
         else:
             out = self.v_net(windows)
         return out[:, self.v_margin:-self.v_margin]
+
+    def encode_raw(self, windows: torch.Tensor,
+                   t_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """The inner TCN alone over (N, W, feat) windows, no margin
+        trimmed, positions outside ``t_mask`` kept zero: the time-sharded
+        encode's per-shard pass (parallel/seqpar.py)."""
+        return self.v_net(windows, t_mask)
 
     def context(self, windows: torch.Tensor,
                 states: torch.Tensor) -> torch.Tensor:

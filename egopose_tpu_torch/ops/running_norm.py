@@ -25,18 +25,29 @@ def init_stat(dim: int, dtype=torch.float32, device="cpu") -> RunningStat:
 
 
 def push_batch(stat: RunningStat, x: torch.Tensor,
-               weight: torch.Tensor | None = None) -> RunningStat:
+               weight: torch.Tensor | None = None, group=None) -> RunningStat:
     """Fold a batch (..., D) into the stats, optionally weighted per row:
     the Chan parallel-Welford merge, equal to pushing the rows one by one
-    (zfilter.py:12-22).  An empty (zero-weight) batch changes nothing."""
+    (zfilter.py:12-22).  An empty (zero-weight) batch changes nothing.
+
+    ``group`` (parallel/mesh.Group): the batch is every rank's ``x``
+    together.  The count and the weighted sum are summed over the ranks
+    first, then the squared deviations about that global mean: two
+    passes, so the merge equals the one-process merge to rounding."""
     if weight is None:
         weight = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
     w = weight[..., None]
     dims = tuple(range(x.dim() - 1))
     nb = torch.sum(weight)
+    sw = torch.sum(x * w, dims)
+    if group is not None:
+        both = group.sum(torch.cat([nb[None], sw]))
+        nb, sw = both[0], both[1:]
     safe_nb = torch.clamp(nb, min=1.0)
-    mb = torch.sum(x * w, dims) / safe_nb
+    mb = sw / safe_nb
     sb = torch.sum(w * (x - mb) ** 2, dims)
+    if group is not None:
+        sb = group.sum(sb)
     n = stat.n + nb
     safe_n = torch.clamp(n, min=1.0)
     delta = mb - stat.mean

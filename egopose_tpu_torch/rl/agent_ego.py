@@ -9,6 +9,15 @@ layout (flax trees of numpy arrays + RunningStat), so either package loads
 what the other saves; the reference code base's checkpoints (torch
 state_dicts + a pickled ZFilter) load too.  The native checkpoint
 (``save_native``) also carries both optimizers' states.
+
+``mesh`` (parallel/mesh.py) makes the agent one data-parallel rank: it
+samples and updates its slice of the ``batch_lanes`` lanes.  Every rank
+draws the segment's noise for all lanes from the same generator and keeps
+its slice, so the noise is bitwise the one-process noise; the observation
+filter, the sample log and the update's sums run over every rank's lanes
+(rl/ppo.py).  A ``time`` axis time-shards the TCN context encodes of the
+rollout and of the update (parallel/seqpar.py).  The lead rank writes the
+checkpoints; every rank loads them.
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ import torch
 from ..convert import params_from_jax, params_to_jax, save_checkpoint_pickle
 from ..models.video_state_net import VideoStateNet
 from ..ops import running_norm
+from ..parallel import mesh as meshlib
+from ..parallel import seqpar
 from . import ppo, rollout, trpo
 from .nets import PolicyGaussian, Value
 
@@ -44,12 +55,35 @@ class SampleLog(NamedTuple):
     sample_time: float = 0.0
 
 
+def check_mesh(cfg, batch_lanes: int, dp: int, sp: int, axis="data"):
+    """Raise where a (dp x sp) mesh cannot take the config: lanes that do
+    not split over ``dp``, sequence parallelism (sp > 1) without TCN
+    context nets."""
+    if batch_lanes % dp:
+        raise ValueError(f"batch_lanes={batch_lanes} not divisible by the "
+                         f"{axis!r} mesh axis ({dp})")
+    if sp > 1 and (cfg.policy_v_net != "tcn" or cfg.value_v_net != "tcn"):
+        raise ValueError(
+            "a 'time' mesh axis (sequence parallelism) requires TCN context "
+            f"nets (got policy={cfg.policy_v_net!r}, "
+            f"value={cfg.value_v_net!r})")
+
+
 class AgentEgo:
     def __init__(self, model, spec, params, tables, expert, cnn_feat, cfg,
                  batch_lanes: int = 1024, seed: int = 1,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cpu", mesh=None):
         self.model, self.spec, self.p, self.tables = model, spec, params, \
             tables
+        self.mesh, self.data, self.time_axis = mesh, None, None
+        if mesh is not None:
+            axis = mesh.axis_names[0]
+            sp = mesh.size(mesh.axis_names[1]) \
+                if len(mesh.axis_names) > 1 else 1
+            check_mesh(cfg, batch_lanes, mesh.size(axis), sp, axis)
+            self.data = meshlib.Group(mesh, axis)
+            if sp > 1:
+                self.time_axis = mesh.axis_names[1]
         self.dtype, self.device = dtype, torch.device(device)
         self.expert = expert
         self.cnn_feat = torch.as_tensor(np.asarray(cnn_feat)).to(
@@ -68,6 +102,8 @@ class AgentEgo:
                 obs_dim, self.cnn_feat.shape[-1], spec.nu, cfg)
         for net in self.nets:
             net.to(device=self.device, dtype=dtype).eval()
+        if mesh is not None:
+            meshlib.replicate(mesh, self.nets)
         self.zstat = running_norm.init_stat(obs_dim, dtype, self.device)
         opt_p, opt_v = ppo.make_optimizers(
             [*self.policy_net.parameters(), *self.policy_vs_net.parameters()],
@@ -148,6 +184,12 @@ class AgentEgo:
             noise = rollout.draw_segment_noise(
                 self.p, self.expert, self.batch_lanes, self.noise_rate,
                 generator)
+            if self.mesh is not None:
+                # lanes lead the reset fields, follow time in the others
+                noise = rollout.SegmentNoise(*[
+                    meshlib.lane_slice(self.mesh, x, self.data.axis,
+                                       dim=1 if i >= 4 else 0)
+                    for i, x in enumerate(noise)])
             seg, self.zstat = self._rollout(noise, mean_action)
             segs.append(seg)
         batch = rollout.SegmentBatch(*[
@@ -159,29 +201,48 @@ class AgentEgo:
 
     def _rollout(self, noise, mean_action):
         """One segment from ``noise``: (SegmentBatch, new zstat)."""
+        encode = self.policy_vs_net if self.time_axis is None else \
+            (lambda w: seqpar.vsnet_encode_sp(self.mesh, self.policy_vs_net,
+                                              w, axis=self.time_axis))
         return rollout.rollout_segment(
             self.model, self.p, self.tables, self.expert, self.cnn_feat,
-            self.policy_net, self.policy_vs_net, self.zstat, noise,
-            mean_action, self.end_reward)
+            self.policy_net, encode, self.zstat, noise, mean_action,
+            self.end_reward, group=self.data)
 
     def _make_log(self, batch, dt):
-        valid = batch.valids.double().cpu().numpy()
-        rewards = batch.rewards.double().cpu().numpy()
-        fails = batch.fails.double().cpu().numpy()
-        n_steps = valid.sum()
+        """The segment's statistics over every rank's lanes: the sums
+        and the extremes reduced over the ranks, in float64."""
+        valid = batch.valids.double()
+        rewards = batch.rewards.double()
+        fails = batch.fails.double() * valid
+        info = batch.reward_info.double()
+        big = torch.tensor(torch.inf, dtype=torch.float64,
+                           device=valid.device)
+        sums = torch.cat([torch.stack([
+            valid.sum(), torch.tensor(float(valid.shape[1]),
+                                      dtype=torch.float64,
+                                      device=valid.device),
+            fails.sum(), (rewards * valid).sum()]),
+            (info * valid[..., None]).sum((0, 1))])
+        # (-min, max): both reduce by max
+        ext = torch.stack([torch.where(valid > 0, -rewards, -big).max(),
+                           torch.where(valid > 0, rewards, -big).max()])
+        if self.mesh is not None:
+            sums = self.data.sum(sums)
+            ext = meshlib.all_reduce(self.mesh, ext, self.data.axis, "max")
+        sums, (neg_min, r_max) = sums.cpu().numpy(), ext.cpu().numpy()
+        n_steps, lanes, n_fail, r_sum = sums[:4]
         # every lane is one episode, plus one per mid-segment re-anchor
-        n_eps = valid.shape[1] + (fails * valid).sum()
+        n_eps = lanes + n_fail
         vsum = max(n_steps, 1.0)
-        rv = rewards[valid > 0]
-        info = batch.reward_info.double().cpu().numpy()
         return SampleLog(
             num_steps=float(n_steps), num_episodes=float(n_eps),
             avg_episode_len=float(n_steps / n_eps),
-            avg_c_reward=float((rewards * valid).sum() / vsum),
-            min_c_reward=float(rv.min()) if rv.size else 0.0,
-            max_c_reward=float(rv.max()) if rv.size else 0.0,
-            avg_c_info=(info * valid[..., None]).sum((0, 1)) / vsum,
-            fail_rate=float((fails * valid).sum() / n_eps),
+            avg_c_reward=float(r_sum / vsum),
+            min_c_reward=float(-neg_min) if n_steps else 0.0,
+            max_c_reward=float(r_max) if n_steps else 0.0,
+            avg_c_info=sums[4:] / vsum,
+            fail_rate=float(n_fail / n_eps),
             sample_time=dt)
 
     # -- update ---------------------------------------------------------------
@@ -195,12 +256,16 @@ class AgentEgo:
         """The objective's update on ``batch``: its metrics as tensors."""
         if self.objective == "trpo":
             _, metrics = trpo.trpo_update(self.train_state, self.hyper,
-                                          self.trpo_hyper, batch, windows)
+                                          self.trpo_hyper, batch, windows,
+                                          mesh=self.mesh)
         else:
+            lanes = self.batch_lanes if self.mesh is None else \
+                self.batch_lanes // self.mesh.size(self.data.axis)
             _, metrics = ppo.ppo_update(
                 self.train_state, self.hyper, batch, windows,
                 mini_batch_lanes=self.mini_batch_lanes,
-                generator=self.update_generator, objective=self.objective)
+                generator=self.update_generator, objective=self.objective,
+                mesh=self.mesh, segments=batch.rewards.shape[1] // lanes)
         return metrics
 
     def _host_metrics(self, metrics: dict) -> dict:
@@ -229,7 +294,8 @@ class AgentEgo:
                     s=np_(self.zstat.s))}
 
     def save(self, path: str):
-        save_checkpoint_pickle(path, self.checkpoint())
+        meshlib.lead_writes(self.mesh, lambda p: save_checkpoint_pickle(
+            p, self.checkpoint()), path)
 
     def load(self, path: str):
         """Load a checkpoint pickle written by either package's
@@ -285,6 +351,9 @@ class AgentEgo:
 
     # -- the native checkpoint, with the optimizers' states ------------------
     def save_native(self, path: str):
+        meshlib.lead_writes(self.mesh, self._save_native, path)
+
+    def _save_native(self, path: str):
         """Write the native checkpoint: the directory ``path``
         (conventionally models/iter_%04d.orbax, the JAX package's
         AgentEgo.save_orbax path) holding one torch.save file with the four

@@ -35,13 +35,14 @@ def rollout_segment_forecast(model, p: envs.EnvParams, tables,
                              zstat: running_norm.RunningStat,
                              noise: rollout.SegmentNoise,
                              mean_action: bool = False, end_reward=0.0,
-                             z_clip: float = 5.0):
+                             z_clip: float = 5.0, group=None):
     """Sample one synchronized segment of ``env_episode_len`` steps from
     the lanes of ``noise``: the episode's video context computed once, the
     state LSTM's carry through the step loop.  A lane that fails is
     re-anchored to the expert pose at start_ind + cur_t (no random_cur_t
     wrap: an episode end does not re-anchor) and its carry restarts.
-    Returns (SegmentBatch, new zstat)."""
+    ``group`` as in rollout.rollout_segment.  Returns (SegmentBatch, new
+    zstat)."""
     t_len = p.env_episode_len
     state = envs.reset_from(model, p, tables, expert, noise.expert_ind,
                             noise.start_ind, noise.cur_t0, noise.init_noise)
@@ -49,7 +50,7 @@ def rollout_segment_forecast(model, p: envs.EnvParams, tables,
     windows = gather_past_windows(cnn_feat, state.expert_ind,
                                   state.start_ind, p.fr_margin)
     obs0 = envs.observe(p, state)
-    zstat = running_norm.push_batch(zstat, obs0)
+    zstat = running_norm.push_batch(zstat, obs0, group=group)
     zobs = running_norm.apply(zstat, obs0, clip=z_clip)
 
     def reanchor(st: envs.EnvState, anchor_noise) -> envs.EnvState:
@@ -83,7 +84,7 @@ def rollout_segment_forecast(model, p: envs.EnvParams, tables,
                             for a, b in zip(fresh, s_carry))
             next_obs = torch.where(out.fail[:, None],
                                    envs.observe(p, new_st), out.obs)
-            zstat = running_norm.push_batch(zstat, next_obs)
+            zstat = running_norm.push_batch(zstat, next_obs, group=group)
             recs.append(rollout.SegmentBatch(
                 states=zobs, actions=action, rewards=out.reward,
                 masks=torch.where(out.done, 0.0, 1.0).to(zobs.dtype),
@@ -154,7 +155,7 @@ class AgentForecast(AgentEgo):
         return rollout_segment_forecast(
             self.model, self.p, self.tables, self.expert, self.cnn_feat,
             self.policy_net, self.policy_vs_net, self.zstat, noise,
-            mean_action, self.end_reward)
+            mean_action, self.end_reward, group=self.data)
 
     def _windows(self, batch):
         return gather_past_windows(self.cnn_feat, batch.expert_ind,

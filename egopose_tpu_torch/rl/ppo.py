@@ -20,7 +20,20 @@ Semantics, as in the JAX package:
   and takes one critic + policy step per ``mini_batch_lanes`` slice;
 - ``objective="a2c"``: the vanilla policy-gradient loss
   -sum(log_prob * advantage) over exploration rows in place of the clipped
-  surrogate, with the same epoch, critic and ``kl_target`` loop.
+  surrogate, with the same epoch, critic and ``kl_target`` loop;
+- ``mesh`` (parallel/mesh.py): data-parallel ranks, each holding its
+  lanes.  GAE stays per lane, its normalization over every rank's lanes;
+  the denominators, the KL estimate and the reported losses are summed
+  over the ranks, each loss is the rank's partial sum over the global
+  denominator, and the gradients are summed before each optimizer step,
+  so the clip and the non-finite skip see the global gradient on every
+  rank.  The minibatch path draws the global
+  permutation on every rank and takes the entries in its lanes; a rank
+  with none still joins every sum, with zero gradients.  With a ``time``
+  axis the ego-mimic context encodes run time-sharded
+  (parallel/seqpar.py): the loss after the encode runs alike on each time
+  rank, so the context nets' gradients are summed over both axes and the
+  others over the lanes' axis only.
 
 ``Adam`` reproduces the JAX package's optax chain exactly (see its
 docstring), including optax's clip formula and ``apply_if_finite``; its
@@ -34,6 +47,8 @@ import torch
 from torch import nn
 
 from ..ops.gae import estimate_advantages
+from ..parallel import mesh as meshlib
+from ..parallel import seqpar
 from .distributions import diag_gaussian_log_prob
 from .rollout import SegmentBatch
 
@@ -164,10 +179,24 @@ def make_optimizers(policy_params, value_params, policy_lr, value_lr,
             Adam(value_params, value_lr, weight_decay=value_weight_decay))
 
 
+def local_lanes(mesh, idx: torch.Tensor, n_local: int, segments: int = 1):
+    """The entries of global lane indices ``idx`` that this rank holds, as
+    its local indices, in ``idx``'s order.  A batch of ``segments``
+    segments lists each segment's lanes in turn; a rank holds the same
+    contiguous slice of every segment."""
+    if mesh is None:
+        return idx
+    k = n_local // segments                    # a rank's lanes a segment
+    b = k * mesh.size(mesh.axis_names[0])      # all lanes a segment
+    seg, lane = idx // b, idx % b
+    mine = lane // k == mesh.rank(mesh.axis_names[0])
+    return (seg * k + lane % k)[mine]
+
+
 def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
                windows: torch.Tensor, mini_batch_lanes: int = 0, perms=None,
                generator: torch.Generator | None = None,
-               objective: str = "ppo"):
+               objective: str = "ppo", mesh=None, segments: int = 1):
     """Run ``hyper.num_epochs`` PPO epochs on one sampled batch (time-major
     (T,B,...) tensors; windows (B,W,feat), the input of the context nets'
     ``context``), updating ``ts``'s nets and optimizers in place.
@@ -175,19 +204,33 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
     ``mini_batch_lanes`` in (0, B): the minibatch path; ``perms`` (epochs,
     n_mb * mini_batch_lanes) gives each epoch's lane order, else it is drawn
     from ``generator``.  ``objective`` "ppo" (the clipped surrogate) or
-    "a2c" (the vanilla policy gradient).  Returns (ts, metrics dict of 0-d
-    tensors)."""
+    "a2c" (the vanilla policy gradient).  ``mesh``: data-parallel ranks
+    (module docstring), the batch being this rank's lanes of ``segments``
+    segments.  Returns (ts, metrics dict of 0-d tensors)."""
     if objective not in ("ppo", "a2c"):
         raise ValueError(f"objective must be ppo|a2c, got {objective!r}")
     bsz = batch.rewards.shape[1]
     valid = batch.valids
+    data = None if mesh is None else meshlib.Group(mesh, mesh.axis_names[0])
+    gsum = (lambda x: x) if data is None else data.sum
+    time_axis = mesh.axis_names[1] if mesh is not None \
+        and len(mesh.axis_names) > 1 else None
+    sp = time_axis is not None and mesh.size(time_axis) > 1
+    wide = {id(p) for net in (ts.policy_vs, ts.value_vs)
+            for p in net.parameters()} if sp else set()
+
+    def context(vs_net, win, states):
+        if not sp:
+            return vs_net.context(win, states)
+        v_ctx = seqpar.vsnet_encode_sp(mesh, vs_net, win, axis=time_axis)
+        return torch.cat([v_ctx.transpose(0, 1), states], -1)
 
     def policy_logprob(states, win, actions):
-        mean, log_std = ts.policy(ts.policy_vs.context(win, states))
+        mean, log_std = ts.policy(context(ts.policy_vs, win, states))
         return diag_gaussian_log_prob(actions, mean, log_std)
 
     def values_of(states, win):
-        return ts.value(ts.value_vs.context(win, states))
+        return ts.value(context(ts.value_vs, win, states))
 
     with torch.no_grad():
         fixed_log_probs = policy_logprob(batch.states, windows,
@@ -195,25 +238,27 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
         values = values_of(batch.states, windows)
         advantages, returns = estimate_advantages(
             batch.rewards, batch.masks, values, hyper.gamma, hyper.tau,
-            valid=valid)
+            valid=valid, group=data)
     exp_w = batch.exps * valid
     stop = torch.zeros((), dtype=torch.bool, device=valid.device)
 
     def opt_step(d):
         nonlocal stop
         states, actions, win, flp, adv, ret, val, expw = d
-        nv = torch.clamp(val.sum(), min=1.0)
-        ne = torch.clamp(expw.sum(), min=1.0)
+        nv, ne = torch.clamp(gsum(torch.stack([val.sum(), expw.sum()])),
+                             min=1.0)
         for _ in range(hyper.value_opt_niter):
             vloss = torch.sum(((values_of(states, win) - ret) ** 2) * val) / nv
-            ts.opt_value.step(torch.autograd.grad(
-                vloss, ts.opt_value.params, allow_unused=True))
+            params = ts.opt_value.params
+            ts.opt_value.step(meshlib.all_reduce_grads(
+                mesh, torch.autograd.grad(vloss, params, allow_unused=True),
+                params, wide))
         if hyper.kl_target > 0:
             with torch.no_grad():
                 lr = torch.clamp(policy_logprob(states, win, actions) - flp,
                                  -20.0, 20.0)
-                approx_kl = torch.sum(((torch.exp(lr) - 1.0) - lr) * expw) \
-                    / ne
+                approx_kl = gsum(torch.sum(((torch.exp(lr) - 1.0) - lr)
+                                           * expw)) / ne
             stop = stop | (approx_kl > hyper.kl_target)
         log_probs = policy_logprob(states, win, actions)
         if objective == "a2c":
@@ -224,24 +269,28 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
             surr2 = torch.clamp(ratio, 1.0 - hyper.clip_epsilon,
                                 1.0 + hyper.clip_epsilon) * adv
             ploss = -torch.sum(torch.minimum(surr1, surr2) * expw) / ne
+        params = ts.opt_policy.params
         ts.opt_policy.step(
-            torch.autograd.grad(ploss, ts.opt_policy.params,
-                                allow_unused=True),
+            meshlib.all_reduce_grads(
+                mesh, torch.autograd.grad(ploss, params, allow_unused=True),
+                params, wide),
             skip=stop if hyper.kl_target > 0 else None)
         return ploss.detach(), vloss.detach()
 
     full = (batch.states, batch.actions, windows, fixed_log_probs,
             advantages, returns, valid, exp_w)
-    if mini_batch_lanes and mini_batch_lanes < bsz:
+    n_all = bsz if mesh is None else bsz * mesh.size(mesh.axis_names[0])
+    if mini_batch_lanes and mini_batch_lanes < n_all:
         mb = int(mini_batch_lanes)
-        n_mb = bsz // mb
+        n_mb = n_all // mb
         if perms is None:
             perms = torch.stack([
-                torch.randperm(bsz, generator=generator,
+                torch.randperm(n_all, generator=generator,
                                device=generator.device)[:n_mb * mb]
                 for _ in range(hyper.num_epochs)])
         for perm in torch.as_tensor(perms, device=valid.device):
             for idx in perm.reshape(n_mb, mb):
+                idx = local_lanes(mesh, idx, bsz, segments)
                 states, actions, win, flp, adv, ret, val, expw = full
                 losses = opt_step((states[:, idx], actions[:, idx], win[idx],
                                    flp[:, idx], adv[:, idx], ret[:, idx],
@@ -249,9 +298,11 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
     else:
         for _ in range(hyper.num_epochs):
             losses = opt_step(full)
-    metrics = {"policy_loss": losses[0], "value_loss": losses[1],
-               "n_valid": torch.clamp(valid.sum(), min=1.0),
-               "n_exp": torch.clamp(exp_w.sum(), min=1.0)}
+    ploss, vloss, n_valid, n_exp = gsum(torch.stack(
+        [*losses, valid.sum(), exp_w.sum()]))
+    metrics = {"policy_loss": ploss, "value_loss": vloss,
+               "n_valid": torch.clamp(n_valid, min=1.0),
+               "n_exp": torch.clamp(n_exp, min=1.0)}
     if hyper.kl_target > 0:
         metrics["kl_stopped"] = stop
     return ts, metrics

@@ -95,9 +95,12 @@ def rollout_segment(model, p: envs.EnvParams, tables, expert: envs.ExpertBatch,
                     cnn_feat: torch.Tensor, policy_net, policy_vs_net,
                     zstat: running_norm.RunningStat, noise: SegmentNoise,
                     mean_action: bool = False, end_reward=0.0,
-                    z_clip: float = 5.0):
+                    z_clip: float = 5.0, group=None):
     """Sample one synchronized segment of ``env_episode_len`` steps from
-    the lanes of ``noise``.  Returns (SegmentBatch, new zstat)."""
+    the lanes of ``noise``.  ``policy_vs_net`` is any callable from
+    windows to context (the time-sharded encode under sequence
+    parallelism); ``group`` (parallel/mesh.Group) merges the observation
+    filter over every rank's lanes.  Returns (SegmentBatch, new zstat)."""
     t_len = p.env_episode_len
     state = envs.reset_from(model, p, tables, expert, noise.expert_ind,
                             noise.start_ind, noise.cur_t0, noise.init_noise)
@@ -107,7 +110,7 @@ def rollout_segment(model, p: envs.EnvParams, tables, expert: envs.ExpertBatch,
     with torch.no_grad():
         v_out = policy_vs_net(windows)                     # (B,T,v_hdim)
     obs0 = envs.observe(p, state)
-    zstat = running_norm.push_batch(zstat, obs0)
+    zstat = running_norm.push_batch(zstat, obs0, group=group)
     zobs = running_norm.apply(zstat, obs0, clip=z_clip)
 
     def reanchor(st: envs.EnvState, anchor_noise) -> envs.EnvState:
@@ -141,7 +144,7 @@ def rollout_segment(model, p: envs.EnvParams, tables, expert: envs.ExpertBatch,
                 trigger, reanchor(new_st, noise.anchor_noise[t]), new_st)
             next_obs = torch.where(trigger[:, None], envs.observe(p, new_st),
                                    out.obs)
-            zstat = running_norm.push_batch(zstat, next_obs)
+            zstat = running_norm.push_batch(zstat, next_obs, group=group)
             recs.append(SegmentBatch(
                 states=zobs, actions=action, rewards=out.reward,
                 masks=torch.where(out.done, 0.0, 1.0).to(zobs.dtype),

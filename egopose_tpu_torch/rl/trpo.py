@@ -13,6 +13,15 @@ the flat vector of CG and the line search concatenates them in that order
 to roundoff).  CG runs a fixed number of iterations and the line search
 evaluates every step, keeping the first accepted one with ``torch.where``,
 so neither reads anything back to the host.
+
+``mesh`` (parallel/mesh.py): data-parallel ranks, each holding its lanes.
+The surrogate, its gradient, each Fisher product (damping added once),
+the KL and the critic's loss and gradients are each rank's partial sums
+over the global denominators, summed over the lanes' axis; CG and the
+line search then run alike on every rank.  The context encodes of the
+update stay whole on each rank of a ``time`` axis (torch.func's
+transforms do not pass through the halo exchange's autograd Functions),
+so the time ranks compute the update redundantly.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from torch import nn
 from torch.func import functional_call, grad, grad_and_value, jvp, vjp
 
 from ..ops.gae import estimate_advantages
+from ..parallel import mesh as meshlib
 from .distributions import diag_gaussian_log_prob
 
 
@@ -75,13 +85,20 @@ def gaussian_kl(mean0, log_std0, mean, log_std, w, n):
     return torch.sum(kl.sum(-1) * w) / n
 
 
-def fvp_fim(policy_in_fn: Callable, params, w, damping: float) -> Callable:
+def _identity(x):
+    return x
+
+
+def fvp_fim(policy_in_fn: Callable, params, w, damping: float, n=None,
+            gsum: Callable = _identity) -> Callable:
     """v -> F v + damping v, F the diagonal Gaussian's Fisher matrix at
-    ``params`` with rows weighted by w / sum(w): the tangent of v through
-    the policy (one jvp), scaled by the inverse variance for the mean and
-    by 2 for the log-std, carried back (one vjp)."""
+    ``params`` with rows weighted by w / n (n = sum(w) unless given): the
+    tangent of v through the policy (one jvp), scaled by the inverse
+    variance for the mean and by 2 for the log-std, carried back (one
+    vjp), then ``gsum`` (the sum over data-parallel ranks)."""
     params = tuple(params)
-    n = torch.clamp(w.sum(), min=1.0)
+    if n is None:
+        n = torch.clamp(w.sum(), min=1.0)
     (mean, log_std), vjp_fn = vjp(policy_in_fn, params)
     inv_var = torch.exp(-2.0 * log_std.detach())
     wn = (w / n).to(mean.dtype)
@@ -94,15 +111,18 @@ def fvp_fim(policy_in_fn: Callable, params, w, damping: float) -> Callable:
         cot_ls = 2.0 * dls * (wn[..., None] if dls.dim() == dmean.dim()
                               else wn.sum())
         (fv,) = vjp_fn((cot_mean, cot_ls.to(log_std.dtype)))
-        return _flat(fv) + damping * v
+        return gsum(_flat(fv)) + damping * v
     return fvp
 
 
-def fvp_direct(policy_in_fn: Callable, params, w, damping: float) -> Callable:
+def fvp_direct(policy_in_fn: Callable, params, w, damping: float, n=None,
+               gsum: Callable = _identity) -> Callable:
     """v -> H v + damping v, H the Hessian of the exps-weighted mean
-    self-KL at ``params`` (forward over reverse)."""
+    self-KL at ``params`` (forward over reverse); ``n`` and ``gsum`` as in
+    fvp_fim."""
     params = tuple(params)
-    n = torch.clamp(w.sum(), min=1.0)
+    if n is None:
+        n = torch.clamp(w.sum(), min=1.0)
 
     def mean_kl(prm):
         mean, log_std = policy_in_fn(prm)
@@ -111,12 +131,13 @@ def fvp_direct(policy_in_fn: Callable, params, w, damping: float) -> Callable:
 
     def fvp(v):
         _, hvp = jvp(grad(mean_kl), (params,), (_unflat(v, params),))
-        return _flat(hvp) + damping * v
+        return gsum(_flat(hvp)) + damping * v
     return fvp
 
 
 def trpo_step(params: Sequence[torch.Tensor], policy_in_fn: Callable, states,
-              actions, advantages, exps, hyper: TRPOHyper = TRPOHyper()):
+              actions, advantages, exps, hyper: TRPOHyper = TRPOHyper(),
+              gsum: Callable = _identity):
     """One TRPO policy update from ``params`` (left unchanged).
 
     ``policy_in_fn(params) -> (mean, log_std)`` over every recorded state
@@ -124,23 +145,27 @@ def trpo_step(params: Sequence[torch.Tensor], policy_in_fn: Callable, states,
     (new parameters, info): ``surrogate_loss`` before the step,
     ``ls_success``, ``surrogate_after`` and ``kl``, the true KL(old || new)
     over the batch, and ``step_frac``, the accepted step's fraction of the
-    full step (0 when none was accepted)."""
+    full step (0 when none was accepted).  ``gsum`` sums a tensor over the
+    data-parallel ranks (module docstring)."""
     params = tuple(p.detach() for p in params)
     w = exps
-    n = torch.clamp(w.sum(), min=1.0)
+    n = torch.clamp(gsum(w.sum()), min=1.0)
     with torch.no_grad():
         mean0, log_std0 = policy_in_fn(params)
         logp0 = diag_gaussian_log_prob(actions, mean0, log_std0)
 
-    def surrogate(prm):
+    def partial_surrogate(prm):
         mean, log_std = policy_in_fn(prm)
         logp = diag_gaussian_log_prob(actions, mean, log_std)
         return -torch.sum(torch.exp(logp - logp0) * advantages * w) / n
 
-    g_tree, loss0 = grad_and_value(surrogate)(params)
-    g = _flat(g_tree)
+    def surrogate(prm):
+        return gsum(partial_surrogate(prm))
+
+    g_tree, loss0 = grad_and_value(partial_surrogate)(params)
+    g, loss0 = gsum(_flat(g_tree)), gsum(loss0)
     fvp = (fvp_fim if hyper.use_fim else fvp_direct)(
-        policy_in_fn, params, w, hyper.damping)
+        policy_in_fn, params, w, hyper.damping, n, gsum)
     stepdir = conjugate_gradient(fvp, -g, hyper.cg_iters)
     shs = 0.5 * torch.dot(stepdir, fvp(stepdir))
     fullstep = stepdir / torch.sqrt(shs / hyper.max_kl)
@@ -166,7 +191,8 @@ def trpo_step(params: Sequence[torch.Tensor], policy_in_fn: Callable, states,
         mean, log_std = policy_in_fn(new_params)
         info = {"surrogate_loss": loss0.detach(), "ls_success": done,
                 "surrogate_after": surrogate(new_params),
-                "kl": gaussian_kl(mean0, log_std0, mean, log_std, w, n),
+                "kl": gsum(gaussian_kl(mean0, log_std0, mean, log_std, w,
+                                       n)),
                 "step_frac": step_frac}
     return new_params, info
 
@@ -183,7 +209,7 @@ class _PolicyInput(nn.Module):
         return self.policy(self.policy_vs.context(windows, states))
 
 
-def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows):
+def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows, mesh=None):
     """TRPO on one sampled batch (time-major (T,B,...) tensors; windows the
     context nets' input), updating ``ts``'s nets in place.
 
@@ -192,10 +218,16 @@ def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows):
     ``hyper.num_epochs`` steps of the value optimizer on the MSE plus
     1e-3 * sum(p^2) over the value and value-context parameters; then one
     natural-gradient step moves the policy and policy-context parameters.
-    The policy optimizer's state is left untouched.  Returns (ts, metrics
-    dict of 0-d tensors)."""
+    The policy optimizer's state is left untouched.  ``mesh``: the batch
+    is this rank's lanes (module docstring).  Returns (ts, metrics dict of
+    0-d tensors)."""
+    data = None if mesh is None else meshlib.Group(mesh, mesh.axis_names[0])
+    gsum = _identity if data is None else data.sum
+    # the critic's L2 term enters one rank's partial loss, so the sum over
+    # the ranks holds it once
+    l2_weight = 1e-3 if data is None or mesh.rank(data.axis) == 0 else 0.0
     valid = batch.valids
-    n_valid = torch.clamp(valid.sum(), min=1.0)
+    n_valid = torch.clamp(gsum(valid.sum()), min=1.0)
 
     def values_of():
         return ts.value(ts.value_vs.context(windows, batch.states))
@@ -203,15 +235,16 @@ def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows):
     with torch.no_grad():
         advantages, returns = estimate_advantages(
             batch.rewards, batch.masks, values_of(), hyper.gamma, hyper.tau,
-            valid=valid)
+            valid=valid, group=data)
     exp_w = batch.exps * valid
 
     vparams = ts.opt_value.params
     for _ in range(hyper.num_epochs):
         mse = torch.sum(((values_of() - returns) ** 2) * valid) / n_valid
-        vloss = mse + 1e-3 * sum(torch.sum(p ** 2) for p in vparams)
-        ts.opt_value.step(torch.autograd.grad(vloss, vparams,
-                                              allow_unused=True))
+        vloss = mse + l2_weight * sum(torch.sum(p ** 2) for p in vparams)
+        ts.opt_value.step(meshlib.all_reduce_grads(
+            mesh, torch.autograd.grad(vloss, vparams, allow_unused=True),
+            vparams))
 
     module = _PolicyInput(ts.policy, ts.policy_vs)
     names = [name for name, _ in module.named_parameters()]
@@ -222,16 +255,16 @@ def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows):
 
     pparams = ts.opt_policy.params
     new, info = trpo_step(pparams, policy_in_fn, batch.states, batch.actions,
-                          advantages, exp_w, t_hyper)
+                          advantages, exp_w, t_hyper, gsum)
     with torch.no_grad():
         for p, q in zip(pparams, new):
             p.copy_(q)
     metrics = {"policy_loss": info["surrogate_loss"],
-               "value_loss": vloss.detach(), "kl": info["kl"],
+               "value_loss": gsum(vloss.detach()), "kl": info["kl"],
                "surrogate_after": info["surrogate_after"],
                "ls_success": info["ls_success"].to(torch.float32),
                "n_valid": n_valid,
-               "n_exp": torch.clamp(exp_w.sum(), min=1.0)}
+               "n_exp": torch.clamp(gsum(exp_w.sum()), min=1.0)}
     return ts, metrics
 
 

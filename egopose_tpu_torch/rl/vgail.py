@@ -18,6 +18,7 @@ from torch import nn
 from ..models.mlp import MLP
 from ..models.video_state_net import VideoStateNet
 from ..ops import running_norm
+from ..parallel import mesh as meshlib
 from . import ppo, rollout
 from .agent_ego import AgentEgo
 
@@ -62,19 +63,32 @@ def gail_reward(disc: Discriminator, disc_vs: nn.Module,
 def update_discriminator(disc: Discriminator, disc_vs: nn.Module,
                          opt: ppo.Adam, windows, gen_states, expert_obs,
                          zstat: running_norm.RunningStat,
-                         num_update: int = 10) -> torch.Tensor:
+                         num_update: int = 10, mesh=None) -> torch.Tensor:
     """``num_update`` BCE steps: generator states labelled 1, expert
     observations 0, the expert observations normalized with the sampler's
-    statistics (unclipped).  Returns the loss before the last step."""
+    statistics (unclipped).  ``mesh``: the states are this rank's lanes;
+    each mean is over every rank's and the gradients are summed over the
+    lanes' axis.  Returns the loss before the last step."""
     e_states = running_norm.apply(zstat, expert_obs, clip=None)
     loss = torch.zeros((), dtype=gen_states.dtype, device=gen_states.device)
+    if mesh is None:
+        mean = torch.mean
+    else:
+        axis = mesh.axis_names[0]
+        n = meshlib.all_reduce_sum(mesh, torch.tensor(
+            float(gen_states.shape[0] * gen_states.shape[1]),
+            dtype=gen_states.dtype, device=gen_states.device), axis)
+        mean = lambda x: x.sum() / n
     for _ in range(num_update):
         v_ctx = disc_vs(windows).transpose(0, 1)
         g_o = disc(torch.cat([v_ctx, gen_states], -1))
         e_o = disc(torch.cat([v_ctx, e_states], -1))
-        loss = -F.logsigmoid(g_o).mean() - F.logsigmoid(-e_o).mean()
-        opt.step(torch.autograd.grad(loss, opt.params, allow_unused=True))
+        loss = -mean(F.logsigmoid(g_o)) - mean(F.logsigmoid(-e_o))
+        opt.step(meshlib.all_reduce_grads(mesh, torch.autograd.grad(
+            loss, opt.params, allow_unused=True), opt.params))
         loss = loss.detach()
+    if mesh is not None:
+        loss = meshlib.all_reduce_sum(mesh, loss, axis)
     return loss
 
 
@@ -96,7 +110,7 @@ class AgentVGAIL(AgentEgo):
 
     def __init__(self, model, spec, params, tables, expert, cnn_feat, cfg,
                  batch_lanes: int = 1024, seed: int = 1,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cpu", mesh=None):
         dcfg = dict(getattr(cfg, "discriminator", None) or {})
         self.reward_weight = float(dcfg.get("reward_weight", 1.0))
         if not 0.0 < self.reward_weight <= 1.0:
@@ -104,7 +118,7 @@ class AgentVGAIL(AgentEgo):
         self.discrim_num_update = int(dcfg.get("num_update", 10))
         super().__init__(model, spec, params, tables, expert, cnn_feat, cfg,
                          batch_lanes=batch_lanes, seed=seed, dtype=dtype,
-                         device=device)
+                         device=device, mesh=mesh)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed + 29)
             # its own context net, of the policy's architecture
@@ -115,6 +129,8 @@ class AgentVGAIL(AgentEgo):
                 params.obs_dim + cfg.policy_v_hdim, self.discrim_vs_net,
                 tuple(dcfg.get("hidden_dims", (128, 128))),
                 float(dcfg.get("lr", 1e-4)), dtype, self.device)
+        if mesh is not None:
+            meshlib.replicate(mesh, [self.discrim_net, self.discrim_vs_net])
 
     def update_params(self, batch) -> dict:
         windows = self._windows(batch)
@@ -129,5 +145,6 @@ class AgentVGAIL(AgentEgo):
                                        self.p.env_episode_len)
         metrics["discrim_loss"] = update_discriminator(
             self.discrim_net, self.discrim_vs_net, self.discrim_opt, windows,
-            batch.states, expert_obs, self.zstat, self.discrim_num_update)
+            batch.states, expert_obs, self.zstat, self.discrim_num_update,
+            self.mesh)
         return self._host_metrics(metrics)

@@ -8,8 +8,13 @@
   1e-12, with the vis flags given;
 - eval_pose and eval_forecast parse ``--multi``, ``--vis-model`` and
   ``--multi-vis-model``;
-- every option the port refuses raises NotImplementedError naming its
-  current ROADMAP §1 item (all item 5: the parallel runtime);
+- the parallel runtime's options (ROADMAP §1 item 5: ``--dp-devices`` of
+  ego_mimic, ego_forecast and state_reg, ``--sp-devices`` of ego_mimic and
+  ego_mimic_eval, and ``--render`` under ``--dp-devices``) run on 2 gloo
+  ranks at a tiny size and write their artifact: the checkpoint (a TCN
+  config under ``--sp-devices``), the eval's results pickle, equal to the
+  one-process eval's, or the render sample, equal to the one-process
+  sample;
 - every option that ROADMAP §1 items 2-4 lifted (``--engine mujoco``,
   ``--profile-dir``, ``--render`` and the vis modes and flags of the ten
   eval and training CLIs; ``--ckpt-format orbax``, the a2c and trpo
@@ -135,29 +140,6 @@ def test_eval_pose_matches_jax(tmp_path, monkeypatch, algo):
                 1.0, abs(want["per_take"][take][key]))
 
 
-# (module, extra argv, ROADMAP §1 item) of every option the port refuses
-REFUSALS = [
-    ("ego_mimic", ["--dp-devices", "2"], 5),
-    ("ego_mimic", ["--sp-devices", "2"], 5),
-    ("ego_mimic_eval", ["--sp-devices", "2"], 5),
-    ("ego_forecast", ["--dp-devices", "2"], 5),
-    ("state_reg", ["--dp-devices", "2"], 5),
-]
-
-@pytest.mark.parametrize("module,extra,item", REFUSALS)
-def test_refusal_names_its_roadmap_item(tmp_path, monkeypatch, module, extra,
-                                        item):
-    monkeypatch.chdir(tmp_path)
-    match = re.escape(f"ROADMAP §1 item {item}") + r"(?!\d)"
-    main = importlib.import_module(f"egopose_tpu_torch.cli.{module}").main
-    argv = ["--cfg", "x"] + extra
-    with pytest.raises(NotImplementedError, match=match):
-        main(argv + ["--device", "cpu"]
-             if "--device" in flags(f"egopose_tpu_torch.cli.{module}")
-             else argv)
-
-
-
 # ---------------------------------------------------------------------------
 # The options ROADMAP §1 item 2 lifted: each runs and writes its artifact
 # ---------------------------------------------------------------------------
@@ -171,14 +153,19 @@ VARIANTS = {"save": {"save_model_interval": 2},
             "trpo": {"policy_objective": "trpo"},
             "a2c": {"policy_objective": "a2c"},
             "disc": {"discriminator": {"hidden_dims": [16], "num_update": 2,
-                                       "reward_weight": 0.5}}}
+                                       "reward_weight": 0.5}},
+            "tcn": {"save_model_interval": 2,
+                    **{f"{who}_v_{key}": value for who in ("policy", "value")
+                       for key, value in (("net", "tcn"), ("net_param", {
+                           "size": [16, 128], "dropout": 0.0}))}}}
 
 
 def _tiny_configs(root):
     """config/egomimic/tiny.yml and config/egoforecast/tiny.yml: the
     shipped configs at fr_margin 5, episodes of 10 and one optimizer epoch
     (the profiler records every host op of the update); and their
-    VARIANTS."""
+    VARIANTS.  config/statereg/tiny.yml: subject_03 at the JAX mesh test's
+    widths, chunks of 24 frames, a checkpoint every epoch."""
     em = yaml.safe_load(open(os.path.join(REPO, "config", "egomimic",
                                           "subject_03.yml")))
     ef = yaml.safe_load(open(os.path.join(REPO, "config", "egoforecast",
@@ -189,6 +176,14 @@ def _tiny_configs(root):
         for key in ("meta_id", "state_net_cfg", "state_net_iter"):
             cfg.pop(key, None)
     ef.update(ego_mimic_cfg="tiny", ego_mimic_iter=0)
+    sr = yaml.safe_load(open(os.path.join(REPO, "config", "statereg",
+                                          "subject_03.yml")))
+    sr.update(fr_num=24, fr_margin=3, v_hdim=16, cnn_fdim=12, mlp_dim=[24],
+              save_model_interval=1, seed=5)
+    sr.pop("meta_id", None)
+    os.makedirs(os.path.join(root, "config", "statereg"))
+    with open(os.path.join(root, "config", "statereg", "tiny.yml"), "w") as f:
+        yaml.safe_dump(sr, f)
     for workload, cfg in (("egomimic", em), ("egoforecast", ef)):
         os.makedirs(os.path.join(root, "config", workload))
         for name, extra in [("tiny", {})] + [
@@ -414,3 +409,82 @@ def test_lifted_option_runs(tiny_world, tmp_path, monkeypatch, module,
     finally:
         torch.set_num_threads(n)
     _check_artifact(module, extra, out)
+
+
+# (module, extra argv) of each option of the parallel runtime
+PARALLEL = [
+    ("ego_mimic", ["--cfg", "tiny_save", "--dp-devices", "2"]),
+    ("ego_mimic", ["--cfg", "tiny_tcn", "--sp-devices", "2"]),
+    ("ego_mimic_eval", ["--cfg", "tiny_tcn", "--sp-devices", "2"]),
+    ("ego_forecast", ["--cfg", "tiny_save", "--dp-devices", "2"]),
+    ("state_reg", ["--dp-devices", "2"]),
+    ("ego_mimic", ["--render", "--dp-devices", "2"]),
+    ("ego_forecast", ["--render", "--dp-devices", "2"]),
+]
+SR_TRAIN = ["--cfg", "tiny", "--mode", "train", "--synthetic", "--max-epoch",
+            "1"]
+
+
+def _check_parallel_render(module, main, base):
+    """--render on 2 ranks: ego_mimic's lead rank writes the whole sample,
+    its lanes gathered in the one-process order and equal to the one-
+    process sample's (float32); ego_forecast trains with mean actions,
+    without a log file or scalars."""
+    if module == "ego_forecast":
+        assert _files(os.path.join("results", "egoforecast", "tiny", "log",
+                                   "*")) == []
+        assert not os.path.exists(os.path.join("results", "egoforecast",
+                                               "tiny", "tb"))
+        return
+    _check_artifact(module, ["--render"], None)
+    path = os.path.join(MIMIC_RES, "render_iter_0000.npz")
+    sharded = dict(np.load(path))
+    main(base + ["--render", "--device", "cpu"])
+    one = np.load(path)
+    assert sorted(sharded) == sorted(one.files)
+    for key in one.files:
+        np.testing.assert_allclose(sharded[key], one[key], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("module,extra", PARALLEL)
+def test_parallel_option_runs(tiny_world, tmp_path, monkeypatch, module,
+                              extra):
+    """Each option runs its CLI in 2 gloo ranks (spawned; the call returns
+    None) and writes the artifact the one-process run writes."""
+    import shutil
+    root = str(tmp_path / "run")
+    shutil.copytree(tiny_world, root)
+    monkeypatch.chdir(root)
+    monkeypatch.setenv("EGOPOSE_SYNTHETIC_TAKES", str(TINY_TAKES))
+    monkeypatch.setenv("EGOPOSE_SYNTHETIC_LEN", str(TINY_LEN))
+    monkeypatch.setenv("EGOPOSE_SYN_LEN", "48")    # statereg: 4 chunks
+    main = importlib.import_module(f"egopose_tpu_torch.cli.{module}").main
+    base = SR_TRAIN if module == "state_reg" else BASE[module]
+    argv = base + extra + ["--device", "cpu"]
+    assert main(argv) is None
+    if "--render" in extra:
+        _check_parallel_render(module, main, base)
+        return
+    cfg = extra[1] if extra[0] == "--cfg" else "tiny"
+    if module == "ego_mimic_eval":
+        path = os.path.join("results", "egomimic", cfg, "results",
+                            "iter_0000_test.p")
+        with open(path, "rb") as f:
+            sharded, _ = pickle.load(f)
+        one, _ = main(base + ["--cfg", cfg, "--device", "cpu"])
+        for key in one:
+            for take in one[key]:
+                np.testing.assert_array_equal(sharded[key][take],
+                                              one[key][take])
+        return
+    workload = {"ego_mimic": "egomimic", "ego_forecast": "egoforecast",
+                "state_reg": "statereg"}[module]
+    last = "iter_0001.p" if module == "state_reg" else "iter_0002.p"
+    models = os.path.join("results", workload, cfg, "models")
+    assert os.listdir(models) == [last]
+    log = open(os.path.join("results", workload, cfg, "log",
+                            "log.txt")).read()
+    # the lead rank alone logs
+    assert log.count("epoch    0" if module == "state_reg"
+                     else "T_update") == (1 if module == "state_reg" else 2)

@@ -109,7 +109,7 @@ def test_eval_flags_change_behaviour(tmp_path):
     --show-noise change the rollout and --causal / --fail-safe tag the
     results file, --expert-ind slices one take, --render with --sync
     writes the viewer's replay of the prediction and the synced expert;
-    --sp-devices (not ported) raises."""
+    --sp-devices on the LSTM context nets raises the JAX error."""
     from egopose_tpu_torch.cli import ego_mimic_eval as teval
     base = ["--cfg", "subject_03", "--synthetic", "--iter", "800",
             "--device", "cpu"]
@@ -123,7 +123,7 @@ def test_eval_flags_change_behaviour(tmp_path):
                             ("one", ["--expert-ind", "1"]),
                             ("noise", ["--show-noise"])):
             runs[name] = teval.main(base + extra)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="requires a TCN context net"):
             teval.main(base + ["--sp-devices", "2"])
         tags = sorted(os.listdir(os.path.dirname(RESULT)))
         assert tags == ["iter_0800_test.p", "iter_0800_test_causal.p",

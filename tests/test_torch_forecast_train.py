@@ -177,13 +177,15 @@ def test_eval_window_flags(trained):
 
 
 @pytest.mark.parametrize("main, extra, item", [
-    ("ego_forecast", ["--dp-devices", "2"], "item 5")])
+    ("ego_forecast", ["--dp-devices", "3"], "not divisible")])
 def test_cli_refuses_unported_options(workdir, main, extra, item):
+    """A mesh the lanes do not split over (1024 over 3 ranks) is refused,
+    with the JAX agent's message, before any rank starts."""
     import importlib
     mod = importlib.import_module(f"egopose_tpu_torch.cli.{main}")
     args = ["--egoforecast-cfg", "tiny"] if main == "eval_forecast" \
         else ["--cfg", "tiny", "--synthetic", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         mod.main(args + extra)
 
 

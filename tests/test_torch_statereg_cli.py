@@ -16,7 +16,8 @@ frames, 2 chunks a step), each package in its own temporary directory:
   shapes and mean; features within 1e-5 relative);
 - the port's own options: --data-on-device gives the streamed run's
   losses, --transfer-dtype f16 runs, --profile-dir writes a trace,
-  --dp-devices raises, and without CUDA the CLIs raise;
+  --dp-devices refuses chunks that do not split over the ranks, and
+  without CUDA the CLIs raise;
 - ego_mimic_eval re-anchored on a state net (a state_net_cfg whose
   iter_%04d_inf.p exists) against the JAX eval, float64, 2 takes x 40
   frames, with the naive fail-safe resetting to its predictions at every
@@ -192,8 +193,9 @@ def test_port_training_options(dirs, tmp_path):
     assert abs(runs["f16"][1] - runs["stream"][1]) \
         <= 1e-2 * runs["stream"][1]
     assert os.path.exists(tmp_path / "f16" / "prof" / "trace.json")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsr.main(TRAIN + CPU + ["--dp-devices", "2"])
+    with pytest.raises(SystemExit, match="--batch-chunks 2 not divisible "
+                       "by --dp-devices 3"):
+        tsr.main(TRAIN + CPU + ["--dp-devices", "3"])
 
 
 @pytest.mark.parametrize("cli", ["state_reg", "gen_cnn_feature"])

@@ -112,11 +112,16 @@ def test_cli_resumes_a_jax_checkpoint(workdir):
         "results/egomimic/subject_03/models/iter_0801.p")
 
 
-@pytest.mark.parametrize("extra", [["--dp-devices", "2"],
+@pytest.mark.parametrize("extra", [["--dp-devices", "3"],
                                    ["--sp-devices", "2"]])
 def test_cli_refuses_unported_options(workdir, extra):
+    """The mesh flags the config cannot take are refused, with the JAX
+    agent's messages, before any rank starts: 4 lanes over 3 ranks, and
+    sequence parallelism over LSTM context nets."""
     from egopose_tpu_torch.cli import ego_mimic
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = "not divisible" if extra[0] == "--dp-devices" \
+        else "requires TCN context nets"
+    with pytest.raises(ValueError, match=match):
         ego_mimic.main(ARGS + extra + ["--device", "cpu"])
 
 
