@@ -22,10 +22,14 @@ torch.backends.cudnn.allow_tf32 = False
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another.  Raises when CUDA is asked for (or defaulted to) and absent."""
+    another.  Raises when CUDA is asked for (or defaulted to) and absent.
+    A bare ``cuda`` becomes the current card's index, as the tensors made
+    on it report it (the kernels' wrappers compare devices)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' (--device cpu) to run "
             "the plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

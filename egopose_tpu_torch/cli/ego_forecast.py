@@ -21,17 +21,17 @@ which ``--iter N`` resumes from when it exists (cli/ego_mimic.py).
 
 ``--render`` samples with mean actions (sampled ones with
 ``--show-noise``) and writes no log file and no scalars.
-``--profile-dir DIR`` records the second iteration's sample and update
-under torch.profiler, as the ranges ``sample`` and ``update``, to
+``--profile-dir DIR`` records the set-up and the second iteration under
+torch.profiler, as ego_mimic's does, to DIR/setup_trace.json and
 DIR/trace.json.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import os
-import time
 
 import numpy as np
 
@@ -78,7 +78,7 @@ def main(argv=None, iter_hook=None):
     from ..rl.agent_forecast import AgentForecast, warmstart_from_mimic
     from ..utils.config import EgoForecastConfig, EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
-    from ..utils.profile import profiled
+    from ..utils.profile import profiled, span, timed
     from .ego_mimic import build_world, resume, save
 
     device = resolve_device(args.device)
@@ -108,35 +108,43 @@ def main(argv=None, iter_hook=None):
     if not lead:
         logger.setLevel(logging.WARNING)
     tb = None if args.render or not lead else ScalarWriter(cfg.tb_dir)
-    if device.type == "cuda":
-        nvcc.build_all()              # nvcc at first use, outside the loop
+    setup_trace = contextlib.ExitStack()     # closed when the set-up ends
+    setup_trace.enter_context(profiled(lead and args.profile_dir, device,
+                                       logger, "setup_trace.json"))
+    with span("setup.build_kernels"):
+        if device.type == "cuda":
+            nvcc.build_all()          # nvcc at first use, outside the loop
 
-    spec, model, tables, p, expert, cnn_feat = build_world(
-        cfg, dtype, device, synthetic=args.synthetic)
+    with span("setup.world"):
+        spec, model, tables, p, expert, cnn_feat = build_world(
+            cfg, dtype, device, synthetic=args.synthetic)
     logger.info(f"device: {device}  lanes: {args.batch_lanes}  "
                 f"experts: {tuple(expert.qpos.shape)}")
-    agent = AgentForecast(model, spec, p, tables, expert, cnn_feat, cfg,
-                          batch_lanes=args.batch_lanes, seed=cfg.seed,
-                          dtype=dtype, device=device, mesh=mesh)
-    if args.iter > 0:
-        resume(agent, cfg.model_dir, args.iter, logger)
-    elif cfg.ego_mimic_cfg is not None:
-        em_path = "results/egomimic/%s/models/iter_%04d.p" % (
-            cfg.ego_mimic_cfg, cfg.ego_mimic_iter or 0)
-        if os.path.exists(em_path):
-            mimic_cp = ti.tolerant_pickle_load(em_path)
-            if ti.looks_torch_state_dict(mimic_cp.get("policy_dict")):
-                em_cfg = EgoMimicConfig(cfg.ego_mimic_cfg, create_dirs=False)
-                mimic_cp = ti.import_mimic_checkpoint(
-                    mimic_cp, bi_dir=not em_cfg.causal,
-                    v_net_type=em_cfg.policy_v_net,
-                    value_v_net_type=em_cfg.value_v_net)
-            copied = warmstart_from_mimic(agent, mimic_cp)
-            logger.info("warm start from ego mimic checkpoint: %s (%s)"
-                        % (em_path, copied))
-        else:
-            logger.info("no ego mimic checkpoint at %s, cold start"
-                        % em_path)
+    with span("setup.checkpoint"):
+        agent = AgentForecast(model, spec, p, tables, expert, cnn_feat, cfg,
+                              batch_lanes=args.batch_lanes, seed=cfg.seed,
+                              dtype=dtype, device=device, mesh=mesh)
+        if args.iter > 0:
+            resume(agent, cfg.model_dir, args.iter, logger)
+        elif cfg.ego_mimic_cfg is not None:
+            em_path = "results/egomimic/%s/models/iter_%04d.p" % (
+                cfg.ego_mimic_cfg, cfg.ego_mimic_iter or 0)
+            if os.path.exists(em_path):
+                mimic_cp = ti.tolerant_pickle_load(em_path)
+                if ti.looks_torch_state_dict(mimic_cp.get("policy_dict")):
+                    em_cfg = EgoMimicConfig(cfg.ego_mimic_cfg,
+                                            create_dirs=False)
+                    mimic_cp = ti.import_mimic_checkpoint(
+                        mimic_cp, bi_dir=not em_cfg.causal,
+                        v_net_type=em_cfg.policy_v_net,
+                        value_v_net_type=em_cfg.value_v_net)
+                copied = warmstart_from_mimic(agent, mimic_cp)
+                logger.info("warm start from ego mimic checkpoint: %s (%s)"
+                            % (em_path, copied))
+            else:
+                logger.info("no ego mimic checkpoint at %s, cold start"
+                            % em_path)
+    setup_trace.close()
 
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
@@ -144,29 +152,28 @@ def main(argv=None, iter_hook=None):
         else cfg.max_iter_num
     base_p = p
     for i_iter in range(args.iter, max_iter):
-        cfg.update_adaptive_params(i_iter)
-        agent.set_noise_rate(cfg.adp_noise_rate)
-        agent.set_policy_lr(cfg.adp_policy_lr)
-        if cfg.fix_std:
-            agent.fill_log_std(cfg.adp_log_std)
-        # the episode init noise follows its schedule
-        agent.p = dataclasses.replace(
-            base_p, env_init_noise=float(cfg.adp_init_noise))
-
         # the second iteration: the first is the warm-up
         profiling = args.profile_dir and i_iter == args.iter + 1 and lead
-        with profiled(profiling and args.profile_dir, device, logger):
-            with torch.profiler.record_function("sample"):
-                batch, log = agent.sample(
-                    generator, cfg.min_batch_size,
-                    mean_action=args.render and not args.show_noise)
+        with profiled(profiling and args.profile_dir, device,
+                      logger), span("iteration", i_iter):
+            cfg.update_adaptive_params(i_iter)
+            agent.set_noise_rate(cfg.adp_noise_rate)
+            agent.set_policy_lr(cfg.adp_policy_lr)
+            if cfg.fix_std:
+                agent.fill_log_std(cfg.adp_log_std)
+            # the episode init noise follows its schedule
+            agent.p = dataclasses.replace(
+                base_p, env_init_noise=float(cfg.adp_init_noise))
+
+            batch, log = agent.sample(
+                generator, cfg.min_batch_size,
+                mean_action=args.render and not args.show_noise)
             if cfg.end_reward:
                 agent.end_reward = log.avg_c_reward * cfg.gamma \
                     / (1 - cfg.gamma)
-            t0 = time.time()
-            with torch.profiler.record_function("update"):
+            with timed("update") as update:
                 metrics = agent.update_params(batch)   # reads losses back
-            t_update = time.time() - t0
+        t_update = update.seconds
 
         info_str = np.array2string(log.avg_c_info,
                                    formatter={"all": lambda x: "%.4f" % x},

@@ -28,16 +28,18 @@ writes the checkpoints and the render sample.
 ``--render`` samples one segment (mean actions unless ``--show-noise``)
 instead of training and saves its rewards, actions and lanes' experts as
 results/egomimic/<cfg>/results/render_iter_%04d.npz.  ``--profile-dir DIR``
-records the second iteration's sample and update under torch.profiler,
-as the ranges ``sample`` and ``update``, to DIR/trace.json.
+records the set-up under torch.profiler, with its spans ``setup.*``
+(utils/profile.py), to DIR/setup_trace.json, and the second iteration,
+with its spans ``iteration``, ``sample`` and ``update`` and their
+children, to DIR/trace.json.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import pickle
-import time
 
 import numpy as np
 
@@ -140,7 +142,7 @@ def main(argv=None, iter_hook=None):
     from ..rl.agent_ego import AgentEgo, check_mesh
     from ..utils.config import EgoMimicConfig
     from ..utils.log import ScalarWriter, create_logger
-    from ..utils.profile import profiled
+    from ..utils.profile import profiled, span, timed
 
     device = resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
@@ -170,11 +172,16 @@ def main(argv=None, iter_hook=None):
     if not lead:
         logger.setLevel(logging.WARNING)
     tb = None if args.render or not lead else ScalarWriter(cfg.tb_dir)
-    if device.type == "cuda":
-        nvcc.build_all()              # nvcc at first use, outside the loop
+    setup_trace = contextlib.ExitStack()     # closed when the set-up ends
+    setup_trace.enter_context(profiled(lead and args.profile_dir, device,
+                                       logger, "setup_trace.json"))
+    with span("setup.build_kernels"):
+        if device.type == "cuda":
+            nvcc.build_all()          # nvcc at first use, outside the loop
 
-    spec, model, tables, p, expert, cnn_feat = build_world(
-        cfg, dtype, device, synthetic=args.synthetic)
+    with span("setup.world"):
+        spec, model, tables, p, expert, cnn_feat = build_world(
+            cfg, dtype, device, synthetic=args.synthetic)
     logger.info(f"device: {device}  lanes: {args.batch_lanes}  "
                 f"experts: {tuple(expert.qpos.shape)}")
     if args.num_threads != parser.get_default("num_threads"):
@@ -188,11 +195,13 @@ def main(argv=None, iter_hook=None):
         logger.info("discriminator block present: training with VGAIL "
                     "reward shaping (reward_weight=%s)"
                     % dict(cfg.discriminator).get("reward_weight", 1.0))
-    agent = agent_cls(model, spec, p, tables, expert, cnn_feat, cfg,
-                      batch_lanes=args.batch_lanes, seed=cfg.seed,
-                      dtype=dtype, device=device, mesh=mesh)
-    if args.iter > 0:
-        resume(agent, cfg.model_dir, args.iter, logger)
+    with span("setup.checkpoint"):
+        agent = agent_cls(model, spec, p, tables, expert, cnn_feat, cfg,
+                          batch_lanes=args.batch_lanes, seed=cfg.seed,
+                          dtype=dtype, device=device, mesh=mesh)
+        if args.iter > 0:
+            resume(agent, cfg.model_dir, args.iter, logger)
+    setup_trace.close()
 
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
@@ -202,23 +211,22 @@ def main(argv=None, iter_hook=None):
     max_iter = args.max_iter if args.max_iter is not None \
         else cfg.max_iter_num
     for i_iter in range(args.iter, max_iter):
-        cfg.update_adaptive_params(i_iter)
-        agent.set_noise_rate(cfg.adp_noise_rate)
-        agent.set_policy_lr(cfg.adp_policy_lr)
-        if cfg.fix_std:
-            agent.fill_log_std(cfg.adp_log_std)
-
         # the second iteration: the first is the warm-up
         profiling = args.profile_dir and i_iter == args.iter + 1 and lead
-        with profiled(profiling and args.profile_dir, device, logger):
-            with torch.profiler.record_function("sample"):
-                batch, log = agent.sample(generator, cfg.min_batch_size)
+        with profiled(profiling and args.profile_dir, device,
+                      logger), span("iteration", i_iter):
+            cfg.update_adaptive_params(i_iter)
+            agent.set_noise_rate(cfg.adp_noise_rate)
+            agent.set_policy_lr(cfg.adp_policy_lr)
+            if cfg.fix_std:
+                agent.fill_log_std(cfg.adp_log_std)
+
+            batch, log = agent.sample(generator, cfg.min_batch_size)
             agent.end_reward = log.avg_c_reward * cfg.gamma \
                 / (1 - cfg.gamma)
-            t0 = time.time()
-            with torch.profiler.record_function("update"):
+            with timed("update") as update:
                 metrics = agent.update_params(batch)   # reads losses back
-            t_update = time.time() - t0
+        t_update = update.seconds
 
         info_str = np.array2string(log.avg_c_info,
                                    formatter={"all": lambda x: "%.4f" % x},

@@ -22,7 +22,9 @@ Writes results/egomimic/<cfg>/results/iter_%04d_<data>[_tags].p as
 traj_orig_synced]} keyed by take, the JAX package's layout (tag ``_mj``
 under ``--engine mujoco``); ``--render`` also writes the viewer's replay
 iter_%04d_<data>_replay.npz (utils/render.py::save_replay), and
-``--profile-dir`` a torch.profiler trace of the rollout (trace.json).
+``--profile-dir`` torch.profiler traces of the set-up, with its spans
+``setup.*`` (utils/profile.py; setup_trace.json), and of the rollout, with
+its spans ``eval.step`` and their children (trace.json).
 
 ``--sp-devices M`` time-shards the full-take context encodes over M ranks
 (parallel/seqpar.py; TCN context nets only, and ``--causal`` only with
@@ -34,10 +36,10 @@ results, the others end after the encodes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import pickle
-import time
 
 import numpy as np
 import torch
@@ -119,8 +121,9 @@ def _select(mask, a, b):
 def main(argv=None, step_hook=None, phys_hook=None):
     """``step_hook(t)``, if given, is called after each step t of the timed
     rollout loop (to time or profile a window of steady-state steps);
-    ``phys_hook(t, state, action, new_state)`` after each step's physics,
-    before the fail-safe."""
+    ``phys_hook(t, state, action, new_state)`` before it, with the state the
+    step's physics made before the fail-safe.  Both run outside the step's
+    span ``eval.step``."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg", default=None)
     parser.add_argument("--render", action="store_true", default=False)
@@ -152,7 +155,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
     from ..rl.agent_ego import AgentEgo
     from ..utils.config import EgoMimicConfig
     from ..utils.log import create_logger
-    from ..utils.profile import profiled
+    from ..utils.profile import profiled, span, timed
     from .ego_mimic import build_world
 
     device = resolve_device(args.device)
@@ -184,13 +187,18 @@ def main(argv=None, step_hook=None, phys_hook=None):
         logger.setLevel(logging.WARNING)
     np.random.seed(cfg.seed)
 
-    t0 = time.time()
-    if device.type == "cuda" and args.engine == "torch":
-        substep.build()               # nvcc at first use, outside the loop
-    t_build = time.time() - t0
+    setup_trace = contextlib.ExitStack()     # closed when the set-up ends
+    setup_trace.enter_context(profiled(
+        (mesh is None or mesh.lead) and args.profile_dir, device, logger,
+        "setup_trace.json"))
+    with timed("setup.build_kernels") as build:
+        if device.type == "cuda" and args.engine == "torch":
+            substep.build()           # nvcc at first use, outside the loop
+    t_build = build.seconds
 
-    spec, model, tables, p, expert, cnn_feat = build_world(
-        cfg, dtype, device, synthetic=args.synthetic, data=args.data)
+    with span("setup.world"):
+        spec, model, tables, p, expert, cnn_feat = build_world(
+            cfg, dtype, device, synthetic=args.synthetic, data=args.data)
     takes = cfg.takes[args.data] if cfg.takes[args.data] else \
         [f"take_{i}" for i in range(expert.qpos.shape[0])]
     if args.expert_ind >= 0:
@@ -198,16 +206,17 @@ def main(argv=None, step_hook=None, phys_hook=None):
         expert = type(expert)(*[x[i0:i0 + 1] for x in expert])
         cnn_feat = cnn_feat[i0:i0 + 1]
         takes = [takes[i0] if i0 < len(takes) else f"take_{i0}"]
-    agent = AgentEgo(model, spec, p, tables, expert, cnn_feat, cfg,
-                     batch_lanes=expert.qpos.shape[0], seed=cfg.seed,
-                     dtype=dtype, device=device)
-    cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
-    if os.path.exists(cp_path):
-        logger.info("loading policy net from checkpoint: %s" % cp_path)
-        agent.load(cp_path)
-    else:
-        logger.info("no checkpoint at %s -- evaluating untrained policy"
-                    % cp_path)
+    with span("setup.checkpoint"):
+        agent = AgentEgo(model, spec, p, tables, expert, cnn_feat, cfg,
+                         batch_lanes=expert.qpos.shape[0], seed=cfg.seed,
+                         dtype=dtype, device=device)
+        cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
+        if os.path.exists(cp_path):
+            logger.info("loading policy net from checkpoint: %s" % cp_path)
+            agent.load(cp_path)
+        else:
+            logger.info("no checkpoint at %s -- evaluating untrained policy"
+                        % cp_path)
 
     n_takes = expert.qpos.shape[0]
     m = cfg.fr_margin
@@ -215,15 +224,14 @@ def main(argv=None, step_hook=None, phys_hook=None):
     t_max = int(test_lens.max())
     test_lens_t = torch.as_tensor(test_lens, device=device)
 
-    if getattr(cfg, "state_net_cfg", None) and \
-            os.path.exists(getattr(cfg, "state_net_model", "")):
-        state_preds = state_net_pred(cfg, cnn_feat, device, dtype, mesh)
-        logger.info("loaded state net from %s" % cfg.state_net_model)
-    else:
-        state_preds = torch.stack([kinematic_state_pred(expert, i)
-                                   for i in range(n_takes)])
-
-    with torch.no_grad():
+    with span("setup.encode"), torch.no_grad():
+        if getattr(cfg, "state_net_cfg", None) and \
+                os.path.exists(getattr(cfg, "state_net_model", "")):
+            state_preds = state_net_pred(cfg, cnn_feat, device, dtype, mesh)
+            logger.info("loaded state net from %s" % cfg.state_net_model)
+        else:
+            state_preds = torch.stack([kinematic_state_pred(expert, i)
+                                       for i in range(n_takes)])
         feats = torch.as_tensor(cnn_feat).to(device=device, dtype=dtype)
         if mesh is not None:
             # a causal TCN's causal encode is its full pass
@@ -235,6 +243,7 @@ def main(argv=None, step_hook=None, phys_hook=None):
         else:
             v_out_p = agent.policy_vs_net(feats)
             v_out_v = agent.value_vs_net(feats)
+    setup_trace.close()
 
     if mesh is not None and not mesh.lead:
         return None                   # the lead rank runs the rollout
@@ -254,8 +263,9 @@ def main(argv=None, step_hook=None, phys_hook=None):
                               frame_skip=int(p.frame_skip))
 
         def phys_step(st, action):
-            qp, qv = oracle.control_step(st.qpos, st.qvel,
-                                         envs.apply_action(p, action))
+            with span("physics.control_step"):
+                qp, qv = oracle.control_step(st.qpos, st.qvel,
+                                             envs.apply_action(p, action))
             as_t = lambda x: torch.as_tensor(x).to(device=device,
                                                    dtype=dtype)
             return envs.finish_step(model, p, tables, expert, st, as_t(qp),
@@ -275,58 +285,71 @@ def main(argv=None, step_hook=None, phys_hook=None):
     rec_q, rec_v, rec_r, rec_sync = [], [], [], []
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    t0 = time.time()
-    with torch.no_grad(), profiled(args.profile_dir, device, logger):
+    with torch.no_grad(), profiled(args.profile_dir, device, logger), \
+            timed("eval.rollout") as rollout:
         for t in range(t_max):
-            active = t < test_lens_t
-            e_qpos_t = expert.qpos[:, m + t]
-            if t % sync_interval == 0:
-                # sync_expert: re-anchor the expert's heading/xy to the sim
-                rel_h = Q.quat_mul(M.get_heading_q(st.qpos[:, 3:7]),
-                                   Q.quat_inv(M.get_heading_q(
-                                       e_qpos_t[:, 3:7])))
-                start_p = e_qpos_t[:, :3]
-                sim_p = torch.cat([st.qpos[:, :2], e_qpos_t[:, 2:3]], 1)
-            rec_sync.append(torch.cat([
-                Q.quat_rotate(rel_h, e_qpos_t[:, :3] - start_p) + sim_p,
-                Q.quat_mul(rel_h, e_qpos_t[:, 3:7]), e_qpos_t[:, 7:]], 1))
-            rec_q.append(st.qpos)
-            rec_v.append(st.qvel)
-            zobs = running_norm.apply(agent.zstat, envs.observe(p, st),
-                                      clip=5.0)
-            action, log_std = agent.policy_net(
-                torch.cat([v_out_p[:, t], zobs], -1))
-            if args.show_noise:
-                action = action + torch.exp(log_std) * torch.randn(
-                    action.shape, generator=noise_gen, device=device,
-                    dtype=dtype)
-            value = agent.value_net(torch.cat([v_out_v[:, t], zobs], -1))
-            vstat_n = vstat_n + active
-            vstat_mean = vstat_mean + torch.where(
-                active, (value - vstat_mean) / torch.clamp(vstat_n, min=1),
-                torch.zeros_like(value))
+            with span("eval.step", t):
+                with span("eval.record"):
+                    active = t < test_lens_t
+                    e_qpos_t = expert.qpos[:, m + t]
+                    if t % sync_interval == 0:
+                        # sync_expert: re-anchor the expert's heading/xy to
+                        # the sim
+                        rel_h = Q.quat_mul(
+                            M.get_heading_q(st.qpos[:, 3:7]),
+                            Q.quat_inv(M.get_heading_q(e_qpos_t[:, 3:7])))
+                        start_p = e_qpos_t[:, :3]
+                        sim_p = torch.cat([st.qpos[:, :2],
+                                           e_qpos_t[:, 2:3]], 1)
+                    rec_sync.append(torch.cat([
+                        Q.quat_rotate(rel_h, e_qpos_t[:, :3] - start_p)
+                        + sim_p, Q.quat_mul(rel_h, e_qpos_t[:, 3:7]),
+                        e_qpos_t[:, 7:]], 1))
+                    rec_q.append(st.qpos)
+                    rec_v.append(st.qvel)
+                with span("env.filter"):
+                    zobs = running_norm.apply(agent.zstat,
+                                              envs.observe(p, st), clip=5.0)
+                with span("nets.policy"):
+                    action, log_std = agent.policy_net(
+                        torch.cat([v_out_p[:, t], zobs], -1))
+                    if args.show_noise:
+                        action = action + torch.exp(log_std) * torch.randn(
+                            action.shape, generator=noise_gen,
+                            device=device, dtype=dtype)
+                with span("nets.value"):
+                    value = agent.value_net(
+                        torch.cat([v_out_v[:, t], zobs], -1))
+                    vstat_n = vstat_n + active
+                    vstat_mean = vstat_mean + torch.where(
+                        active, (value - vstat_mean)
+                        / torch.clamp(vstat_n, min=1),
+                        torch.zeros_like(value))
 
-            new_st, out = phys_step(st, action)
+                phys_st, out = phys_step(st, action)
+                with span("eval.failsafe"):
+                    if args.fail_safe == "valuefs":
+                        trigger = value < 0.6 * vstat_mean
+                    elif args.fail_safe == "naivefs":
+                        trigger = out.fail
+                    else:
+                        trigger = torch.zeros_like(active)
+                    trigger = trigger & active & (t + 1 < test_lens_t)
+                    resetted = reset_to_pred(p, tables, phys_st,
+                                             state_preds[:, m + t + 1])
+                    new_st = _select(trigger, resetted, phys_st)
+                    # frozen once inactive
+                    new_st = _select(active, new_st, st)
+                    n_reset = n_reset + trigger.to(torch.int64)
+                rec_r.append(out.reward)
             if phys_hook is not None:
-                phys_hook(t, st, action, new_st)
-            if args.fail_safe == "valuefs":
-                trigger = value < 0.6 * vstat_mean
-            elif args.fail_safe == "naivefs":
-                trigger = out.fail
-            else:
-                trigger = torch.zeros_like(active)
-            trigger = trigger & active & (t + 1 < test_lens_t)
-            resetted = reset_to_pred(p, tables, new_st,
-                                     state_preds[:, m + t + 1])
-            new_st = _select(trigger, resetted, new_st)
-            st = _select(active, new_st, st)        # frozen once inactive
-            n_reset = n_reset + trigger.to(torch.int64)
-            rec_r.append(out.reward)
+                phys_hook(t, st, action, phys_st)
+            st = new_st
             if step_hook is not None:
                 step_hook(t)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    wall = time.time() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    wall = rollout.seconds
     n_frames = int(test_lens.sum())
     logger.info("eval rollout: %d frames over %d takes on %s -- kernel "
                 "build %.2fs, execute %.2fs = %.0f frames/s"

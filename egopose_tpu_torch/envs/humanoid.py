@@ -18,6 +18,7 @@ from ..ops import quat as Q
 from ..physics import engine
 from ..physics.model import PhysicsModel
 from ..physics.spec import ModelSpec
+from ..utils.profile import span
 
 
 class ExpertBatch(NamedTuple):
@@ -333,17 +334,19 @@ def step(model: PhysicsModel, p: EnvParams, tables: BodyTables,
     PD in position mode: the K1 kernel on the card; held torques in torque
     mode: the K2 solve on the card), then obs, reward and fail/end
     detection."""
-    ctrl = apply_action(p, action)
-    if p.action_type == "position":
-        qpos, qvel = engine.pd_control_step(
-            model, state.qpos, state.qvel, ctrl, p.jkp, p.jkd, p.torque_lim,
-            p.frame_skip, p.contact)
-    else:
-        qpos, qvel = engine.torque_control_step(
-            model, state.qpos, state.qvel, ctrl, p.torque_lim, p.frame_skip,
-            p.contact)
-    return finish_step(model, p, tables, expert, state, qpos, qvel,
-                       end_reward, fix_len, fix_head_lb)
+    with span("env.step"):
+        ctrl = apply_action(p, action)
+        with span("physics.control_step"):
+            if p.action_type == "position":
+                qpos, qvel = engine.pd_control_step(
+                    model, state.qpos, state.qvel, ctrl, p.jkp, p.jkd,
+                    p.torque_lim, p.frame_skip, p.contact)
+            else:
+                qpos, qvel = engine.torque_control_step(
+                    model, state.qpos, state.qvel, ctrl, p.torque_lim,
+                    p.frame_skip, p.contact)
+        return finish_step(model, p, tables, expert, state, qpos, qvel,
+                           end_reward, fix_len, fix_head_lb)
 
 
 def finish_step(model: PhysicsModel, p: EnvParams, tables: BodyTables,
@@ -353,41 +356,44 @@ def finish_step(model: PhysicsModel, p: EnvParams, tables: BodyTables,
     absurd-velocity (|qvel| > 1e8) lane ends its episode as a failure, its
     state is reset to the pre-step qpos and zero qvel, and its reward is 0,
     so no NaN reaches obs, reward or the learner."""
-    dt = model.timestep * p.frame_skip
-    cur_t = state.cur_t + 1
-    diverged = ~(torch.isfinite(qpos).all(1) & torch.isfinite(qvel).all(1)) \
-        | (torch.amax(torch.abs(qvel), 1) > 1e8)
-    qpos = torch.where(diverged[:, None], state.qpos, qpos)
-    qvel = torch.where(diverged[:, None], torch.zeros_like(qvel), qvel)
-    bq = get_body_quat(tables, qpos)
-    new_state = EnvState(qpos=qpos, qvel=qvel, cur_t=cur_t,
-                         expert_ind=state.expert_ind,
-                         start_ind=state.start_ind,
-                         prev_qpos=state.qpos, prev_bquat=state.bquat,
-                         bquat=bq, done=state.done)
+    with span("env.finish"):
+        dt = model.timestep * p.frame_skip
+        cur_t = state.cur_t + 1
+        diverged = ~(torch.isfinite(qpos).all(1)
+                     & torch.isfinite(qvel).all(1)) \
+            | (torch.amax(torch.abs(qvel), 1) > 1e8)
+        qpos = torch.where(diverged[:, None], state.qpos, qpos)
+        qvel = torch.where(diverged[:, None], torch.zeros_like(qvel), qvel)
+        bq = get_body_quat(tables, qpos)
+        new_state = EnvState(qpos=qpos, qvel=qvel, cur_t=cur_t,
+                             expert_ind=state.expert_ind,
+                             start_ind=state.start_ind,
+                             prev_qpos=state.qpos, prev_bquat=state.bquat,
+                             bquat=bq, done=state.done)
 
-    kin = engine.fk(model, qpos)
-    head_z = kin.xpos[:, tables.head_body, 2]
-    if fix_head_lb is not None:
-        fail = head_z < fix_head_lb
-    else:
-        fail = head_z < expert.head_height_lb[state.expert_ind] - 0.1
-    fail = fail | diverged
-    ep_len = p.env_episode_len if fix_len is None else fix_len
-    end = cur_t >= ep_len
-    done = fail | end
+        kin = engine.fk(model, qpos)
+        head_z = kin.xpos[:, tables.head_body, 2]
+        if fix_head_lb is not None:
+            fail = head_z < fix_head_lb
+        else:
+            fail = head_z < expert.head_height_lb[state.expert_ind] - 0.1
+        fail = fail | diverged
+        ep_len = p.env_episode_len if fix_len is None else fix_len
+        end = cur_t >= ep_len
+        done = fail | end
 
-    cur_ee = get_ee_pos(tables, kin, qpos, p.obs_coord)
-    reward_fn = REWARD_FUNCS[p.reward_id]
-    reward, comps = reward_fn(p, expert, new_state, cur_ee, dt, end_reward,
-                              end)
-    reward = torch.where(diverged, torch.zeros_like(reward), reward)
-    comps = torch.where(diverged[:, None], torch.zeros_like(comps), comps)
+        cur_ee = get_ee_pos(tables, kin, qpos, p.obs_coord)
+        reward_fn = REWARD_FUNCS[p.reward_id]
+        reward, comps = reward_fn(p, expert, new_state, cur_ee, dt,
+                                  end_reward, end)
+        reward = torch.where(diverged, torch.zeros_like(reward), reward)
+        comps = torch.where(diverged[:, None], torch.zeros_like(comps),
+                            comps)
 
-    obs = get_obs(p, qpos, qvel, cur_t)
-    new_state = new_state._replace(done=done)
-    return new_state, StepOut(obs=obs, reward=reward, done=done, fail=fail,
-                              end=end, reward_info=comps)
+        obs = get_obs(p, qpos, qvel, cur_t)
+        new_state = new_state._replace(done=done)
+        return new_state, StepOut(obs=obs, reward=reward, done=done,
+                                  fail=fail, end=end, reward_info=comps)
 
 
 def observe(p: EnvParams, state: EnvState) -> torch.Tensor:

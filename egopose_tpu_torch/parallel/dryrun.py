@@ -24,13 +24,13 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils.profile import timed
 from . import audit
 from . import mesh as meshlib
 
@@ -158,22 +158,15 @@ def train_step(dp: int = 1, sp: int = 1, dtype: str = "float64",
 
     if first_step:
         envs.step = recording_step
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
-        else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)   # the sample's span starts idle
     try:
         k1 = substep.launches
-        sync()
-        t0 = time.time()
         with audit.record() as rec_sample:
             batch, log = agent.sample(gen, segments * lanes * episode_len)
-        sync()
-        t_sample = time.time() - t0
         k1 = substep.launches - k1
-        t0 = time.time()
-        with audit.record() as rec_update:
-            metrics = agent.update_params(batch)
-        sync()
-        t_update = time.time() - t0
+        with audit.record() as rec_update, timed("update") as update:
+            metrics = agent.update_params(batch)   # reads losses back
     finally:
         envs.step = step
     out = dict(
@@ -188,7 +181,7 @@ def train_step(dp: int = 1, sp: int = 1, dtype: str = "float64",
         audit_sample=audit.collectives_of(rec_sample),
         audit_update=audit.collectives_of(rec_update),
         batch_shard_bytes=max(x.numel() * x.element_size() for x in batch),
-        k1=k1, k5=k5, T_sample=t_sample, T_update=t_update)
+        k1=k1, k5=k5, T_sample=log.sample_time, T_update=update.seconds)
     if first_step:
         out["first_qpos"], out["first_qvel"] = first[0]
     return meshlib.to_cpu(out)

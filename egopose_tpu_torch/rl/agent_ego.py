@@ -25,7 +25,6 @@ import math
 import os
 import shutil
 import tempfile
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +35,7 @@ from ..models.video_state_net import VideoStateNet
 from ..ops import running_norm
 from ..parallel import mesh as meshlib
 from ..parallel import seqpar
+from ..utils.profile import span, timed
 from . import ppo, rollout, trpo
 from .nets import PolicyGaussian, Value
 
@@ -175,29 +175,32 @@ class AgentEgo:
     def sample(self, generator: torch.Generator, min_batch_size: int,
                mean_action: bool = False):
         """ceil(min_batch_size / (lanes * episode_len)) segments, lanes
-        concatenated.  Returns (SegmentBatch, SampleLog)."""
-        t0 = time.time()
-        per_seg = self.batch_lanes * self.p.env_episode_len
-        n_seg = max(1, math.ceil(min_batch_size / per_seg))
-        segs = []
-        for _ in range(n_seg):
-            noise = rollout.draw_segment_noise(
-                self.p, self.expert, self.batch_lanes, self.noise_rate,
-                generator)
-            if self.mesh is not None:
-                # lanes lead the reset fields, follow time in the others
-                noise = rollout.SegmentNoise(*[
-                    meshlib.lane_slice(self.mesh, x, self.data.axis,
-                                       dim=1 if i >= 4 else 0)
-                    for i, x in enumerate(noise)])
-            seg, self.zstat = self._rollout(noise, mean_action)
-            segs.append(seg)
-        batch = rollout.SegmentBatch(*[
-            torch.cat(xs, 1 if xs[0].dim() > 1 else 0)
-            for xs in zip(*segs)]) if n_seg > 1 else segs[0]
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return batch, self._make_log(batch, time.time() - t0)
+        concatenated.  Returns (SegmentBatch, SampleLog); the log's
+        ``sample_time`` is the span ``sample``'s seconds."""
+        with timed("sample") as sample:
+            per_seg = self.batch_lanes * self.p.env_episode_len
+            n_seg = max(1, math.ceil(min_batch_size / per_seg))
+            segs = []
+            for _ in range(n_seg):
+                noise = rollout.draw_segment_noise(
+                    self.p, self.expert, self.batch_lanes, self.noise_rate,
+                    generator)
+                if self.mesh is not None:
+                    # lanes lead the reset fields, follow time in the others
+                    noise = rollout.SegmentNoise(*[
+                        meshlib.lane_slice(self.mesh, x, self.data.axis,
+                                           dim=1 if i >= 4 else 0)
+                        for i, x in enumerate(noise)])
+                with span("rollout.segment"):
+                    seg, self.zstat = self._rollout(noise, mean_action)
+                segs.append(seg)
+            batch = rollout.SegmentBatch(*[
+                torch.cat(xs, 1 if xs[0].dim() > 1 else 0)
+                for xs in zip(*segs)]) if n_seg > 1 else segs[0]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        with span("sample.log"):
+            return batch, self._make_log(batch, sample.seconds)
 
     def _rollout(self, noise, mean_action):
         """One segment from ``noise``: (SegmentBatch, new zstat)."""

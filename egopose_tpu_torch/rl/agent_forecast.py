@@ -15,6 +15,7 @@ import torch
 from .. import envs
 from ..models.video_forecast_net import VideoForecastNet
 from ..ops import running_norm
+from ..utils.profile import span
 from . import rollout
 from .agent_ego import AgentEgo
 from .distributions import diag_gaussian_sample
@@ -44,14 +45,19 @@ def rollout_segment_forecast(model, p: envs.EnvParams, tables,
     ``group`` as in rollout.rollout_segment.  Returns (SegmentBatch, new
     zstat)."""
     t_len = p.env_episode_len
-    state = envs.reset_from(model, p, tables, expert, noise.expert_ind,
-                            noise.start_ind, noise.cur_t0, noise.init_noise)
-    batch = state.qpos.shape[0]
-    windows = gather_past_windows(cnn_feat, state.expert_ind,
-                                  state.start_ind, p.fr_margin)
-    obs0 = envs.observe(p, state)
-    zstat = running_norm.push_batch(zstat, obs0, group=group)
-    zobs = running_norm.apply(zstat, obs0, clip=z_clip)
+    with span("rollout.encode"):
+        state = envs.reset_from(model, p, tables, expert, noise.expert_ind,
+                                noise.start_ind, noise.cur_t0,
+                                noise.init_noise)
+        batch = state.qpos.shape[0]
+        windows = gather_past_windows(cnn_feat, state.expert_ind,
+                                      state.start_ind, p.fr_margin)
+        obs0 = envs.observe(p, state)
+        zstat = running_norm.push_batch(zstat, obs0, group=group)
+        zobs = running_norm.apply(zstat, obs0, clip=z_clip)
+        with torch.no_grad():
+            v_out = policy_vs_net.encode_video(windows)    # (B, v_hdim)
+            fresh = policy_vs_net.s_init_carry((batch,), zobs)
 
     def reanchor(st: envs.EnvState, anchor_noise) -> envs.EnvState:
         ind = st.start_ind + st.cur_t
@@ -66,35 +72,41 @@ def rollout_segment_forecast(model, p: envs.EnvParams, tables,
     st = state
     no_exp = torch.zeros(batch, dtype=torch.bool, device=zobs.device)
     with torch.no_grad():
-        v_out = policy_vs_net.encode_video(windows)        # (B, v_hdim)
-        fresh = policy_vs_net.s_init_carry((batch,), zobs)
         s_carry = fresh
         for t in range(t_len):
-            s_carry, s_out = policy_vs_net.s_step(s_carry, zobs)
-            mean, log_std = policy_net(torch.cat([v_out, s_out], -1))
-            exp = no_exp if mean_action else noise.gate[t]
-            sampled = diag_gaussian_sample(mean, log_std,
-                                           noise=noise.act_noise[t])
-            action = torch.where(exp[:, None], sampled, mean)
-            new_st, out = envs.step(model, p, tables, expert, st, action,
-                                    end_reward)
-            new_st = envs.select_state(
-                out.fail, reanchor(new_st, noise.anchor_noise[t]), new_st)
-            s_carry = tuple(torch.where(out.fail[:, None], a, b)
-                            for a, b in zip(fresh, s_carry))
-            next_obs = torch.where(out.fail[:, None],
-                                   envs.observe(p, new_st), out.obs)
-            zstat = running_norm.push_batch(zstat, next_obs, group=group)
-            recs.append(rollout.SegmentBatch(
-                states=zobs, actions=action, rewards=out.reward,
-                masks=torch.where(out.done, 0.0, 1.0).to(zobs.dtype),
-                exps=exp.to(zobs.dtype),
-                valids=torch.ones(batch, dtype=zobs.dtype,
-                                  device=zobs.device),
-                reward_info=out.reward_info, expert_ind=st.expert_ind,
-                start_ind=st.start_ind, fails=out.fail.to(zobs.dtype)))
-            zobs = running_norm.apply(zstat, next_obs, clip=z_clip)
-            st = new_st
+            with span("rollout.step", t):
+                with span("nets.context_step"):
+                    s_carry, s_out = policy_vs_net.s_step(s_carry, zobs)
+                with span("nets.policy"):
+                    mean, log_std = policy_net(torch.cat([v_out, s_out], -1))
+                    exp = no_exp if mean_action else noise.gate[t]
+                    sampled = diag_gaussian_sample(mean, log_std,
+                                                   noise=noise.act_noise[t])
+                    action = torch.where(exp[:, None], sampled, mean)
+                new_st, out = envs.step(model, p, tables, expert, st, action,
+                                        end_reward)
+                with span("env.reanchor"):
+                    new_st = envs.select_state(
+                        out.fail, reanchor(new_st, noise.anchor_noise[t]),
+                        new_st)
+                    s_carry = tuple(torch.where(out.fail[:, None], a, b)
+                                    for a, b in zip(fresh, s_carry))
+                    next_obs = torch.where(out.fail[:, None],
+                                           envs.observe(p, new_st), out.obs)
+                with span("env.filter_push"):
+                    zstat = running_norm.push_batch(zstat, next_obs,
+                                                    group=group)
+                recs.append(rollout.SegmentBatch(
+                    states=zobs, actions=action, rewards=out.reward,
+                    masks=torch.where(out.done, 0.0, 1.0).to(zobs.dtype),
+                    exps=exp.to(zobs.dtype),
+                    valids=torch.ones(batch, dtype=zobs.dtype,
+                                      device=zobs.device),
+                    reward_info=out.reward_info, expert_ind=st.expert_ind,
+                    start_ind=st.start_ind, fails=out.fail.to(zobs.dtype)))
+                with span("env.filter_apply"):
+                    zobs = running_norm.apply(zstat, next_obs, clip=z_clip)
+                st = new_st
     seg = rollout.SegmentBatch(*[torch.stack(xs) for xs in zip(*recs)])
     return seg._replace(expert_ind=seg.expert_ind[0],
                         start_ind=seg.start_ind[0]), zstat

@@ -49,6 +49,7 @@ from torch import nn
 from ..ops.gae import estimate_advantages
 from ..parallel import mesh as meshlib
 from ..parallel import seqpar
+from ..utils.profile import span
 from .distributions import diag_gaussian_log_prob
 from .rollout import SegmentBatch
 
@@ -232,7 +233,7 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
     def values_of(states, win):
         return ts.value(context(ts.value_vs, win, states))
 
-    with torch.no_grad():
+    with span("update.advantages"), torch.no_grad():
         fixed_log_probs = policy_logprob(batch.states, windows,
                                          batch.actions)
         values = values_of(batch.states, windows)
@@ -245,36 +246,41 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
     def opt_step(d):
         nonlocal stop
         states, actions, win, flp, adv, ret, val, expw = d
-        nv, ne = torch.clamp(gsum(torch.stack([val.sum(), expw.sum()])),
-                             min=1.0)
-        for _ in range(hyper.value_opt_niter):
-            vloss = torch.sum(((values_of(states, win) - ret) ** 2) * val) / nv
-            params = ts.opt_value.params
-            ts.opt_value.step(meshlib.all_reduce_grads(
-                mesh, torch.autograd.grad(vloss, params, allow_unused=True),
-                params, wide))
-        if hyper.kl_target > 0:
-            with torch.no_grad():
-                lr = torch.clamp(policy_logprob(states, win, actions) - flp,
-                                 -20.0, 20.0)
-                approx_kl = gsum(torch.sum(((torch.exp(lr) - 1.0) - lr)
-                                           * expw)) / ne
-            stop = stop | (approx_kl > hyper.kl_target)
-        log_probs = policy_logprob(states, win, actions)
-        if objective == "a2c":
-            ploss = -torch.sum(log_probs * adv * expw) / ne
-        else:
-            ratio = torch.exp(torch.clamp(log_probs - flp, -20.0, 20.0))
-            surr1 = ratio * adv
-            surr2 = torch.clamp(ratio, 1.0 - hyper.clip_epsilon,
-                                1.0 + hyper.clip_epsilon) * adv
-            ploss = -torch.sum(torch.minimum(surr1, surr2) * expw) / ne
-        params = ts.opt_policy.params
-        ts.opt_policy.step(
-            meshlib.all_reduce_grads(
-                mesh, torch.autograd.grad(ploss, params, allow_unused=True),
-                params, wide),
-            skip=stop if hyper.kl_target > 0 else None)
+        with span("update.value_step"):
+            nv, ne = torch.clamp(gsum(torch.stack([val.sum(), expw.sum()])),
+                                 min=1.0)
+            for _ in range(hyper.value_opt_niter):
+                vloss = torch.sum(((values_of(states, win) - ret) ** 2)
+                                  * val) / nv
+                params = ts.opt_value.params
+                ts.opt_value.step(meshlib.all_reduce_grads(
+                    mesh, torch.autograd.grad(vloss, params,
+                                              allow_unused=True),
+                    params, wide))
+        with span("update.policy_step"):
+            if hyper.kl_target > 0:
+                with torch.no_grad():
+                    lr = torch.clamp(policy_logprob(states, win, actions)
+                                     - flp, -20.0, 20.0)
+                    approx_kl = gsum(torch.sum(((torch.exp(lr) - 1.0) - lr)
+                                               * expw)) / ne
+                stop = stop | (approx_kl > hyper.kl_target)
+            log_probs = policy_logprob(states, win, actions)
+            if objective == "a2c":
+                ploss = -torch.sum(log_probs * adv * expw) / ne
+            else:
+                ratio = torch.exp(torch.clamp(log_probs - flp, -20.0, 20.0))
+                surr1 = ratio * adv
+                surr2 = torch.clamp(ratio, 1.0 - hyper.clip_epsilon,
+                                    1.0 + hyper.clip_epsilon) * adv
+                ploss = -torch.sum(torch.minimum(surr1, surr2) * expw) / ne
+            params = ts.opt_policy.params
+            ts.opt_policy.step(
+                meshlib.all_reduce_grads(
+                    mesh, torch.autograd.grad(ploss, params,
+                                              allow_unused=True),
+                    params, wide),
+                skip=stop if hyper.kl_target > 0 else None)
         return ploss.detach(), vloss.detach()
 
     full = (batch.states, batch.actions, windows, fixed_log_probs,
@@ -289,15 +295,18 @@ def ppo_update(ts: TrainState, hyper: PPOHyper, batch: SegmentBatch,
                                device=generator.device)[:n_mb * mb]
                 for _ in range(hyper.num_epochs)])
         for perm in torch.as_tensor(perms, device=valid.device):
-            for idx in perm.reshape(n_mb, mb):
-                idx = local_lanes(mesh, idx, bsz, segments)
-                states, actions, win, flp, adv, ret, val, expw = full
-                losses = opt_step((states[:, idx], actions[:, idx], win[idx],
-                                   flp[:, idx], adv[:, idx], ret[:, idx],
-                                   val[:, idx], expw[:, idx]))
+            with span("update.epoch"):
+                for idx in perm.reshape(n_mb, mb):
+                    idx = local_lanes(mesh, idx, bsz, segments)
+                    states, actions, win, flp, adv, ret, val, expw = full
+                    losses = opt_step((states[:, idx], actions[:, idx],
+                                       win[idx], flp[:, idx], adv[:, idx],
+                                       ret[:, idx], val[:, idx],
+                                       expw[:, idx]))
     else:
         for _ in range(hyper.num_epochs):
-            losses = opt_step(full)
+            with span("update.epoch"):
+                losses = opt_step(full)
     ploss, vloss, n_valid, n_exp = gsum(torch.stack(
         [*losses, valid.sum(), exp_w.sum()]))
     metrics = {"policy_loss": ploss, "value_loss": vloss,

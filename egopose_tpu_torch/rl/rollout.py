@@ -23,6 +23,7 @@ import torch
 
 from .. import envs
 from ..ops import running_norm
+from ..utils.profile import span
 from .distributions import diag_gaussian_sample
 
 
@@ -102,16 +103,18 @@ def rollout_segment(model, p: envs.EnvParams, tables, expert: envs.ExpertBatch,
     parallelism); ``group`` (parallel/mesh.Group) merges the observation
     filter over every rank's lanes.  Returns (SegmentBatch, new zstat)."""
     t_len = p.env_episode_len
-    state = envs.reset_from(model, p, tables, expert, noise.expert_ind,
-                            noise.start_ind, noise.cur_t0, noise.init_noise)
-    batch = state.qpos.shape[0]
-    windows = gather_windows(cnn_feat, state.expert_ind, state.start_ind,
-                             p.fr_margin, t_len)
-    with torch.no_grad():
-        v_out = policy_vs_net(windows)                     # (B,T,v_hdim)
-    obs0 = envs.observe(p, state)
-    zstat = running_norm.push_batch(zstat, obs0, group=group)
-    zobs = running_norm.apply(zstat, obs0, clip=z_clip)
+    with span("rollout.encode"):
+        state = envs.reset_from(model, p, tables, expert, noise.expert_ind,
+                                noise.start_ind, noise.cur_t0,
+                                noise.init_noise)
+        batch = state.qpos.shape[0]
+        windows = gather_windows(cnn_feat, state.expert_ind,
+                                 state.start_ind, p.fr_margin, t_len)
+        with torch.no_grad():
+            v_out = policy_vs_net(windows)                 # (B,T,v_hdim)
+        obs0 = envs.observe(p, state)
+        zstat = running_norm.push_batch(zstat, obs0, group=group)
+        zobs = running_norm.apply(zstat, obs0, clip=z_clip)
 
     def reanchor(st: envs.EnvState, anchor_noise) -> envs.EnvState:
         """Restart from the expert pose at the current frame (same take,
@@ -132,29 +135,37 @@ def rollout_segment(model, p: envs.EnvParams, tables, expert: envs.ExpertBatch,
     no_exp = torch.zeros(batch, dtype=torch.bool, device=zobs.device)
     with torch.no_grad():
         for t in range(t_len):
-            mean, log_std = policy_net(torch.cat([v_out[:, t], zobs], -1))
-            exp = no_exp if mean_action else noise.gate[t]
-            sampled = diag_gaussian_sample(mean, log_std,
-                                           noise=noise.act_noise[t])
-            action = torch.where(exp[:, None], sampled, mean)
-            new_st, out = envs.step(model, p, tables, expert, st, action,
-                                    end_reward)
-            trigger = out.done if p.random_cur_t else out.fail
-            new_st = envs.select_state(
-                trigger, reanchor(new_st, noise.anchor_noise[t]), new_st)
-            next_obs = torch.where(trigger[:, None], envs.observe(p, new_st),
-                                   out.obs)
-            zstat = running_norm.push_batch(zstat, next_obs, group=group)
-            recs.append(SegmentBatch(
-                states=zobs, actions=action, rewards=out.reward,
-                masks=torch.where(out.done, 0.0, 1.0).to(zobs.dtype),
-                exps=exp.to(zobs.dtype),
-                valids=torch.ones(batch, dtype=zobs.dtype,
-                                  device=zobs.device),
-                reward_info=out.reward_info, expert_ind=st.expert_ind,
-                start_ind=st.start_ind, fails=trigger.to(zobs.dtype)))
-            zobs = running_norm.apply(zstat, next_obs, clip=z_clip)
-            st = new_st
+            with span("rollout.step", t):
+                with span("nets.policy"):
+                    mean, log_std = policy_net(
+                        torch.cat([v_out[:, t], zobs], -1))
+                    exp = no_exp if mean_action else noise.gate[t]
+                    sampled = diag_gaussian_sample(mean, log_std,
+                                                   noise=noise.act_noise[t])
+                    action = torch.where(exp[:, None], sampled, mean)
+                new_st, out = envs.step(model, p, tables, expert, st, action,
+                                        end_reward)
+                with span("env.reanchor"):
+                    trigger = out.done if p.random_cur_t else out.fail
+                    new_st = envs.select_state(
+                        trigger, reanchor(new_st, noise.anchor_noise[t]),
+                        new_st)
+                    next_obs = torch.where(trigger[:, None],
+                                           envs.observe(p, new_st), out.obs)
+                with span("env.filter_push"):
+                    zstat = running_norm.push_batch(zstat, next_obs,
+                                                    group=group)
+                recs.append(SegmentBatch(
+                    states=zobs, actions=action, rewards=out.reward,
+                    masks=torch.where(out.done, 0.0, 1.0).to(zobs.dtype),
+                    exps=exp.to(zobs.dtype),
+                    valids=torch.ones(batch, dtype=zobs.dtype,
+                                      device=zobs.device),
+                    reward_info=out.reward_info, expert_ind=st.expert_ind,
+                    start_ind=st.start_ind, fails=trigger.to(zobs.dtype)))
+                with span("env.filter_apply"):
+                    zobs = running_norm.apply(zstat, next_obs, clip=z_clip)
+                st = new_st
     seg = SegmentBatch(*[torch.stack(xs) for xs in zip(*recs)])
     return seg._replace(expert_ind=seg.expert_ind[0],
                         start_ind=seg.start_ind[0]), zstat

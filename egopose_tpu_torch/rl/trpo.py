@@ -33,6 +33,7 @@ from torch.func import functional_call, grad, grad_and_value, jvp, vjp
 
 from ..ops.gae import estimate_advantages
 from ..parallel import mesh as meshlib
+from ..utils.profile import span
 from .distributions import diag_gaussian_log_prob
 
 
@@ -232,7 +233,7 @@ def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows, mesh=None):
     def values_of():
         return ts.value(ts.value_vs.context(windows, batch.states))
 
-    with torch.no_grad():
+    with span("update.advantages"), torch.no_grad():
         advantages, returns = estimate_advantages(
             batch.rewards, batch.masks, values_of(), hyper.gamma, hyper.tau,
             valid=valid, group=data)
@@ -240,11 +241,12 @@ def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows, mesh=None):
 
     vparams = ts.opt_value.params
     for _ in range(hyper.num_epochs):
-        mse = torch.sum(((values_of() - returns) ** 2) * valid) / n_valid
-        vloss = mse + l2_weight * sum(torch.sum(p ** 2) for p in vparams)
-        ts.opt_value.step(meshlib.all_reduce_grads(
-            mesh, torch.autograd.grad(vloss, vparams, allow_unused=True),
-            vparams))
+        with span("update.value_step"):
+            mse = torch.sum(((values_of() - returns) ** 2) * valid) / n_valid
+            vloss = mse + l2_weight * sum(torch.sum(p ** 2) for p in vparams)
+            ts.opt_value.step(meshlib.all_reduce_grads(
+                mesh, torch.autograd.grad(vloss, vparams, allow_unused=True),
+                vparams))
 
     module = _PolicyInput(ts.policy, ts.policy_vs)
     names = [name for name, _ in module.named_parameters()]
@@ -254,11 +256,13 @@ def trpo_update(ts, hyper, t_hyper: TRPOHyper, batch, windows, mesh=None):
                                (windows, batch.states))
 
     pparams = ts.opt_policy.params
-    new, info = trpo_step(pparams, policy_in_fn, batch.states, batch.actions,
-                          advantages, exp_w, t_hyper, gsum)
-    with torch.no_grad():
-        for p, q in zip(pparams, new):
-            p.copy_(q)
+    with span("update.policy_step"):
+        new, info = trpo_step(pparams, policy_in_fn, batch.states,
+                              batch.actions, advantages, exp_w, t_hyper,
+                              gsum)
+        with torch.no_grad():
+            for p, q in zip(pparams, new):
+                p.copy_(q)
     metrics = {"policy_loss": info["surrogate_loss"],
                "value_loss": gsum(vloss.detach()), "kl": info["kl"],
                "surrogate_after": info["surrogate_after"],

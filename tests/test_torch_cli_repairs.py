@@ -20,7 +20,8 @@
   eval and training CLIs; ``--ckpt-format orbax``, the a2c and trpo
   objectives and the discriminator block of the training CLIs) runs on the
   CPU at a tiny size and writes its artifact: a trace.json with the
-  ``sample`` and ``update`` ranges, a render or replay npz, the ``_mj``
+  loop's spans and a setup_trace.json with the set-up's, a render or
+  replay npz, the ``_mj``
   pickle, the vis fallback's npz or the wild composited videos, the native
   checkpoint that a second run resumes with equal nets and optimizers, a
   log with ``discrim_loss``, or an agent trained under the objective.
@@ -292,8 +293,15 @@ def _check_artifact(module, extra, out):
         _check_training_variant(module, extra, out)
     elif arg == "--profile-dir x":
         ranges = _trace_ranges(os.path.join("x", "trace.json"))
+        setup = _trace_ranges(os.path.join("x", "setup_trace.json"))
+        want = {"setup.build_kernels", "setup.world", "setup.checkpoint"}
         if module in ("ego_mimic", "ego_forecast"):
-            assert {"sample", "update"} <= ranges, ranges
+            assert {"iteration", "sample", "update"} <= ranges, ranges
+        else:
+            assert {"eval.step", "env.finish"} <= ranges, ranges
+            want.add("setup.encode")
+        # the set-up's spans in its own trace, and none of the loop's
+        assert want <= setup and not setup & ranges, setup
     elif module == "ego_mimic" and arg == "--render":
         npz = np.load(os.path.join(MIMIC_RES, "render_iter_0000.npz"))
         assert npz["rewards"].shape == (3, 2) and npz["actions"].shape \

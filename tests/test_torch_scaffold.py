@@ -113,3 +113,16 @@ def test_entry_point_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ego_mimic_eval.main(["--cfg", "subject_03", "--synthetic"])
     assert egopose_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_entry_point_cuda_device_has_an_index(monkeypatch):
+    """A bare ``cuda`` (the CLIs' default) resolves to the current card's
+    index, the device its tensors report, so the kernels' device checks
+    pass; an index given stays."""
+    import egopose_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert egopose_tpu_torch.resolve_device(None) == torch.device("cuda", 0)
+    assert egopose_tpu_torch.resolve_device("cuda") == torch.device("cuda", 0)
+    assert egopose_tpu_torch.resolve_device("cuda:1") \
+        == torch.device("cuda", 1)
