@@ -37,6 +37,7 @@ The lead rank logs and writes the checkpoints.
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 import os
 import pickle
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as meshlib
+from ..utils.profile import count, span
 
 
 def get_traj_from_state_pred(state_pred, init_pos, init_heading, dt,
@@ -141,35 +143,40 @@ def train_step(net, opt, of, gt, mask, fr_margin, dtype, marks=None,
     statistics over all T*B frames), the loss masked by ``mask`` (T', B).
     The gradient flows through the CNN's features in two backward passes
     (temporal net and head, then the CNN), the chain rule split where the
-    step's two halves meet.  ``marks(name)``, if given, is called after
-    each section.  ``mesh``: the batch is this rank's chunks; the loss is
-    the global one and the gradients are summed over the ranks.  Returns
-    the loss (a device tensor)."""
+    step's two halves meet.  Each section is a span (``statereg.*``);
+    ``marks(name)``, if given, is called after each.  ``mesh``: the batch
+    is this rank's chunks; the loss is the global one and the gradients
+    are summed over the ranks.  Returns the loss (a device tensor)."""
     mark = marks or (lambda name: None)
-    net.train()
-    frames = pad_flow_channels(of.to(dtype))
-    feats = net.features(frames)
+    with span("statereg.cnn_forward"):
+        net.train()
+        frames = pad_flow_channels(of.to(dtype))
+        feats = net.features(frames)
     mark("cnn_forward")
-    feats_in = feats.detach().requires_grad_()
-    pred = net.temporal(feats_in)[fr_margin:-fr_margin]
-    err = ((gt - pred) ** 2 * mask[..., None]).sum(-1)
-    n_valid = mask.sum() if mesh is None \
-        else meshlib.all_reduce_sum(mesh, mask.sum(), "data")
-    loss = err.sum() / torch.clamp(n_valid, min=1.0)
+    with span("statereg.temporal_forward"):
+        feats_in = feats.detach().requires_grad_()
+        pred = net.temporal(feats_in)[fr_margin:-fr_margin]
+        err = ((gt - pred) ** 2 * mask[..., None]).sum(-1)
+        n_valid = mask.sum() if mesh is None \
+            else meshlib.all_reduce_sum(mesh, mask.sum(), "data")
+        loss = err.sum() / torch.clamp(n_valid, min=1.0)
     mark("temporal_forward")
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("statereg.temporal_backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
     mark("temporal_backward")
-    if net.cnn is not None:
-        feats.backward(feats_in.grad)
+    with span("statereg.cnn_backward"):
+        if net.cnn is not None:
+            feats.backward(feats_in.grad)
     mark("cnn_backward")
-    if mesh is not None:
-        params = [q for q in net.parameters() if q.grad is not None]
-        for q, g in zip(params, meshlib.all_reduce_grads(
-                mesh, [q.grad for q in params], params)):
-            q.grad = g
-        loss = meshlib.all_reduce_sum(mesh, loss.detach(), "data")
-    opt.step()
+    with span("statereg.optimizer"):
+        if mesh is not None:
+            params = [q for q in net.parameters() if q.grad is not None]
+            for q, g in zip(params, meshlib.all_reduce_grads(
+                    mesh, [q.grad for q in params], params)):
+                q.grad = g
+            loss = meshlib.all_reduce_sum(mesh, loss.detach(), "data")
+        opt.step()
     mark("optimizer")
     return loss.detach()
 
@@ -180,9 +187,22 @@ def host_batches(dataset, n_chunks, fr_margin, state_dim, np_dtype,
     padded to fr_num + 30 frames) stacked on the batch axis, the last
     batch filled with zero-masked copies of its first chunk.  Yields
     (flow (T, B, H, W, 2) in ``transfer_dtype``, gt (T', B, D), mask
-    (T', B), frames) as tensors, pinned with ``pin``."""
+    (T', B), frames) as tensors, pinned with ``pin``; each batch's
+    assembly is a span (``statereg.assemble``)."""
     chunk_max = dataset.fr_num + 30
     gt_len = chunk_max - 2 * fr_margin
+
+    def chunk(item):
+        of_np, traj_np, _ = item
+        num = traj_np.shape[0] - 2 * fr_margin
+        if num <= 0:
+            return None
+        of, _ = prepare_of(of_np, chunk_max, np_dtype, pad_channels=False)
+        gt = np.zeros((gt_len, state_dim), np_dtype)
+        gt[:num] = traj_np[fr_margin:-fr_margin, :state_dim]
+        mask = np.zeros(gt_len, np_dtype)
+        mask[:num] = 1.0
+        return of[:, 0], gt, mask, num
 
     def stack(buf):
         to = lambda x: torch.from_numpy(x).pin_memory() if pin \
@@ -191,25 +211,18 @@ def host_batches(dataset, n_chunks, fr_margin, state_dim, np_dtype,
                 to(np.stack([b[1] for b in buf], 1)),
                 to(np.stack([b[2] for b in buf], 1)), sum(b[3] for b in buf))
 
-    buf = []
-    for of_np, traj_np, _ in dataset:
-        num = traj_np.shape[0] - 2 * fr_margin
-        if num <= 0:
-            continue
-        of, _ = prepare_of(of_np, chunk_max, np_dtype, pad_channels=False)
-        gt = np.zeros((gt_len, state_dim), np_dtype)
-        gt[:num] = traj_np[fr_margin:-fr_margin, :state_dim]
-        mask = np.zeros(gt_len, np_dtype)
-        mask[:num] = 1.0
-        buf.append((of[:, 0], gt, mask, num))
-        if len(buf) == n_chunks:
-            yield stack(buf)
-            buf = []
-    if buf:
-        pad = buf[0]
-        buf += [(pad[0], pad[1], np.zeros_like(pad[2]), 0)] \
-            * (n_chunks - len(buf))
-        yield stack(buf)
+    chunks = (c for c in map(chunk, dataset) if c is not None)
+    while True:
+        with span("statereg.assemble"):
+            buf = list(itertools.islice(chunks, n_chunks))
+            if buf:
+                pad = buf[0]
+                buf += [(pad[0], pad[1], np.zeros_like(pad[2]), 0)] \
+                    * (n_chunks - len(buf))
+                batch = stack(buf)
+        if not buf:
+            return
+        yield batch
 
 
 def to_device(batch, device):
@@ -220,9 +233,15 @@ def to_device(batch, device):
     return put(of), put(gt), put(mask), num
 
 
-def main(argv=None, epoch_hook=None):
+def main(argv=None, epoch_hook=None, step_hook=None):
     """``epoch_hook(epoch, seconds, frames, loss, steps)``, if given, is
-    called after each training epoch."""
+    called after each training epoch.  ``step_hook(when, step, net, opt,
+    batch, loss)``, if given, is called before (``when`` "before", loss
+    None) and after ("after", the step's loss, a device tensor) each
+    training step, outside its spans: ``step`` counts the run's steps
+    from 0 over every epoch, ``batch`` is the step's device batch (flow,
+    gt, mask, trained frames).  An exception raised from a hook ends
+    training there."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg", default=None)
     parser.add_argument("--mode", default="train")
@@ -272,7 +291,7 @@ def main(argv=None, epoch_hook=None):
                 f"--dp-devices {args.dp_devices}")
         if not meshlib.in_ranks():
             return meshlib.run_cli(args.dp_devices, main, argv, epoch_hook,
-                                   device=device)
+                                   step_hook, device=device)
         mesh = meshlib.make_mesh(args.dp_devices, device=device)
         device = mesh.device
     lead = mesh is None or mesh.lead
@@ -283,29 +302,32 @@ def main(argv=None, epoch_hook=None):
         logger.setLevel(logging.WARNING)
     tb = ScalarWriter(cfg.tb_dir) if lead else None
 
-    dataset = Dataset(cfg.meta_id, args.data, cfg.fr_num, cfg.iter_method,
-                      cfg.shuffle, 2 * cfg.fr_margin, cfg.num_sample,
-                      synthetic=args.synthetic, seed=cfg.seed)
+    with span("setup.world"):
+        dataset = Dataset(cfg.meta_id, args.data, cfg.fr_num,
+                          cfg.iter_method, cfg.shuffle, 2 * cfg.fr_margin,
+                          cfg.num_sample, synthetic=args.synthetic,
+                          seed=cfg.seed)
     state_dim = (dataset.traj_dim - 1) // 2 + 6 if cfg.pose_only \
         else dataset.traj_dim
     no_cnn = args.mode == "save_inf" or args.test_feat is not None
     frame_shape = dataset.load_of(0, 0, 1).shape[1:3] + (3,) \
         if not no_cnn else (224, 224, 3)
-    net = make_net(cfg, state_dim, no_cnn, frame_shape, cfg.seed).to(
-        device=device, dtype=dtype)
-    if args.iter > 0:
-        cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
-        logger.info("loading model from checkpoint: %s" % cp_path)
-        sd, meta = load_state_net(cfg, cp_path, no_cnn)
-        if args.data != "train":
-            dataset.set_mean_std(meta["mean"], meta["std"])
-        net.load_state_dict(sd)
+    with span("setup.nets"):
+        net = make_net(cfg, state_dim, no_cnn, frame_shape, cfg.seed).to(
+            device=device, dtype=dtype)
+        if args.iter > 0:
+            cp_path = "%s/iter_%04d.p" % (cfg.model_dir, args.iter)
+            logger.info("loading model from checkpoint: %s" % cp_path)
+            sd, meta = load_state_net(cfg, cp_path, no_cnn)
+            if args.data != "train":
+                dataset.set_mean_std(meta["mean"], meta["std"])
+            net.load_state_dict(sd)
     fr_margin = cfg.fr_margin
     chunk_max = cfg.fr_num + 30
 
     if args.mode == "train":
         return _train(args, cfg, net, dataset, state_dim, device, dtype,
-                      np_dtype, logger, tb, epoch_hook, mesh)
+                      np_dtype, logger, tb, epoch_hook, step_hook, mesh)
     if args.mode == "test":
         return _test(args, cfg, net, dataset, state_dim, fr_margin,
                      chunk_max, device, dtype, np_dtype, logger)
@@ -325,7 +347,7 @@ def batch_chunks(args, cfg) -> int:
 
 
 def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
-           logger, tb, epoch_hook, mesh=None):
+           logger, tb, epoch_hook, step_hook=None, mesh=None):
     from ..models.batch_norm import BatchNorm
     from ..utils.profile import profiled
     fr_margin = cfg.fr_margin
@@ -397,6 +419,8 @@ def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
                                    time.time() - t_up))
 
     max_epoch = args.max_epoch or cfg.num_epoch
+    hook = step_hook or (lambda *a: None)
+    step = 0
     for i_epoch in range(args.iter, max_epoch):
         # the second epoch: the first is the warm-up (cuDNN's first calls,
         # the allocator's growth), not the steady state
@@ -404,12 +428,25 @@ def _train(args, cfg, net, dataset, state_dim, device, dtype, np_dtype,
         t0 = time.time()
         n_sample, losses, counts = 0, [], []
         with profiled(profiling and args.profile_dir, device, logger):
-            for of, gt, mask, num in (resident if resident is not None
-                                      else device_batches()):
-                losses.append(train_step(net, opt, of, gt, mask, fr_margin,
-                                         dtype, mesh=mesh))  # read later
+            source = iter(resident if resident is not None
+                          else device_batches())
+            while True:
+                with span("statereg.fetch", step):
+                    batch = next(source, None)
+                if batch is None:
+                    break
+                of, gt, mask, num = batch
+                hook("before", step, net, opt, batch, None)
+                with span("statereg.step", step):
+                    count("statereg.padded_frames",
+                          of.shape[0] * of.shape[1])
+                    loss = train_step(net, opt, of, gt, mask, fr_margin,
+                                      dtype, mesh=mesh)
+                hook("after", step, net, opt, batch, loss)
+                losses.append(loss)      # read at the epoch's end
                 counts.append(num)
                 n_sample += num
+                step += 1
             ep_loss = float(sum(float(l) * c for l, c in zip(losses, counts))
                             / max(n_sample, 1))
         dt_ep = time.time() - t0

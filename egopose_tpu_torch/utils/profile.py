@@ -26,7 +26,12 @@ baseTimeNanoseconds / 1e3`` microseconds), converted by one offset taken
 against ``time.time_ns()`` when the tracer is made.  A root span's key (the
 eval step t, the training iteration) passes to its descendants; a keyed
 span below a keyed ancestor gets the pair (ancestor's key, own key): a
-rollout step inside an iteration is (iteration, t).
+rollout step inside an iteration is (iteration, t).  Each thread nests
+its own spans (a CLI's prefetch thread has roots of its own).
+
+``count(name, n)`` adds ``n`` to a counter while the tracer is on, as a
+span is kept; ``counts()`` returns them (the state-regression step counts
+the frames its CNN runs on, padding included).
 
 ``profiled(profile_dir, device, logger, name)`` records a block under
 torch.profiler into ``<profile_dir>/<name>`` (chrome://tracing or Perfetto
@@ -37,7 +42,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 from typing import Any, NamedTuple
 
@@ -82,8 +89,7 @@ class _Span:
     def __enter__(self):
         tr = self.tracer
         if tr.on or _autograd_profiler._is_profiler_enabled:
-            tr._next_id += 1
-            self.id = tr._next_id
+            self.id = next(tr._ids)
             up = tr._open[-1] if tr._open else None
             self.parent = up.id if up is not None else None
             if up is not None and up.key is not None:
@@ -118,9 +124,19 @@ class Tracer:
     def __init__(self):
         self.on = False
         self._kept = collections.deque(maxlen=MAX_SPANS)
-        self._open = []
-        self._next_id = 0
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._counts = {}
         self._offset_ns = time.time_ns() - time.perf_counter_ns()
+
+    @property
+    def _open(self) -> list:
+        """The spans open on the calling thread, innermost last."""
+        try:
+            return self._local.open
+        except AttributeError:
+            self._local.open = []
+            return self._local.open
 
     def span(self, name: str, key=None):
         if self.on or _autograd_profiler._is_profiler_enabled:
@@ -130,6 +146,13 @@ class Tracer:
     def timed(self, name: str) -> _Span:
         return _Span(self, name)
 
+    def count(self, name: str, n=1):
+        if self.on or _autograd_profiler._is_profiler_enabled:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def counts(self) -> dict:
+        return dict(self._counts)
+
     def enable(self):
         self.on = True
 
@@ -138,6 +161,7 @@ class Tracer:
 
     def clear(self):
         self._kept.clear()
+        self._counts.clear()
 
     def spans(self) -> list:
         off = self._offset_ns
@@ -146,9 +170,9 @@ class Tracer:
 
 
 TRACER = Tracer()
-span, timed = TRACER.span, TRACER.timed
-enable, disable, clear, spans = TRACER.enable, TRACER.disable, \
-    TRACER.clear, TRACER.spans
+span, timed, count = TRACER.span, TRACER.timed, TRACER.count
+enable, disable, clear, spans, counts = TRACER.enable, TRACER.disable, \
+    TRACER.clear, TRACER.spans, TRACER.counts
 
 
 @contextlib.contextmanager
