@@ -76,7 +76,8 @@ any failure exits non-zero:
                iteration; save_model_interval 1 in a scratch copy of the
                config; one iteration, cut from 2 to keep the script's time
                as the phases below grew): K1 launches == control steps, K2
-               launches == 0, finite losses and rewards, per-step reward
+               launches == 0, K6 launches inside the update (its context
+               nets' passes) > 0, finite losses and rewards, per-step reward
                components in (0, 1], iter_0001.p written and loaded back
                into AgentEgo with equal weights; T_sample, T_update,
                env-steps/s
@@ -97,9 +98,10 @@ any failure exits non-zero:
                20-step segment (--episode-len 20, --min-batch 20480): K1
                launches == control steps, K2 == 0, every metric finite, and
                at least one iteration whose line search accepted a step
-               with surrogate_after < policy_loss and 0 < kl <= 1.5 max_kl;
-               T_update beside PPO's (train's 200-step and train_profile's
-               20-step iterations)
+               with surrogate_after < policy_loss and 0 < kl <= 1.5 max_kl,
+               K6 launches inside each update (its context nets under
+               torch.func's grad, vjp and jvp) > 0; T_update beside PPO's
+               (train's 200-step and train_profile's 20-step iterations)
   train_a2c    the same with policy_objective: a2c: the launch checks,
                finite metrics, the policy and its context net moved from
                their seeded initial weights
@@ -139,6 +141,22 @@ any failure exits non-zero:
                of the same work on this card (K2-K4 count the lower
                triangle of A / M as read, all that a Cholesky factor reads);
                also their resources as in k1_time (and systems per block)
+  lstm         K6, the LSTM's time loop (csrc/lstm.cu through
+               models/rnn.py), against the plain loop of cells at the
+               cells' shapes: (B 4, T 150, H 64 both ways) statereg,
+               (B 1024, T 70, H 64 both ways) the ego-mimic update's
+               context nets, (B 1024, T 90, H 128 one way) the forecast's
+               state net: the output, every gradient (x, W_ih, W_hh,
+               b_ih, b_hh) and the torch.func.jvp tangent in f64 within
+               1e-12 (derivatives relative to their largest entry) and in
+               f32 within 1e-5 (output) and 1e-4 (derivatives); then, f32,
+               each kernel's device time a launch (torch.profiler), the
+               pass through K6, the plain loop and torch.nn.LSTM (cuDNN's
+               RNN, the library's time of the same function, timed here
+               alone) with CUDA events (no-grad forward, and forward with
+               backward), each kernel's bound (its hh products at 67
+               TFLOP/s, its reads and writes at 3.35 TB/s: K6_WORDS) and
+               resources
   data_pipeline
                create_humanoid, then convert_clip on the card, on two
                seeded BVH takes (4 s at 120 Hz) in a scratch directory:
@@ -194,7 +212,8 @@ any failure exits non-zero:
                2 iterations (depth cut from 3000), in a scratch directory
                with the committed mimic iter_3000.p: the warm start copied
                the mimic leaves (a run with --max-iter 0), K1 launches ==
-               control steps and no other kernel, finite losses and
+               control steps and no other physics kernel, K6 launches
+               inside the update > 0, finite losses and
                rewards, rewards in [0, 1] (decayed over the episode) and
                their components in (0, 1], iter_0002.p reloads equal;
                T_sample, T_update, env-steps/s
@@ -228,7 +247,9 @@ any failure exits non-zero:
                frames, 4 chunks a step) on the 224x224 synthetic flow, 4
                takes x 240 frames (2 steps an epoch), 4 epochs (depth cut
                from 100), in a scratch directory: finite losses, a loss
-               that falls, the checkpoint written; frames/s per epoch, ms
+               that falls, the checkpoint written, the temporal net through
+               K6 (two launches a step, its forward and backward, at the
+               least); frames/s per epoch, ms
                a step, peak device memory, and one step split by section,
                each in its own torch.profiler session (host batch
                assembly, host->device copy, CNN forward, temporal net
@@ -620,7 +641,9 @@ def time_b2b(fn, n=50, warm=5):
 # The name each kernel has in a torch.profiler trace (a substring of it).
 KERNEL_KEYS = dict(k1="substep_kernel", k1_dense="substep_dense_kernel",
                    k2="spd_solve_kernel", k3="fused_contact_kernel",
-                   k4="pd_fused_kernel", k5="fk_kernel")
+                   k4="pd_fused_kernel", k5="fk_kernel",
+                   k6_fwd="lstm_fwd_kernel", k6_bwd="lstm_bwd_kernel",
+                   k6_jvp="lstm_jvp_kernel")
 
 
 def device_ms(fn, key, n=20, tries=3):
@@ -1374,6 +1397,167 @@ def phase_k5_time(device):
 
 
 # ---------------------------------------------------------------------------
+# K6: the LSTM's time loop
+# ---------------------------------------------------------------------------
+
+# (name, B, T, input width, H, both ways): the cells' LSTM passes
+LSTM_SHAPES = (("statereg", 4, 150, 128, 64, True),
+               ("egomimic_update", 1024, 70, 64, 64, True),
+               ("egoforecast_update", 1024, 90, 64, 128, False))
+
+
+# words a batch row and step of one direction, in units of H, that each
+# kernel of K6 reads and writes: the no-grad forward reads xg and writes h;
+# under autograd it also writes the gates and c; the backward reads dy, the
+# gates and c and writes dg; the tangent reads tg, the gates and c and
+# writes dh
+K6_WORDS = dict(fwd=5, fwd_keep=10, bwd=10, jvp=10)
+
+
+def k6_work(bsz, t_len, hid, ndir, itemsize, kind):
+    """(bytes, flops) of one launch of a kernel of K6 (``kind`` a key of
+    K6_WORDS): W_hh read once and each row's words, and the hh products,
+    2 B 4H H a step and direction (the gate arithmetic not counted)."""
+    rows = t_len * bsz * ndir
+    return (ndir * 4 * hid * hid + rows * K6_WORDS[kind] * hid) * itemsize, \
+        2 * rows * 4 * hid * hid
+
+
+def k6_pass(net, x, r):
+    """(output, gradients of x and every parameter) of sum(net(x) * r)."""
+    net.zero_grad()
+    x = x.detach().requires_grad_(True)
+    out = net(x)
+    (out * r).sum().backward()
+    return out.detach(), [x.grad] + [p.grad.clone() for p in net.parameters()]
+
+
+def k6_tangent(net, x, tangents):
+    """(output, tangent) of net(x) under torch.func.jvp along ``tangents``
+    (of the parameters and x)."""
+    from torch.func import functional_call, jvp
+    params = {k: v.detach() for k, v in net.named_parameters()}
+    return jvp(lambda p, v: functional_call(net, p, (v,)), (params, x),
+               tangents)
+
+
+def phase_lstm(device):
+    import torch
+    from egopose_tpu_torch.models.rnn import RNN
+    from egopose_tpu_torch.ops import lstm
+
+    class Loop(torch.nn.Module):
+        """The plain loop of cells over the net's own cells."""
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            out = self.net.loop(self.net.rnn_f, x, False)
+            if self.net.bi_dir:
+                out = torch.cat([out, self.net.loop(self.net.rnn_b, x, True)],
+                                -1)
+            return out
+
+    def cudnn_lstm(net, d_in, hid, bi):
+        """torch.nn.LSTM (cuDNN's RNN) holding the net's weights: the
+        library's time of the same function, measured here alone."""
+        lib = torch.nn.LSTM(d_in, hid, bidirectional=bi).to(device)
+        with torch.no_grad():
+            for sfx, cell in (("", net.rnn_f),) + (
+                    (("_reverse", net.rnn_b),) if bi else ()):
+                getattr(lib, "weight_ih_l0" + sfx).copy_(cell.ih.weight)
+                getattr(lib, "weight_hh_l0" + sfx).copy_(cell.hh.weight)
+                getattr(lib, "bias_ih_l0" + sfx).copy_(cell.ih.bias)
+                getattr(lib, "bias_hh_l0" + sfx).copy_(cell.hh.bias)
+        return lambda v: lib(v)[0]
+
+    def worst(a, b):
+        return max(float((u - v).abs().max()) / max(float(v.abs().max()),
+                                                    1e-300)
+                   for u, v in zip(a, b))
+
+    out = {}
+    for name, bsz, t_len, d_in, hid, bi in LSTM_SHAPES:
+        ndir = 2 if bi else 1
+        errs = {}
+        for dtype, out_tol, grad_tol in ((torch.float64, 1e-12, 1e-12),
+                                         (torch.float32, 1e-5, 1e-4)):
+            torch.manual_seed(bsz + t_len)
+            net = RNN(d_in, ndir * hid, bi_dir=bi).to(device=device,
+                                                      dtype=dtype)
+            x = torch.randn(t_len, bsz, d_in, device=device, dtype=dtype)
+            r = torch.randn(t_len, bsz, ndir * hid, device=device,
+                            dtype=dtype)
+            tangents = ({k: torch.randn_like(v)
+                         for k, v in net.named_parameters()},
+                        torch.randn_like(x))
+            before = lstm.launches
+            y, g = k6_pass(net, x, r)
+            yt, dt = k6_tangent(net, x, tangents)
+            launched = lstm.launches - before
+            y0, g0 = k6_pass(Loop(net), x, r)
+            yt0, dt0 = k6_tangent(Loop(net), x,
+                                  ({"net." + k: v for k, v in
+                                    tangents[0].items()}, tangents[1]))
+            torch.cuda.synchronize()
+            e_y = max(float((y - y0).abs().max()),
+                      float((yt - yt0).abs().max()))
+            e_g, e_t = worst(g, g0), worst([dt], [dt0])
+            ok = bool(torch.isfinite(y).all() and e_y <= out_tol
+                      and max(e_g, e_t) <= grad_tol and launched == 4)
+            key = str(dtype).split(".")[1]
+            errs[key] = dict(out=e_y, grad=e_g, tangent=e_t,
+                             out_tol=out_tol, grad_tol=grad_tol,
+                             launches=launched, ok=ok)
+            if not ok:
+                emit("lstm", ok=False, shape=name, errors=errs)
+                raise AssertionError(f"K6 disagrees with the loop: {name} "
+                                     f"{errs}")
+        # times, float32 (the last net)
+        loop, lib = Loop(net), cudnn_lstm(net, d_in, hid, bi)
+        with torch.no_grad():
+            lib_gap = float((lib(x) - net(x)).abs().max())
+
+        def fwd(m):
+            with torch.no_grad():
+                m(x)
+
+        def both(m):
+            net.zero_grad()
+            (m(x) * r).sum().backward()
+
+        def tangent():
+            k6_tangent(net, x, tangents)
+
+        rec = dict(shape=name, B=bsz, T=t_len, D=d_in, H=hid, ndir=ndir,
+                   dtype="float32", errors=errs,
+                   fwd_device_ms=device_ms(lambda: fwd(net),
+                                           KERNEL_KEYS["k6_fwd"]),
+                   bwd_device_ms=device_ms(lambda: both(net),
+                                           KERNEL_KEYS["k6_bwd"]),
+                   jvp_device_ms=device_ms(tangent, KERNEL_KEYS["k6_jvp"]),
+                   fwd_ms=time_ms(lambda: fwd(net)),
+                   pass_ms=time_ms(lambda: both(net)),
+                   plain_fwd_ms=time_ms(lambda: fwd(loop), n=5, warm=2),
+                   plain_pass_ms=time_ms(lambda: both(loop), n=5, warm=2),
+                   library_ms=dict(fwd=time_ms(lambda: fwd(lib)),
+                                   pass_ms=time_ms(lambda: both(lib)),
+                                   max_gap_to_k6=lib_gap))
+        for which, kind, work in (("fwd", "fwd", "fwd"),
+                                  ("bwd", "bwd", "bwd"),
+                                  ("jvp", "jvp", "jvp")):
+            b = bound(*k6_work(bsz, t_len, hid, ndir, 4, work))
+            occ = lstm.occupancy(bsz, hid, ndir, torch.float32, kind)
+            rec[which] = dict(b, **resources(occ, -(-bsz // occ[
+                "rows_per_block"]) * ndir))
+        rec["rows_per_thread"] = rec["fwd"]["rows_per_thread"]
+        emit("lstm", ok=True, **rec)
+        out[name] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
 # data processing: create_humanoid, convert_clip and gen_expert
 # ---------------------------------------------------------------------------
 
@@ -1863,6 +2047,26 @@ def run_train(device, args):
     return agent, iters, substep.launches, linalg.launches, time.time() - t0
 
 
+@contextlib.contextmanager
+def k6_in_update():
+    """K6's launches inside each AgentEgo.update_params call (the forecast
+    agent's too), appended to the list it yields."""
+    from egopose_tpu_torch.ops import lstm
+    from egopose_tpu_torch.rl.agent_ego import AgentEgo
+    update, counts = AgentEgo.update_params, []
+
+    def counted(self, batch):
+        before = lstm.launches
+        out = update(self, batch)
+        counts.append(lstm.launches - before)
+        return out
+    AgentEgo.update_params = counted
+    try:
+        yield counts
+    finally:
+        AgentEgo.update_params = update
+
+
 def train_finite(iters):
     keys = ("T_sample", "T_update", "R_avg", "R_min", "R_max",
             "policy_loss", "value_loss")
@@ -1876,7 +2080,8 @@ def phase_train(device):
     import torch
     from egopose_tpu_torch.rl.agent_ego import AgentEgo
     lanes, n_iter = 1024, 1
-    with train_workdir(save_model_interval=1) as cfg:
+    with train_workdir(save_model_interval=1) as cfg, \
+            k6_in_update() as k6:
         agent, iters, k1, k2, wall = run_train(
             device, ["--batch-lanes", str(lanes), "--max-iter", str(n_iter)])
         n_seg = -(-cfg["min_batch_size"] // (lanes * cfg["env_episode_len"]))
@@ -1905,10 +2110,10 @@ def phase_train(device):
                      for it in iters) \
         and iters[0]["R_avg"] <= 1 and iters[0]["R_max"] <= 1
     rec = dict(lanes=lanes, iters=iters, control_steps=steps, k1_launches=k1,
-               k2_launches=k2, wall_s=wall, checkpoint_written=saved,
-               checkpoint_reloads_equal=same)
-    ok = bool(k1 == steps and k2 == 0 and train_finite(iters) and rewards_ok
-              and saved and same)
+               k2_launches=k2, k6_update_launches=k6, wall_s=wall,
+               checkpoint_written=saved, checkpoint_reloads_equal=same)
+    ok = bool(k1 == steps and k2 == 0 and k6 and min(k6) > 0
+              and train_finite(iters) and rewards_ok and saved and same)
     emit("train", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"train out of bounds: {rec}")
@@ -2119,8 +2324,9 @@ def phase_forecast_train(device, cfg):
         eps_len_avg=log.avg_episode_len, **metrics))
     reset_counts()
     t0 = time.time()
-    agent = ego_forecast.main(args + ["--max-iter", str(FORECAST_ITERS)],
-                              iter_hook=hook)
+    with k6_in_update() as k6:
+        agent = ego_forecast.main(args + ["--max-iter", str(FORECAST_ITERS)],
+                                  iter_hook=hook)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
@@ -2152,10 +2358,11 @@ def phase_forecast_train(device, cfg):
     others = {k: v for k, v in counts.items() if k != "k1"}
     rec = dict(lanes=lanes, episode_len=cfg["env_episode_len"],
                iters=iters, control_steps=steps, k1_launches=counts["k1"],
-               other_launches=others, wall_s=wall,
+               other_launches=others, k6_update_launches=k6, wall_s=wall,
                warm_start_verified=warm_ok, checkpoint_written=saved,
                checkpoint_reloads_equal=same)
     ok = bool(counts["k1"] == steps and not any(others.values())
+              and k6 and min(k6) > 0
               and train_finite(iters) and rewards_ok and warm_ok and saved
               and same)
     emit("forecast_train", ok=ok, **rec)
@@ -2629,17 +2836,20 @@ def phase_train_trpo(device, tr=None, tp=None):
     """policy_objective: trpo: the natural-gradient step on every
     iteration's batch; at least one iteration's line search accepted a
     step that lowered the surrogate within 1.5 max_kl (the JAX package's
-    bar, tests/test_trpo_vgail.py)."""
-    agent, rec, ok = run_objective(device, 2,
-                                   policy_objective="trpo")
+    bar, tests/test_trpo_vgail.py); K6 launches inside each update (the
+    context nets' passes under torch.func's grad, vjp and jvp) > 0."""
+    with k6_in_update() as k6:
+        agent, rec, ok = run_objective(device, 2,
+                                       policy_objective="trpo")
     max_kl = float(agent.cfg.max_kl)
     accepted = [it for it in rec["iters"] if it["ls_success"]
                 and it["surrogate_after"] < it["policy_loss"]
                 and 0 < it["kl"] <= 1.5 * max_kl]
     rec.update(max_kl=max_kl, accepted_iters=len(accepted),
                T_update=[it["T_update"] for it in rec["iters"]],
-               **ppo_updates(tr, tp))
-    ok = bool(ok and accepted and agent.objective == "trpo")
+               k6_update_launches=k6, **ppo_updates(tr, tp))
+    ok = bool(ok and accepted and agent.objective == "trpo" and k6
+              and min(k6) > 0)
     emit("train_trpo", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"train_trpo out of bounds: {rec}")
@@ -3214,17 +3424,20 @@ def phase_statereg_train(device, cfg):
     and the profiler's split of one step."""
     import torch
     from egopose_tpu_torch.cli import state_reg
+    from egopose_tpu_torch.ops import lstm
     epochs = []
     hook = lambda e, dt, n, loss, steps: epochs.append(dict(
         epoch=e, seconds=dt, frames=n, frames_per_s=n / dt, loss=loss,
         steps=steps))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
+    k6 = lstm.launches
     net, dataset = state_reg.main(
         ["--cfg", STATEREG, "--mode", "train", "--synthetic", "--max-epoch",
          str(STATEREG_EPOCHS), "--device", str(device)], epoch_hook=hook)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    k6 = lstm.launches - k6
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_epoch = epochs[-1]["steps"]
     # ms a step past the first epoch (cuDNN's first calls, the allocator)
@@ -3234,11 +3447,13 @@ def phase_statereg_train(device, cfg):
     saved = os.path.exists(os.path.join(
         "results", "statereg", STATEREG, "models",
         "iter_%04d.p" % STATEREG_EPOCHS))
+    steps = sum(e["steps"] for e in epochs)
     rec = dict(epochs=epochs, steps_per_epoch=per_epoch, step_ms=step_ms,
                peak_memory_gib=peak, wall_s=wall, step_split=split,
-               checkpoint_written=saved)
+               checkpoint_written=saved, k6_launches=k6)
     ok = bool(np.isfinite(losses).all() and losses[-1] < losses[0]
-              and per_epoch == 2 and saved and np.isfinite(split["loss"]))
+              and per_epoch == 2 and saved and np.isfinite(split["loss"])
+              and k6 >= 2 * steps)
     emit("statereg_train", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"statereg_train out of bounds: {rec}")
@@ -3929,6 +4144,7 @@ def main():
     times3 = phase_fused_time(device, "k3") if want("k3_time") else {}
     times4 = phase_fused_time(device, "k4") if want("k4_time") else {}
     times5 = phase_k5_time(device) if want("k5_time") else {}
+    lstm_rec = phase_lstm(device) if want("lstm") else {}
     if want("data_pipeline"):
         phase_data_pipeline(device)
     ge = phase_gen_expert(device) if want("gen_expert") else None
@@ -4058,7 +4274,17 @@ def main():
                 fused("k5") + ws["k5_launches"] + wfs["k5_launches"]
                 + ge["k5_launches"] + sum(WORLD_K5) + dp2["k5_launches"]
                 + dry["k5_launches"],
-                errs5["float32"], times5[1024])]}), flush=True)
+                errs5["float32"], times5[1024]),
+            dict(name="lstm_recurrence", route="cuda",
+                 source="egopose_tpu_torch/csrc/lstm.cu",
+                 replaces="none: egopose_tpu/models/rnn.py's lax.scan",
+                 launches_in_updates=sum(tr["k6_update_launches"])
+                 + sum(ft["k6_update_launches"]),
+                 **{k: lstm_rec["egomimic_update"][k]
+                    for k in ("errors", "fwd_device_ms", "bwd_device_ms",
+                              "jvp_device_ms", "pass_ms", "plain_pass_ms",
+                              "library_ms", "fwd", "bwd", "jvp")})]}),
+              flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -184,31 +184,39 @@ def train_step(net, opt, of, gt, mask, fr_margin, dtype, marks=None,
 def host_batches(dataset, n_chunks, fr_margin, state_dim, np_dtype,
                  transfer_dtype, pin=False):
     """The epoch's batches on the host: ``n_chunks`` dataset chunks (each
-    padded to fr_num + 30 frames) stacked on the batch axis, the last
-    batch filled with zero-masked copies of its first chunk.  Yields
-    (flow (T, B, H, W, 2) in ``transfer_dtype``, gt (T', B, D), mask
-    (T', B), frames) as tensors, pinned with ``pin``; each batch's
-    assembly is a span (``statereg.assemble``)."""
+    padded to fr_num + 30 frames by repeating its last frame) stacked on
+    the batch axis, the last batch filled with zero-masked copies of its
+    first chunk.  Yields (flow (T, B, H, W, 2) in ``transfer_dtype``, gt
+    (T', B, D), mask (T', B), frames) as tensors, pinned with ``pin``; each
+    batch's assembly is a span (``statereg.assemble``).  The flow is
+    written once, chunk by chunk, straight into the batch's tensor (by
+    torch's threaded copy): the same values as prepare_of's padding
+    stacked and cast, without their three intermediate copies."""
     chunk_max = dataset.fr_num + 30
     gt_len = chunk_max - 2 * fr_margin
+    flow_dtype = torch.from_numpy(np.zeros(0, transfer_dtype)).dtype
 
     def chunk(item):
         of_np, traj_np, _ = item
         num = traj_np.shape[0] - 2 * fr_margin
         if num <= 0:
             return None
-        of, _ = prepare_of(of_np, chunk_max, np_dtype, pad_channels=False)
         gt = np.zeros((gt_len, state_dim), np_dtype)
         gt[:num] = traj_np[fr_margin:-fr_margin, :state_dim]
         mask = np.zeros(gt_len, np_dtype)
         mask[:num] = 1.0
-        return of[:, 0], gt, mask, num
+        return np.asarray(of_np, np_dtype), gt, mask, num
 
     def stack(buf):
+        of = torch.empty((chunk_max, len(buf)) + buf[0][0].shape[1:],
+                         dtype=flow_dtype, pin_memory=pin)
+        for j, b in enumerate(buf):
+            x = torch.from_numpy(b[0])
+            of[:len(x), j] = x
+            of[len(x):, j] = x[-1]
         to = lambda x: torch.from_numpy(x).pin_memory() if pin \
             else torch.from_numpy(x)
-        return (to(np.stack([b[0] for b in buf], 1).astype(transfer_dtype)),
-                to(np.stack([b[1] for b in buf], 1)),
+        return (of, to(np.stack([b[1] for b in buf], 1)),
                 to(np.stack([b[2] for b in buf], 1)), sum(b[3] for b in buf))
 
     chunks = (c for c in map(chunk, dataset) if c is not None)

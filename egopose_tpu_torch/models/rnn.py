@@ -1,11 +1,20 @@
 """LSTM (counterpart of egopose_tpu/models/rnn.py, LSTM path): a
 torch.nn.LSTMCell-compatible cell with gates ordered (i, f, g, o), run over
 time in batch mode, optionally bidirectional, or one step at a time with
-an explicit carry (step mode)."""
+an explicit carry (step mode).
+
+Batch mode dispatches on the input's device: a CUDA tensor takes K6
+(ops/lstm.py), both directions in one launch after one input-projection
+matmul, under autograd and torch.func's grad, vjp and jvp alike (TRPO's
+Fisher products); a CPU tensor runs the loop of cells (``loop``).  K6 has
+no forward over reverse: a jvp of a grad through a CUDA tensor raises.
+Step mode is the cell."""
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..ops import lstm
 
 
 class LSTMCell(nn.Module):
@@ -37,7 +46,8 @@ class RNN(nn.Module):
         h = like.new_zeros(tuple(batch_shape) + (self.hidden_dim,))
         return (h, h)
 
-    def scan_dir(self, cell: LSTMCell, x: torch.Tensor, reverse: bool):
+    def loop(self, cell: LSTMCell, x: torch.Tensor, reverse: bool):
+        """One direction over (T, ..., D) as a loop of cells."""
         carry = self.init_carry(x.shape[1:-1], x)
         steps = range(x.shape[0] - 1, -1, -1) if reverse \
             else range(x.shape[0])
@@ -46,12 +56,30 @@ class RNN(nn.Module):
             carry, out[t] = cell(carry, x[t])
         return torch.stack(out, 0)
 
+    def recurrence(self, x: torch.Tensor, cells, reverse) -> torch.Tensor:
+        """``cells`` over (T, ..., D), their outputs side by side: the input
+        projections as one matmul, then lstm.recurrence."""
+        t, b = x.shape[0], x.shape[1:-1].numel()
+        w_ih = torch.cat([c.ih.weight for c in cells])
+        bias = torch.cat([c.ih.bias + c.hh.bias for c in cells])
+        xg = torch.addmm(bias, x.reshape(t * b, x.shape[-1]), w_ih.t())
+        wt = torch.stack([c.hh.weight.t() for c in cells])
+        out = lstm.recurrence(xg.view(t, b, w_ih.shape[0]), wt, reverse)
+        return out.view(x.shape[:-1] + (len(cells) * self.hidden_dim,))
+
+    def scan_dir(self, cell: LSTMCell, x: torch.Tensor, reverse: bool):
+        if x.is_cuda:
+            return self.recurrence(x, (cell,), (reverse,))
+        return self.loop(cell, x, reverse)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out_f = self.scan_dir(self.rnn_f, x, reverse=False)
+        if x.is_cuda:
+            cells = (self.rnn_f, self.rnn_b) if self.bi_dir else (self.rnn_f,)
+            return self.recurrence(x, cells, (False, True)[:len(cells)])
+        out_f = self.loop(self.rnn_f, x, reverse=False)
         if not self.bi_dir:
             return out_f
-        return torch.cat([out_f, self.scan_dir(self.rnn_b, x, reverse=True)],
-                         -1)
+        return torch.cat([out_f, self.loop(self.rnn_b, x, reverse=True)], -1)
 
     def step(self, carry, x: torch.Tensor):
         """One forward-cell step: (carry, (B, D)) -> (carry, (B, out))."""

@@ -70,10 +70,9 @@ class VideoStateNet(nn.Module):
             + torch.arange(m + 1, device=x.device)[None]
         win = x[idx]                               # (L, m+1, N, F)
         win = win.transpose(0, 1).reshape(m + 1, l_out * n, -1)
-        carry = self.v_net.init_carry((l_out * n,), x)
-        h = None
-        for j in range(m, -1, -1):                 # backward over the window
-            carry, h = self.v_net.rnn_b(carry, win[j])
-        out_b = h.reshape(l_out, n, -1)
+        # the backward pass over every window at once: its output at the
+        # window's first frame
+        out_b = self.v_net.scan_dir(self.v_net.rnn_b, win, reverse=True)[0]
+        out_b = out_b.reshape(l_out, n, -1)
         out = torch.cat([out_f[m:t_len - m], out_b], -1)
         return out.transpose(0, 1)                 # (N, L, v_hdim)

@@ -22,7 +22,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("substep.cu", "spd_solve.cu", "fused_contact.cu", "fk.cu")
+SOURCES = ("substep.cu", "spd_solve.cu", "fused_contact.cu", "fk.cu",
+           "lstm.cu")
 
 
 def _nvcc() -> str:

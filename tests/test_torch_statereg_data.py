@@ -191,3 +191,29 @@ def test_state_reg_config_matches_jax(cfg_id):
     assert vars(tc).keys() == vars(jc).keys()
     for key, val in vars(jc).items():
         assert getattr(tc, key) == val, key
+
+
+@pytest.mark.parametrize("transfer", [np.float32, np.float16])
+def test_host_batches_equal_padded_stack(transfer, monkeypatch):
+    """host_batches writes each chunk's flow straight into the batch: the
+    same flow as prepare_of's padding stacked on the batch axis and cast,
+    the last batch filled with zero-masked copies of its first chunk."""
+    from egopose_tpu_torch.cli.state_reg import host_batches, prepare_of
+    monkeypatch.setenv("EGOPOSE_SYN_LEN", "75")
+    ds = Dataset("x", "train", 24, overlap=6, synthetic=True, seed=3)
+    chunks = _chunks(ds)
+    got = list(host_batches(ds, 4, 3, 20, np.float32, transfer))
+    assert len(got) == -(-len(chunks) // 4) and len(chunks) % 4 != 0
+    for k, (of, gt, mask, num) in enumerate(got):
+        part = chunks[4 * k:4 * k + 4]
+        full = part + [part[0]] * (4 - len(part))
+        want = np.stack([prepare_of(c[0], 54, np.float32,
+                                    pad_channels=False)[0][:, 0]
+                         for c in full], 1).astype(transfer)
+        assert of.dtype == torch.from_numpy(want).dtype
+        np.testing.assert_array_equal(of.numpy(), want)
+        assert gt.shape == (48, 4, 20) and mask.shape == (48, 4)
+        np.testing.assert_array_equal(mask.numpy().sum(0),
+                                      [len(c[0]) - 6 for c in part]
+                                      + [0] * (4 - len(part)))
+        assert num == sum(len(c[0]) - 6 for c in part)
